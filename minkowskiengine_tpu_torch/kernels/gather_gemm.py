@@ -1,0 +1,92 @@
+"""Gather-GEMM: the sparse-convolution forward, ``out[o] = Σ_k X[idx[k,o]] @ W[k]``.
+
+``gather_gemm`` launches the hand-written CUDA kernel
+(``csrc/gather_gemm.cu``) for CUDA tensors and runs the plain PyTorch
+version, ``gather_gemm_reference``, for CPU tensors.  There is no fallback
+between the two: on a CUDA tensor the kernel runs, or the call raises.
+
+It replaces the JAX package's Pallas forward family behind
+``minkowskiengine_tpu/ops/pallas/conv_kernel.py::sparse_conv_fwd_pallas``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import build
+
+
+def gather_gemm_reference(x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch gather-GEMM: per offset, gather rows (an index of -1,
+    or any index outside [0, N_in), gathers a zero row), then
+    matmul-accumulate."""
+    n_in = x.shape[0]
+    padded = torch.cat([x, x.new_zeros(1, x.shape[1])])
+    safe = torch.where((idx >= 0) & (idx < n_in), idx, n_in).long()
+    out = x.new_zeros(idx.shape[1], w.shape[2])
+    for k in range(w.shape[0]):
+        out = out + padded.index_select(0, safe[k]) @ w[k]
+    return out
+
+
+def _check(x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor) -> None:
+    if x.ndim != 2 or w.ndim != 3 or idx.ndim != 2:
+        raise ValueError(
+            f"expected x (N_in, Cin), w (K, Cin, Cout), idx (K, N_out); got "
+            f"{tuple(x.shape)}, {tuple(w.shape)}, {tuple(idx.shape)}"
+        )
+    if w.shape[1] != x.shape[1] or w.shape[0] != idx.shape[0]:
+        raise ValueError(
+            f"shape mismatch: x {tuple(x.shape)}, w {tuple(w.shape)}, "
+            f"idx {tuple(idx.shape)}"
+        )
+    if x.device != w.device or x.device != idx.device:
+        raise ValueError(
+            f"x, w and idx must share a device: {x.device}, {w.device}, {idx.device}"
+        )
+    if x.dtype != torch.float32 or w.dtype != torch.float32:
+        raise TypeError(f"x and w must be float32, got {x.dtype}, {w.dtype}")
+    if idx.dtype != torch.int32:
+        raise TypeError(f"idx must be int32, got {idx.dtype}")
+
+
+def gather_gemm(x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``out[o, :] = Σ_k x[idx[k, o], :] @ w[k]`` with -1 = no pair.
+
+    Args:
+      x: (N_in, Cin) float32.
+      w: (K, Cin, Cout) float32.
+      idx: (K, N_out) int32.
+
+    Returns (N_out, Cout) float32.  ``gather_gemm.launches`` counts the
+    kernel launches (CPU calls run the plain version and do not count).
+    """
+    _check(x, w, idx)
+    if x.device.type == "cpu":
+        return gather_gemm_reference(x, w, idx)
+    if x.device.type != "cuda":
+        raise ValueError(f"gather_gemm runs on CPU or CUDA tensors, got {x.device}")
+    for name, t in (("x", x), ("w", w), ("idx", idx)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    n_in, cin = x.shape
+    k_vol, n_out = idx.shape
+    cout = w.shape[2]
+    if max(n_in, n_out, k_vol, cin, cout) >= 2**31:  # passed as C ints
+        raise ValueError("gather_gemm dimensions must fit in int32")
+    out = torch.empty((n_out, cout), dtype=torch.float32, device=x.device)
+    if n_out == 0 or cout == 0:
+        return out
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = build.library().me_gather_gemm_f32(
+            x.data_ptr(), w.data_ptr(), idx.data_ptr(), out.data_ptr(),
+            n_in, n_out, k_vol, cin, cout, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"gather_gemm kernel launch failed: cudaError {err}")
+    gather_gemm.launches += 1
+    return out
+
+
+gather_gemm.launches = 0

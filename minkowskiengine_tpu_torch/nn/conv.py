@@ -1,0 +1,256 @@
+"""Convolution modules.
+
+Counterpart of ``minkowskiengine_tpu/nn/conv.py`` (reference:
+MinkowskiEngine/MinkowskiConvolution.py:204-634).  The coordinate work
+(output map, kernel map) runs in the cached manager; the feature work is
+``ops.functional.sparse_conv_kmap``, or a plain product for stride-1
+volume-1 kernels.  The JAX package's dense-grid dispatch is TPU-only and
+is not carried over.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Union
+
+import torch
+from torch import nn
+
+from ..coords.manager import CoordinateManager, CoordinateMapKey
+from ..kernel_generator import KernelGenerator
+from ..ops import functional as F
+from ..sparse_tensor import SparseTensor
+from ..types import RegionType
+
+
+def _resolve_out_key(input: SparseTensor, coordinates, out_tensor_stride):
+    """Explicit output coordinates: a key, a SparseTensor, or raw coordinates
+    inserted at the layer's output tensor stride."""
+    if coordinates is None:
+        return None
+    if isinstance(coordinates, CoordinateMapKey):
+        return coordinates
+    if isinstance(coordinates, SparseTensor):
+        return coordinates.coordinate_map_key
+    key, _ = input.coordinate_manager.insert_and_map(coordinates, out_tensor_stride)
+    return key
+
+
+def _expected_out_ts(in_key, kernel_generator, is_transpose):
+    """Output tensor stride of a (transposed) conv layer."""
+    in_ts = in_key.get_tensor_stride()
+    stride = kernel_generator.kernel_stride
+    if is_transpose:
+        return tuple(t // s for t, s in zip(in_ts, stride))
+    return tuple(t * s for t, s in zip(in_ts, stride))
+
+
+def _conv_out_key(
+    manager: CoordinateManager,
+    in_key: CoordinateMapKey,
+    kernel_generator: KernelGenerator,
+    is_transpose: bool,
+    expand_coordinates: bool,
+) -> CoordinateMapKey:
+    """Create or reuse the output coordinate map (reference:
+    src/convolution_cpu.cpp:70-108, src/convolution_transpose_cpu.cpp:70-99)."""
+    in_ts = in_key.get_tensor_stride()
+    stride = kernel_generator.kernel_stride
+    if not is_transpose:
+        if expand_coordinates:
+            out_ts = tuple(t * s for t, s in zip(in_ts, stride))
+            region = kernel_generator.get_kernel(in_ts, False)
+            return manager.stride_region(
+                in_key, region, out_ts, expand_coordinates=True, is_transpose=False
+            )
+        return manager.stride(in_key, stride)
+    for t, s in zip(in_ts, stride):
+        if t % s != 0:
+            raise ValueError(f"Invalid up stride {stride} for tensor stride {in_ts}")
+    out_ts = tuple(t // s for t, s in zip(in_ts, stride))
+    region = kernel_generator.get_kernel(in_ts, True)
+    return manager.stride_region(
+        in_key, region, out_ts, expand_coordinates=expand_coordinates, is_transpose=True
+    )
+
+
+class MinkowskiConvolutionBase(nn.Module):
+    """Shared logic of convolution and transposed convolution.
+
+    Parameters: ``kernel`` (K, Cin, Cout), or (Cin, Cout) for a stride-1
+    volume-1 kernel, and an optional ``bias`` stored (1, Cout).  Both are
+    drawn from U(±1/√(fan·K)) (reference: MinkowskiConvolution.py:330-339)
+    with ``generator`` on the CPU, then moved to ``device``.
+    """
+
+    def __init__(
+        self,
+        in_channels: int,
+        out_channels: int,
+        kernel_size=-1,
+        stride=1,
+        dilation=1,
+        bias: bool = False,
+        kernel_generator: Optional[KernelGenerator] = None,
+        is_transpose: bool = False,
+        expand_coordinates: bool = False,
+        dimension: int = -1,
+        generator: Optional[torch.Generator] = None,
+        device=None,
+    ):
+        super().__init__()
+        if dimension <= 0:
+            raise ValueError(f"Invalid dimension {dimension}")
+        if kernel_generator is None:
+            kernel_generator = KernelGenerator(
+                kernel_size=kernel_size,
+                stride=stride,
+                dilation=dilation,
+                is_transpose=is_transpose,
+                expand_coordinates=expand_coordinates,
+                dimension=dimension,
+            )
+        else:
+            kernel_generator.expand_coordinates = expand_coordinates
+        self.in_channels = int(in_channels)
+        self.out_channels = int(out_channels)
+        self.is_transpose = bool(is_transpose)
+        self.expand_coordinates = bool(expand_coordinates)
+        self.kernel_generator = kernel_generator
+        self.dimension = int(dimension)
+
+        # volume-1 stride-1 kernels collapse to a plain product
+        # (reference: MinkowskiConvolution.py:262-285)
+        self.use_mm = (
+            kernel_generator.kernel_volume == 1
+            and kernel_generator.requires_strided_coordinates
+        )
+        if self.use_mm:
+            kernel_shape = (self.in_channels, self.out_channels)
+        else:
+            kernel_shape = (kernel_generator.kernel_volume, self.in_channels, self.out_channels)
+        fan = self.out_channels if is_transpose else self.in_channels
+        stdv = 1.0 / math.sqrt(fan * kernel_generator.kernel_volume)
+
+        def uniform(shape):
+            t = torch.empty(shape, dtype=torch.float32)
+            return nn.Parameter(t.uniform_(-stdv, stdv, generator=generator).to(device))
+
+        self.kernel = uniform(kernel_shape)
+        self.bias = uniform((1, self.out_channels)) if bias else None
+
+    def _kernel_map(self, input: SparseTensor, out_key: CoordinateMapKey):
+        kg = self.kernel_generator
+        region = kg.get_kernel(input.coordinate_map_key.get_tensor_stride(), self.is_transpose)
+        custom = region.offsets if region.region_type == RegionType.CUSTOM else None
+        return input.coordinate_manager.kernel_map(
+            input.coordinate_map_key,
+            out_key,
+            stride=kg.kernel_stride,
+            kernel_size=kg.kernel_size,
+            dilation=kg.kernel_dilation,
+            region_type=region.region_type,
+            region_offsets=custom,
+            is_transpose=self.is_transpose,
+            is_pool=False,
+        )
+
+    def forward(
+        self,
+        input: SparseTensor,
+        coordinates: Union[None, torch.Tensor, CoordinateMapKey, SparseTensor] = None,
+    ) -> SparseTensor:
+        if not isinstance(input, SparseTensor):
+            raise TypeError("input must be a SparseTensor")
+        if input.D != self.dimension:
+            raise ValueError(f"input dimension {input.D} != layer dimension {self.dimension}")
+        if input.F.shape[1] != self.in_channels:
+            raise ValueError(f"input channels {input.F.shape[1]} != {self.in_channels}")
+
+        feats = input.F
+        if self.use_mm and coordinates is None:
+            outfeat = feats @ self.kernel
+            out_key = input.coordinate_map_key
+        else:
+            out_key = _resolve_out_key(
+                input,
+                coordinates,
+                _expected_out_ts(input.coordinate_map_key, self.kernel_generator, self.is_transpose),
+            )
+            if out_key is None:
+                out_key = _conv_out_key(
+                    input.coordinate_manager,
+                    input.coordinate_map_key,
+                    self.kernel_generator,
+                    self.is_transpose,
+                    self.expand_coordinates,
+                )
+            kmap = self._kernel_map(input, out_key)
+            kernel = self.kernel if self.kernel.ndim == 3 else self.kernel[None]
+            outfeat = F.sparse_conv_kmap(feats.contiguous(), kernel.contiguous(), kmap)
+        if self.bias is not None:
+            outfeat = outfeat + self.bias
+        return SparseTensor(
+            outfeat, coordinate_map_key=out_key, coordinate_manager=input.coordinate_manager
+        )
+
+    def extra_repr(self):
+        kg = self.kernel_generator
+        return (
+            f"in={self.in_channels}, out={self.out_channels}, "
+            f"kernel_size={kg.kernel_size}, stride={kg.kernel_stride}, "
+            f"dilation={kg.kernel_dilation}"
+        )
+
+
+class MinkowskiConvolution(MinkowskiConvolutionBase):
+    """Generalized sparse convolution (reference: MinkowskiConvolution.py:360-451)."""
+
+    def __init__(
+        self,
+        in_channels,
+        out_channels,
+        kernel_size=-1,
+        stride=1,
+        dilation=1,
+        bias=False,
+        kernel_generator=None,
+        expand_coordinates=False,
+        dimension=-1,
+        generator: Optional[torch.Generator] = None,
+        device=None,
+    ):
+        super().__init__(
+            in_channels, out_channels, kernel_size, stride, dilation, bias,
+            kernel_generator, is_transpose=False,
+            expand_coordinates=expand_coordinates,
+            dimension=dimension,
+            generator=generator, device=device,
+        )
+
+
+class MinkowskiConvolutionTranspose(MinkowskiConvolutionBase):
+    """Transposed (upsampling) sparse convolution (reference:
+    MinkowskiConvolution.py:454-536)."""
+
+    def __init__(
+        self,
+        in_channels,
+        out_channels,
+        kernel_size=-1,
+        stride=1,
+        dilation=1,
+        bias=False,
+        kernel_generator=None,
+        expand_coordinates=False,
+        dimension=-1,
+        generator: Optional[torch.Generator] = None,
+        device=None,
+    ):
+        super().__init__(
+            in_channels, out_channels, kernel_size, stride, dilation, bias,
+            kernel_generator, is_transpose=True,
+            expand_coordinates=expand_coordinates,
+            dimension=dimension,
+            generator=generator, device=device,
+        )

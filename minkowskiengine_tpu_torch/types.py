@@ -1,0 +1,61 @@
+"""Core enums and helpers of the PyTorch port.
+
+Counterpart of ``minkowskiengine_tpu/types.py``; only the enums that the
+sparse-convolution path reads are carried over.
+"""
+
+from __future__ import annotations
+
+import enum
+from typing import Sequence, Tuple, Union
+
+
+class RegionType(enum.IntEnum):
+    """Kernel region shapes (reference: src/types.hpp:152-156)."""
+
+    HYPER_CUBE = 0
+    HYPER_CROSS = 1
+    CUSTOM = 2
+    HYBRID = 3  # Python-level only; expanded to CUSTOM at region build time
+
+
+class ConvolutionMode(enum.IntEnum):
+    """Conv algorithm hint (reference: src/types.hpp:164-170).  The port has
+    one sparse-conv path, so every value runs the gather-GEMM."""
+
+    DEFAULT = 0
+    DIRECT_GEMM = 1
+    COPY_GEMM = 2
+
+
+class SparseTensorOperationMode(enum.IntEnum):
+    """Coordinate-manager sharing modes (reference: MinkowskiTensor.py:33-70)."""
+
+    SEPARATE_COORDINATE_MANAGER = 0
+    SHARE_COORDINATE_MANAGER = 1
+
+
+class SparseTensorQuantizationMode(enum.IntEnum):
+    """Duplicate-coordinate feature reduction (reference: MinkowskiTensor.py:47-61)."""
+
+    RANDOM_SUBSAMPLE = 0
+    UNWEIGHTED_AVERAGE = 1
+    UNWEIGHTED_SUM = 2
+    NO_QUANTIZATION = 3
+    MAX_POOL = 4
+    SPLAT_LINEAR_INTERPOLATION = 5
+
+
+StrideLike = Union[int, Sequence[int]]
+
+
+def as_tuple(value: StrideLike, dimension: int) -> Tuple[int, ...]:
+    """Normalize an int-or-sequence stride-like argument to a D-tuple."""
+    if isinstance(value, int):
+        return (int(value),) * dimension
+    value = tuple(int(v) for v in value)
+    if len(value) != dimension:
+        raise ValueError(
+            f"Expected a sequence of length {dimension}, got {value!r}"
+        )
+    return value

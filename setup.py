@@ -38,7 +38,10 @@ setup(
         "(generalized sparse convolution networks on JAX/XLA/Pallas)"
     ),
     packages=find_packages(include=["minkowskiengine_tpu*"]),
-    package_data={"minkowskiengine_tpu.cpp": ["hostengine.cpp"]},
+    package_data={
+        "minkowskiengine_tpu.cpp": ["hostengine.cpp"],
+        "minkowskiengine_tpu_torch": ["csrc/*.cu"],
+    },
     python_requires=">=3.10",
     install_requires=["jax", "flax", "optax", "numpy"],
     extras_require={"ckpt": ["orbax-checkpoint"]},

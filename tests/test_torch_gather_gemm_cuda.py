@@ -1,0 +1,79 @@
+"""The CUDA gather-GEMM kernel against its plain PyTorch version, on the card.
+
+These tests need an NVIDIA Hopper GPU and nvcc; elsewhere they skip.  Run
+them on the card with
+``python -m pytest --noconftest tests/test_torch_gather_gemm_cuda.py``
+(``--noconftest``: tests/conftest.py sets up JAX, which this file does not
+use and the card's machine need not have).
+Tolerance: max |Δ| / max |ref| <= 1e-5, the f32 summation-order bound that
+chip_smoke.py states.
+"""
+
+import pytest
+import torch
+
+from minkowskiengine_tpu_torch.kernels.gather_gemm import gather_gemm, gather_gemm_reference
+from minkowskiengine_tpu_torch.ops.functional import sparse_conv
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda:0")
+
+
+def _inputs(dev, K, n_in, n_out, cin, cout, density=0.7, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(n_in, cin, device=dev, generator=g)
+    w = torch.randn(K, cin, cout, device=dev, generator=g)
+    idx = torch.randint(0, max(n_in, 1), (K, n_out), device=dev, generator=g, dtype=torch.int32)
+    idx[torch.rand(K, n_out, device=dev, generator=g) > density] = -1
+    return x, w, idx
+
+
+@pytest.mark.parametrize(
+    "K,n_in,n_out,cin,cout",
+    [
+        (125, 1000, 1000, 3, 32),   # stem
+        (27, 700, 650, 96, 96),     # ragged Cout tile, rows not a multiple of 64
+        (8, 300, 1200, 256, 128),   # transposed conv: more outputs than inputs
+        (27, 63, 63, 384, 256),
+        (1, 5, 3, 5, 70),
+        (4, 10, 0, 8, 8),           # no output rows
+    ],
+)
+def test_kernel_matches_plain(dev, K, n_in, n_out, cin, cout):
+    x, w, idx = _inputs(dev, K, n_in, n_out, cin, cout)
+    before = gather_gemm.launches
+    got = gather_gemm(x, w, idx)
+    want = gather_gemm_reference(x, w, idx)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (n_out, cout)
+    if n_out:
+        rel = ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)).item()
+        assert rel <= 1e-5
+        assert gather_gemm.launches == before + 1
+
+
+def test_rows_without_pairs_and_out_of_range_are_zero(dev):
+    x, w, idx = _inputs(dev, 8, 100, 200, 16, 16)
+    idx[:, :64] = -1           # a whole tile with no pair: every offset skipped
+    idx[:, 64] = 100           # outside [0, n_in): gathers zero
+    got = gather_gemm(x, w, idx)
+    assert torch.all(got[:65] == 0)
+
+
+def test_rejects_what_it_does_not_take(dev):
+    x, w, idx = _inputs(dev, 8, 100, 200, 16, 16)
+    with pytest.raises(ValueError):
+        gather_gemm(x.t().contiguous().t(), w, idx)  # not contiguous
+    with pytest.raises(TypeError):
+        gather_gemm(x.half(), w, idx)
+    with pytest.raises(ValueError):
+        gather_gemm(x, w.cpu(), idx)
+    with pytest.raises(NotImplementedError):  # forward-only on CUDA for now
+        sparse_conv(x.requires_grad_(), w, idx)
