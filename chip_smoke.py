@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port once on one NVIDIA GPU: MinkUNet34 inference.
+"""Drive the PyTorch/CUDA port once on one NVIDIA GPU: MinkUNet34 inference
+and training.
 
 Run from the root of a checkout, with one CUDA card visible:
 
@@ -16,12 +17,30 @@ Phases, in order; any failure raises and the script exits non-zero:
    level of a 26k-voxel room scan, about 30% of indices -1).
 4. kernel check, real maps: the same comparison on the 55 conv calls of one
    MinkUNet34 forward, captured with forward hooks; both timed per call.
-5. slice: ``MinkUNet34(3, 20, D=3)`` (weights from torch.Generator seed 0,
-   eval mode, no_grad) answers 3 room-scan requests of ~26k voxels, each
-   with a fresh coordinate manager; wall time per request and points/s.
-   The kernel's launch count must rise by >= 55 per request.
+5. inference slice: ``MinkUNet34(3, 20, D=3)`` (weights from
+   torch.Generator seed 0, eval mode, no_grad) answers 3 room-scan requests
+   of ~26k voxels, each with a fresh coordinate manager; wall time per
+   request and points/s.  The kernel's launch count must rise by >= 55 per
+   request.
 6. parity: request 0 again on the CPU plain path with the same weights; the
    logits must agree with the card's.
+7. backward kernels, synthetic maps: at every shape of phase 3, on the row
+   counts of a batch of two scans, ``gather_gemm`` as the input gradient
+   (output gradient, W[k]ᵀ, the inverse of an injective map) and
+   ``conv_dw`` (the weight gradient) against their plain versions.
+8. backward kernels, real maps: the 55 conv calls of one training step
+   (inputs, kernel maps and output gradients captured with hooks); forward,
+   input gradient and weight gradient against their plain versions, per
+   call and summed over the step.
+9. training slice: 4 SGD steps of ``MinkUNet34(3, 20, D=3)`` in train mode,
+   each on a new batch of 2 room scans (seeds 0-7) collated by
+   ``sparse_collate`` into a fresh coordinate manager, cross-entropy against
+   seeded labels; wall time per step and points/s.  ``gather_gemm`` must
+   launch >= 109 times per step (55 forward + 54 input gradients; the stem's
+   input needs none) and ``conv_dw`` 55 times.
+10. gradient parity: step 0 again on the CPU plain path with the same
+   weights; loss, every parameter gradient and the BN running statistics
+   must agree with the card's.
 
 Then a JSON line describing each kernel and, last, the device line.
 """
@@ -36,21 +55,45 @@ import time
 import torch
 
 import minkowskiengine_tpu_torch as MT
+from minkowskiengine_tpu_torch.coords.kernel_map import _invert_matching
 from minkowskiengine_tpu_torch.kernels import build
+from minkowskiengine_tpu_torch.kernels.conv_dw import conv_dw, conv_dw_reference
 from minkowskiengine_tpu_torch.kernels.gather_gemm import gather_gemm, gather_gemm_reference
 from minkowskiengine_tpu_torch.models import MinkUNet34
 from minkowskiengine_tpu_torch.nn.conv import MinkowskiConvolutionBase
+from minkowskiengine_tpu_torch.utils.collation import sparse_collate
 from minkowskiengine_tpu_torch.utils.datasets import room_scan_voxels
 
 # f32 sums of up to K*Cin = 10,368 products taken in another order: the
 # rounding differences grow like sqrt(K*Cin) * 2^-24 relative to the output
-# scale, ~1e-6; 1e-5 leaves an order of magnitude.
+# scale, ~1e-6; 1e-5 leaves an order of magnitude.  The input gradient sums
+# K*Cout <= 6,912 products and is held to the same bound.
 KERNEL_RTOL = 1e-5
+# dW sums over the output rows, up to ~52k for a batch of two scans at
+# stride 1: sqrt(52k) * 2^-24 = 1.4e-5 relative to the output scale; 1e-4
+# leaves a factor of seven.
+DW_RTOL = 1e-4
 # logits after 55 conv layers and 33 batch norms, CUDA kernel vs CPU plain path
 LOGIT_RTOL = 1e-4
+# parameter gradients, max|d|/max|ref| per tensor against a float64 run of
+# the plain path: at random weights in train mode the gradients are badly
+# conditioned (batch-norm backward subtracts batch means; channels of small
+# variance amplify), so the CPU's own float32 run is off float64 by up to
+# ~3e-2 on some tensors (median ~4e-3).  The card's float32 run rounds in
+# another order (K2 sums up to ~10k rows in series per thread) and is held
+# to ten times the CPU float32 error of the same tensor, or of the median
+# tensor where that tensor happens to round better than the median.
+GRAD_FACTOR = 10.0
+LOSS_RTOL = 1e-5
 MIN_LAUNCHES = 55  # K > 1 sparse convs per forward: 1 stem + 4 down + 46 block + 4 up
-SOURCE = "minkowskiengine_tpu_torch/csrc/gather_gemm.cu"
-REPLACES = "minkowskiengine_tpu/ops/pallas/conv_kernel.py:1105"
+MIN_DX_LAUNCHES = MIN_LAUNCHES - 1  # every sparse conv but the stem
+TRAIN_STEPS, BATCH, LR = 4, 2, 0.01
+KERNELS = {
+    "gather_gemm": ("minkowskiengine_tpu_torch/csrc/gather_gemm.cu",
+                    "minkowskiengine_tpu/ops/pallas/conv_kernel.py:1105"),
+    "conv_dw": ("minkowskiengine_tpu_torch/csrc/conv_dw.cu",
+                "minkowskiengine_tpu/ops/pallas/conv_kernel.py:1391"),
+}
 
 # (name, K, Cin, Cout, tensor stride of the input rows, of the output rows)
 SLICE_SHAPES = [("stem", 125, 3, 32, 1, 1)]
@@ -91,27 +134,35 @@ def cuda_ms(fn, warmup=2, iters=10):
     return start.elapsed_time(end) / iters
 
 
-def compare(x, w, idx, label):
-    """Kernel vs plain version on the same CUDA inputs; returns a row."""
-    got = gather_gemm(x, w, idx)
-    want = gather_gemm_reference(x, w, idx)
+def check(kernel, plain, args, rtol, label):
+    """A kernel against its plain version on the same CUDA inputs: error
+    and both times."""
+    got = kernel(*args)
+    want = plain(*args)
     torch.cuda.synchronize()
     abs_err = (got - want).abs().max().item() if want.numel() else 0.0
     scale = want.abs().max().item() if want.numel() else 0.0
     rel = abs_err / scale if scale > 0 else abs_err
-    if not (torch.isfinite(got).all() and rel <= KERNEL_RTOL):
-        raise AssertionError(f"{label}: gather_gemm disagrees, max rel err {rel:.3e}")
+    if not (torch.isfinite(got).all() and rel <= rtol):
+        raise AssertionError(f"{label}: {kernel.__name__} disagrees, max rel err {rel:.3e}")
+    return dict(
+        max_abs_err=abs_err, max_rel_err=rel,
+        ms=cuda_ms(lambda: kernel(*args)), plain_ms=cuda_ms(lambda: plain(*args)),
+    )
+
+
+def compare(x, w, idx, label):
+    """Phases 3-4: gather_gemm against its plain version; returns a row."""
     row = dict(
         label=label, K=w.shape[0], cin=w.shape[1], cout=w.shape[2], n_in=x.shape[0],
-        n_out=idx.shape[1], pairs=int((idx >= 0).sum()), max_abs_err=abs_err,
-        max_rel_err=rel,
-        ms=cuda_ms(lambda: gather_gemm(x, w, idx)),
-        plain_ms=cuda_ms(lambda: gather_gemm_reference(x, w, idx)),
+        n_out=idx.shape[1], pairs=int((idx >= 0).sum()),
+        **check(gather_gemm, gather_gemm_reference, (x, w, idx), KERNEL_RTOL, label),
     )
     print(
         f"  {label:>9} K={row['K']:<3} {row['cin']:>3}->{row['cout']:<3} "
         f"rows {row['n_in']:>5}->{row['n_out']:<5} pairs {row['pairs']:>8}  "
-        f"rel err {rel:.1e}  kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms"
+        f"rel err {row['max_rel_err']:.1e}  kernel {row['ms']:.4f} ms  "
+        f"plain {row['plain_ms']:.4f} ms"
     )
     return row
 
@@ -126,6 +177,77 @@ def answer(model, coords, feats, device):
     with torch.no_grad():
         logits = model(x).F.cpu()
     return logits, time.perf_counter() - t0
+
+
+def collate(scans):
+    """A batch of room scans: batch index in column 0 of the coordinates."""
+    return sparse_collate([c[:, 1:] for c, _ in scans], [f for _, f in scans])
+
+
+def labels_for(step, n):
+    """Seeded 20-class labels, drawn the way bench.py draws them."""
+    return torch.randint(0, 20, (n,), generator=torch.Generator().manual_seed(step))
+
+
+def train_step(model, opt, coords, feats, labels, device):
+    """One SGD step on a fresh coordinate manager; returns (loss, output)."""
+    x = MT.SparseTensor(feats.to(device), coords.to(device))
+    out = model(x)
+    loss = torch.nn.functional.cross_entropy(out.F, labels.to(device))
+    if opt is not None:
+        opt.zero_grad()
+    loss.backward()
+    return loss, out
+
+
+def injective_map(K, n_in, n_out, gen, dev):
+    """(K, n_out) matching, each input row used at most once per offset,
+    about 30% of the slots -1."""
+    m = min(n_in, n_out)
+    idx = torch.full((K, n_out), -1, dtype=torch.int32, device=dev)
+    for k in range(K):
+        dst = torch.randperm(n_out, generator=gen, device=dev)[:m]
+        idx[k, dst] = torch.randperm(n_in, generator=gen, device=dev)[:m].int()
+    idx[torch.rand(K, n_out, device=dev, generator=gen) < 0.3] = -1
+    return idx
+
+
+def backward_rows(x, w, g, in_idx, out_idx_t, label, with_dx=True):
+    """Phases 7-8: forward, input gradient and weight gradient of one conv,
+    each against its plain version."""
+    row = dict(label=label, K=w.shape[0], cin=w.shape[1], cout=w.shape[2],
+               n_in=x.shape[0], n_out=g.shape[0])
+    row["fwd"] = check(gather_gemm, gather_gemm_reference, (x, w, in_idx), KERNEL_RTOL, label)
+    if with_dx:
+        args = (g, w.transpose(1, 2).contiguous(), out_idx_t)
+        row["dx"] = check(gather_gemm, gather_gemm_reference, args, KERNEL_RTOL, label + " dX")
+    row["dw"] = check(conv_dw, conv_dw_reference, (x, g, in_idx), DW_RTOL, label + " dW")
+    parts = "  ".join(
+        f"{p} {row[p]['ms']:.4f}/{row[p]['plain_ms']:.4f} ms ({row[p]['max_rel_err']:.1e})"
+        for p in ("fwd", "dx", "dw") if p in row
+    )
+    print(
+        f"  {label:>9} K={row['K']:<3} {row['cin']:>3}->{row['cout']:<3} "
+        f"rows {row['n_in']:>5}->{row['n_out']:<5}  kernel/plain {parts}"
+    )
+    return row
+
+
+def step_sums(rows):
+    """Per-part sums of kernel and plain ms over a step's calls."""
+    return {
+        p: (sum(r[p]["ms"] for r in rows if p in r), sum(r[p]["plain_ms"] for r in rows if p in r))
+        for p in ("fwd", "dx", "dw")
+    }
+
+
+def median(values: dict) -> float:
+    return sorted(values.values())[len(values) // 2]
+
+
+def rel_diff(got, want):
+    scale = want.abs().max().item()
+    return (got - want).abs().max().item() / scale if scale > 0 else (got - want).abs().max().item()
 
 
 def main() -> int:
@@ -153,7 +275,7 @@ def main() -> int:
     build.library()
     print(f"[2 build] {time.perf_counter() - t0:.1f} s -> {path.name}")
     for line in path.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
+        if "Compiling entry" in line or "registers" in line or "spill" in line:
             print("  " + line.strip())
 
     coords0, feats0 = scan(0)
@@ -196,10 +318,10 @@ def main() -> int:
     plain_ms = sum(r["plain_ms"] for r in real)
     print(f"  sum over one forward: kernel {kernel_ms:.3f} ms, plain {plain_ms:.3f} ms")
 
-    # 5. the slice: three requests, counted
+    # 5. the inference slice: three requests, counted
     requests = [(s, *scan(s)) for s in (0, 1, 2)]
     answers = []
-    gather_gemm.launches = 0
+    gather_gemm.launches = conv_dw.launches = 0
     for seed, coords, feats in requests:
         before = gather_gemm.launches
         logits, secs = answer(model, coords, feats, dev)
@@ -213,7 +335,8 @@ def main() -> int:
             raise AssertionError(f"only {launched} kernel launches in the request")
         if logits.shape != (len(coords), 20) or not torch.isfinite(logits).all():
             raise AssertionError(f"bad logits: shape {tuple(logits.shape)}")
-    launches = gather_gemm.launches
+    if conv_dw.launches:
+        raise AssertionError(f"inference launched conv_dw {conv_dw.launches} times")
 
     # 6. parity with the CPU plain path
     cpu_model = MinkUNet34(3, 20, D=3, generator=torch.Generator().manual_seed(0)).eval()
@@ -228,18 +351,158 @@ def main() -> int:
     print(f"[6 parity] CUDA vs CPU plain-path logits: max|d|/max|ref| = {rel:.2e}")
     if not rel <= LOGIT_RTOL:
         raise AssertionError(f"logits disagree: {rel:.3e} > {LOGIT_RTOL}")
+    del cpu_model, requests, answers
 
-    all_rows = rows + real
+    # the training data: 2 scans per step, seeds 0-7
+    raw = [[scan(BATCH * s + b) for b in range(BATCH)] for s in range(TRAIN_STEPS)]
+    batches = [collate(r) for r in raw]
+    labels = [labels_for(s, len(c)) for s, (c, _) in enumerate(batches)]
+
+    # 7. backward kernels, synthetic maps at the training batch's row counts
+    mgr = MT.CoordinateManager(D=3, device=dev)
+    key, _ = mgr.insert_and_map(batches[0][0])
+    train_rows = {1: mgr.size(key)}
+    for ts in (2, 4, 8, 16):
+        key = mgr.stride(key, 2)
+        train_rows[ts] = mgr.size(key)
+    print(f"[7 backward kernels, synthetic maps] level rows {train_rows}")
+    synth_bwd = []
+    for name, K, cin, cout, ts_in, ts_out in SLICE_SHAPES:
+        n_in, n_out = train_rows[ts_in], train_rows[ts_out]
+        in_idx = injective_map(K, n_in, n_out, gen, dev)
+        x = torch.randn(n_in, cin, device=dev, generator=gen)
+        w = torch.randn(K, cin, cout, device=dev, generator=gen) / (K * cin) ** 0.5
+        g = torch.randn(n_out, cout, device=dev, generator=gen)
+        synth_bwd.append(backward_rows(x, w, g, in_idx, _invert_matching(in_idx, n_in), name))
+
+    # 8. backward kernels on the real maps of one training step
+    model.train()
+    calls, grads = [], {}
+
+    def capture(m, a, o):
+        i = len(calls)
+        calls.append((m, a[0], o))
+        o.F.register_hook(lambda g: grads.__setitem__(i, g))
+
+    hooks = [m.register_forward_hook(capture) for m in convs]
+    train_step(model, None, *batches[0], labels[0], dev)
+    for h in hooks:
+        h.remove()
+    if len(calls) != MIN_LAUNCHES or len(grads) != MIN_LAUNCHES:
+        raise AssertionError(f"captured {len(calls)} calls and {len(grads)} output gradients")
+    print(f"[8 backward kernels, training-step maps] {len(calls)} conv calls")
+    real_bwd = []
+    for i, (m, inp, out) in enumerate(calls):
+        kmap = m._kernel_map(inp, out.coordinate_map_key)
+        real_bwd.append(backward_rows(
+            inp.F.detach(), m.kernel.detach(), grads[i].contiguous(), kmap.in_idx,
+            kmap.out_idx_t, f"call{i}", with_dx=inp.F.requires_grad,
+        ))
+    del calls, grads
+    model.zero_grad(set_to_none=True)
+    sums = step_sums(real_bwd)
+    for p, name in (("fwd", "K1 forward"), ("dx", "K1 input gradient"), ("dw", "K2 weight gradient")):
+        print(f"  sum over one step, {name}: kernel {sums[p][0]:.3f} ms, plain {sums[p][1]:.3f} ms")
+
+    # 9. the training slice: four steps, counted
+    net = MinkUNet34(3, 20, D=3, generator=torch.Generator().manual_seed(0), device=dev).train()
+    init = {k: v.detach().cpu().clone() for k, v in net.state_dict().items()}
+    opt = torch.optim.SGD(net.parameters(), lr=LR)
+    torch.cuda.reset_peak_memory_stats()
+    gather_gemm.launches = conv_dw.launches = 0
+    for step, (scans, lab) in enumerate(zip(raw, labels)):
+        fwd_dx, dw = gather_gemm.launches, conv_dw.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        coords, feats = collate(scans)
+        loss, out = train_step(net, opt, coords, feats, lab, dev)
+        if step == 0:
+            loss0 = loss.item()
+            grads0 = {k: p.grad.detach().cpu().clone() for k, p in net.named_parameters()}
+        opt.step()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        n_fwd_dx, n_dw = gather_gemm.launches - fwd_dx, conv_dw.launches - dw
+        print(
+            f"[9 train] step {step}: {len(coords)} voxels, {secs * 1e3:.2f} ms, "
+            f"{len(coords) / secs:.0f} points/s, loss {loss.item():.6f}, "
+            f"{n_fwd_dx} gather_gemm and {n_dw} conv_dw launches"
+        )
+        if n_fwd_dx < MIN_LAUNCHES + MIN_DX_LAUNCHES or n_dw != MIN_LAUNCHES:
+            raise AssertionError(f"step {step}: {n_fwd_dx} gather_gemm, {n_dw} conv_dw launches")
+        if out.F.shape != (len(coords), 20) or not torch.isfinite(loss):
+            raise AssertionError(f"step {step}: logits {tuple(out.F.shape)}, loss {loss.item()}")
+        if step == 0:
+            stats0 = {k: v.cpu().clone() for k, v in net.state_dict().items() if "running" in k}
+        del loss, out
+    launches = {"gather_gemm": gather_gemm.launches, "conv_dw": conv_dw.launches}
+    print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # 10. gradient parity with the CPU plain path: step 0 again in float32,
+    # and in float64 as the yardstick of float32 rounding
+    cpu = {}
+    for dtype in (torch.float32, torch.float64):
+        cpu_net = MinkUNet34(3, 20, D=3).train()
+        cpu_net.load_state_dict(init)
+        cpu_net.to(dtype)
+        coords, feats = batches[0]
+        t0 = time.perf_counter()
+        loss, _ = train_step(cpu_net, None, coords, feats.to(dtype), labels[0], "cpu")
+        print(f"[10 parity] CPU plain-path step, {dtype}, {len(coords)} voxels: "
+              f"{time.perf_counter() - t0:.1f} s")
+        cpu[dtype] = (
+            loss.item(),
+            {k: p.grad.double() for k, p in cpu_net.named_parameters()},
+            {k: v.double() for k, v in cpu_net.state_dict().items() if "running" in k},
+        )
+    (loss32, grads32, stats32), (_, grads64, _) = cpu[torch.float32], cpu[torch.float64]
+    del cpu_net, cpu
+    loss_rel = abs(loss32 - loss0) / abs(loss32)
+    if set(grads32) != set(grads0):
+        raise AssertionError("the card's and the CPU's parameters differ")
+    card_vs_cpu = {k: rel_diff(grads0[k].double(), grads32[k]) for k in grads0}
+    card_err = {k: rel_diff(grads0[k].double(), grads64[k]) for k in grads0}
+    cpu_err = {k: rel_diff(grads32[k], grads64[k]) for k in grads0}
+    bound = {k: GRAD_FACTOR * max(cpu_err[k], median(cpu_err)) for k in grads0}
+    stat_rel = {k: rel_diff(v.double(), stats32[k]) for k, v in stats0.items()}
+    worst = max(card_vs_cpu, key=card_vs_cpu.get)
+    worst64 = max(card_err, key=card_err.get)
+    tightest = max(card_err, key=lambda k: card_err[k] / bound[k])
+    worst_stat = max(stat_rel, key=stat_rel.get)
+    print(
+        f"  loss {loss0:.7f} (card) vs {loss32:.7f} (CPU): rel {loss_rel:.2e}\n"
+        f"  {len(grads0)} gradients, card vs CPU float32: worst {worst} {card_vs_cpu[worst]:.2e}, "
+        f"median {median(card_vs_cpu):.2e}\n"
+        f"  against float64: card median {median(card_err):.2e}, worst {worst64} "
+        f"{card_err[worst64]:.2e}; CPU float32 median {median(cpu_err):.2e}, worst "
+        f"{max(cpu_err.values()):.2e}\n"
+        f"  closest to its bound: {tightest} card {card_err[tightest]:.2e}, CPU float32 "
+        f"{cpu_err[tightest]:.2e}, bound {bound[tightest]:.2e}\n"
+        f"  {len(stat_rel)} running stats, worst {worst_stat} {stat_rel[worst_stat]:.2e}"
+    )
+    if not (loss_rel <= LOSS_RTOL and card_err[tightest] <= bound[tightest]
+            and stat_rel[worst_stat] <= LOGIT_RTOL):
+        raise AssertionError("training step disagrees with the CPU plain path")
+
+    errors = {
+        "gather_gemm": [r["max_abs_err"] for r in rows + real]
+        + [r[p]["max_abs_err"] for r in synth_bwd + real_bwd for p in ("fwd", "dx") if p in r],
+        "conv_dw": [r["dw"]["max_abs_err"] for r in synth_bwd + real_bwd],
+    }
+    timing = {  # per training step, on its real maps
+        "gather_gemm": (sums["fwd"][0] + sums["dx"][0], sums["fwd"][1] + sums["dx"][1]),
+        "conv_dw": sums["dw"],
+    }
     print(json.dumps({"kernels": [{
-        "name": "gather_gemm",
+        "name": name,
         "route": "cuda",
-        "source": SOURCE,
-        "replaces": REPLACES,
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in all_rows),
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-    }]}))
+        "source": source,
+        "replaces": replaces,
+        "launches": launches[name],
+        "max_abs_err": max(errors[name]),
+        "ms": timing[name][0],
+        "plain_ms": timing[name][1],
+    } for name, (source, replaces) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,11 @@
 """minkowskiengine_tpu_torch: the PyTorch/CUDA port of minkowskiengine_tpu.
 
-Sparse tensors, the coordinate engine and the MinkUNet family on PyTorch,
-with the sparse-convolution forward as a hand-written Hopper kernel
-(``kernels/gather_gemm.py``, ``csrc/gather_gemm.cu``).  Imports torch and
-numpy only.
+Sparse tensors, the coordinate engine, batch collation and the MinkUNet
+family on PyTorch, for inference and training.  The sparse convolution runs
+on two hand-written Hopper kernels: the gather-GEMM for the forward and the
+input gradient (``kernels/gather_gemm.py``, ``csrc/gather_gemm.cu``) and the
+weight gradient (``kernels/conv_dw.py``, ``csrc/conv_dw.cu``).  Imports torch
+and numpy only.
 """
 
 from .coords.kernel_map import KernelMap

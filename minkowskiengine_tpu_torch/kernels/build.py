@@ -1,8 +1,9 @@
 """Build the port's CUDA sources into one shared library at first use.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``)
-into ``build/kernels/`` at the root of a source checkout, under a name keyed
-on a hash of the sources and flags, and loaded with ``ctypes``.  An
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` for Hopper
+(``sm_90a``), all at once, and the objects are linked into one library in
+``build/kernels/`` at the root of a source checkout, under a name keyed on a
+hash of the sources and flags, and loaded with ``ctypes``.  An
 installed package (no ``setup.py`` beside it) builds into the user's cache,
 ``$XDG_CACHE_HOME/minkowskiengine_tpu_torch/kernels`` (default
 ``~/.cache``), so environments that share an interpreter do not share a
@@ -29,9 +30,10 @@ else:
     BUILD_DIR = Path(_CACHE) / "minkowskiengine_tpu_torch" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers, shared memory and spills go to the build log
 )
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 # exported C functions: (argument types, result type); pointers and the
 # stream are c_void_p so ctypes passes them at full width
@@ -39,6 +41,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     # (x, w, idx, out, n_in, n_out, k_vol, cin, cout, stream) -> cudaError_t
     "me_gather_gemm_f32": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
+    # (x, g, idx, out, workspace, n_in, n_out, k_vol, cin, cout, splits, stream)
+    "me_conv_dw_f32": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P], _I),
 }
 
 _lib = None
@@ -60,7 +64,7 @@ def _nvcc() -> str:
 def library_path() -> Path:
     """Path of the built library, building it if the sources changed."""
     sources = sorted(CSRC_DIR.glob("*.cu"))
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for p in sorted(CSRC_DIR.glob("*.cu*")):
         digest.update(p.name.encode() + b"\0" + p.read_bytes())
     out = BUILD_DIR / f"libme_torch_kernels-{digest.hexdigest()[:16]}.so"
@@ -68,15 +72,32 @@ def library_path() -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    out.with_suffix(".log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n{proc.stderr[-4000:]}"
-        )
+    objects = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources]
+    nvcc = _nvcc()
+    # one nvcc per source, all running at once; then one link
+    commands = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)] for s, o in zip(sources, objects)]
+    procs = [
+        subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for cmd in commands
+    ]
+    log, failed = [], []
+    for cmd, proc in zip(commands, procs):
+        output = proc.communicate()[0]
+        log.append(" ".join(cmd) + "\n" + output)
+        if proc.returncode != 0:
+            failed.append(f"exit code {proc.returncode}:\n{output[-4000:]}")
+    if not failed:
+        cmd = [nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objects)]
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        log.append(" ".join(cmd) + "\n" + proc.stdout)
+        if proc.returncode != 0:
+            failed.append(f"link exit code {proc.returncode}:\n{proc.stdout[-4000:]}")
+    for o in objects:
+        o.unlink(missing_ok=True)
+    out.with_suffix(".log").write_text("".join(log))
+    if failed:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError("nvcc failed with " + "\n".join(failed))
     os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
     return out
 

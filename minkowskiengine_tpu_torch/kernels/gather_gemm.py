@@ -44,8 +44,10 @@ def _check(x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor) -> None:
         raise ValueError(
             f"x, w and idx must share a device: {x.device}, {w.device}, {idx.device}"
         )
-    if x.dtype != torch.float32 or w.dtype != torch.float32:
-        raise TypeError(f"x and w must be float32, got {x.dtype}, {w.dtype}")
+    if x.dtype not in (torch.float32, torch.float64) or w.dtype != x.dtype:
+        raise TypeError(
+            f"x and w must both be float32 (or float64 on the CPU), got {x.dtype}, {w.dtype}"
+        )
     if idx.dtype != torch.int32:
         raise TypeError(f"idx must be int32, got {idx.dtype}")
 
@@ -54,11 +56,12 @@ def gather_gemm(x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor) -> torch.Te
     """``out[o, :] = Σ_k x[idx[k, o], :] @ w[k]`` with -1 = no pair.
 
     Args:
-      x: (N_in, Cin) float32.
-      w: (K, Cin, Cout) float32.
+      x: (N_in, Cin) float32; float64 is taken on the CPU too (the plain
+        version is type-generic), for checks against a float64 run.
+      w: (K, Cin, Cout), of x's type.
       idx: (K, N_out) int32.
 
-    Returns (N_out, Cout) float32.  ``gather_gemm.launches`` counts the
+    Returns (N_out, Cout) of x's type.  ``gather_gemm.launches`` counts the
     kernel launches (CPU calls run the plain version and do not count).
     """
     _check(x, w, idx)
@@ -66,6 +69,8 @@ def gather_gemm(x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor) -> torch.Te
         return gather_gemm_reference(x, w, idx)
     if x.device.type != "cuda":
         raise ValueError(f"gather_gemm runs on CPU or CUDA tensors, got {x.device}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"the CUDA kernel takes float32, got {x.dtype}")
     for name, t in (("x", x), ("w", w), ("idx", idx)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")

@@ -3,7 +3,10 @@ batch norm, ReLU, ``cat`` and SparseTensor arithmetic, against the JAX
 package on a room-scan cloud with copied weights.
 
 Tolerance: f32, rtol 1e-5 / atol 1e-6 per conv layer (sums in another
-order), rtol 1e-4 / atol 1e-5 through a conv + BN stack.
+order), rtol 1e-4 / atol 1e-5 through a conv + BN stack.  Gradients: rtol
+1e-5 / atol 1e-4; a kernel gradient sums ~1.4k products of unit-variance
+values, so its entries reach ~40 and another summation order moves them by
+~40 · 2^-24 · sqrt(1400) ≈ 1e-4 at most.
 """
 
 import jax.numpy as jnp
@@ -134,3 +137,48 @@ def test_shared_manager_mode(cloud):
             MT.SparseTensorOperationMode.SEPARATE_COORDINATE_MANAGER
         )
         MT.clear_global_coordinate_manager()
+
+
+@pytest.mark.parametrize(
+    "case", ["k3s1", "k2s2", "k1_bias", "transpose_k2s2"]
+)
+def test_gradients_match_jax(cloud, case):
+    """Input, kernel and bias gradients of conv modules, against the JAX
+    modules' with the same weights, by the reference parameter names."""
+    coords, feats = cloud
+    if case == "transpose_k2s2":
+        pairs = [
+            _pair(ME.MinkowskiConvolution, MT.MinkowskiConvolution, 8, 8, seed=1,
+                  kernel_size=2, stride=2),
+            _pair(ME.MinkowskiConvolutionTranspose, MT.MinkowskiConvolutionTranspose,
+                  8, 16, seed=2, kernel_size=2, stride=2, bias=True),
+        ]
+    else:
+        k, s, bias = {"k3s1": (3, 1, False), "k2s2": (2, 2, False), "k1_bias": (1, 1, True)}[case]
+        pairs = [_pair(ME.MinkowskiConvolution, MT.MinkowskiConvolution, 8, 16, seed=k + s,
+                       kernel_size=k, stride=s, bias=bias)]
+    jmods = tuple(j for j, _ in pairs)
+    tmods = [t for _, t in pairs]
+
+    tf = torch.from_numpy(feats).requires_grad_()
+    ty = MT.SparseTensor(tf, torch.from_numpy(coords))
+    for m in tmods:
+        ty = m(ty)
+    cot = np.random.RandomState(7).randn(*ty.F.shape).astype(np.float32)
+    (ty.F * torch.from_numpy(cot)).sum().backward()
+
+    def loss(mods, f):
+        y = ME.SparseTensor(f, jnp.asarray(coords))
+        for m in mods:
+            y = m(y)
+        return jnp.sum(y.F * jnp.asarray(cot))
+
+    jgrads, jgf = nnx.grad(loss, argnums=(0, 1))(jmods, jnp.asarray(feats))
+    tol = dict(rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(tf.grad.numpy(), np.asarray(jgf), **tol)
+    for t, jg in zip(tmods, jgrads):
+        names = dict(t.named_parameters())
+        assert set(names) == set(jg.keys())
+        for name, p in names.items():
+            assert p.grad is not None and p.grad.shape == p.shape
+            np.testing.assert_allclose(p.grad.numpy(), np.asarray(jg[name][...]), **tol)

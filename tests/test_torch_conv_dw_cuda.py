@@ -1,0 +1,143 @@
+"""The CUDA weight-gradient kernel against its plain PyTorch version, on the card.
+
+These tests need an NVIDIA Hopper GPU and nvcc; elsewhere they skip.  Run
+them on the card with
+``python -m pytest --noconftest tests/test_torch_conv_dw_cuda.py``.
+Tolerance: max |Δ| / max |ref| <= 1e-4 for dW, the bound chip_smoke.py
+derives from the summation length (up to ~52k rows per entry); 1e-5 for
+the input gradient, K1's bound.  Autograd through ``sparse_conv`` on the
+card is held against the CPU plain path at 1e-4.
+"""
+
+import pytest
+import torch
+
+from minkowskiengine_tpu_torch.coords.kernel_map import _invert_matching
+from minkowskiengine_tpu_torch.kernels.conv_dw import conv_dw, conv_dw_reference
+from minkowskiengine_tpu_torch.kernels.gather_gemm import gather_gemm
+from minkowskiengine_tpu_torch.ops.functional import sparse_conv
+
+pytestmark = pytest.mark.cuda
+
+DW_RTOL = 1e-4
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda:0")
+
+
+def _inputs(dev, K, n_in, n_out, cin, cout, density=0.7, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(n_in, cin, device=dev, generator=g)
+    go = torch.randn(n_out, cout, device=dev, generator=g)
+    idx = torch.randint(0, max(n_in, 1), (K, n_out), device=dev, generator=g, dtype=torch.int32)
+    idx[torch.rand(K, n_out, device=dev, generator=g) > density] = -1
+    return x, go, idx
+
+
+def _rel(got, want):
+    return ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)).item()
+
+
+@pytest.mark.parametrize(
+    "K,n_in,n_out,cin,cout",
+    [
+        (125, 3000, 3000, 3, 32),      # stem: the narrow Cin instance
+        (27, 700, 650, 256, 256),      # widest block conv
+        (27, 20000, 20000, 96, 96),    # many rows: split over blocks, ragged Cout tile
+        (8, 300, 1200, 128, 96),       # transposed conv: more outputs than inputs
+        (27, 63, 63, 384, 256),
+        (1, 5, 3, 5, 70),
+        (4, 10, 0, 8, 8),              # no output rows: dW = 0
+    ],
+)
+def test_kernel_matches_plain(dev, K, n_in, n_out, cin, cout):
+    x, go, idx = _inputs(dev, K, n_in, n_out, cin, cout)
+    before = conv_dw.launches
+    got = conv_dw(x, go, idx)
+    want = conv_dw_reference(x, go, idx)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (K, cin, cout)
+    assert conv_dw.launches == before + 1
+    if n_out:
+        assert _rel(got, want) <= DW_RTOL
+    else:
+        assert torch.all(got == 0)
+
+
+def test_pairless_and_out_of_range_rows_add_nothing(dev):
+    x, go, idx = _inputs(dev, 8, 100, 200, 16, 16)
+    idx[:, :64] = -1           # a whole chunk with no pair: skipped
+    idx[:, 64] = 100           # outside [0, n_in): gathers zero
+    got = conv_dw(x, go, idx)
+    want = conv_dw_reference(x, go[65:].contiguous(), idx[:, 65:].contiguous())
+    assert _rel(got, want) <= DW_RTOL
+    empty = torch.full((3, 130), -1, dtype=torch.int32, device=dev)
+    assert torch.all(conv_dw(x, go[:130].contiguous(), empty) == 0)
+
+
+def test_two_launches_are_bit_equal(dev):
+    for shape in [(27, 20000, 20000, 96, 96), (125, 5000, 5000, 3, 32)]:
+        x, go, idx = _inputs(dev, *shape)
+        assert torch.equal(conv_dw(x, go, idx), conv_dw(x, go, idx))
+
+
+def test_rejects_what_it_does_not_take(dev):
+    x, go, idx = _inputs(dev, 8, 100, 200, 16, 16)
+    with pytest.raises(ValueError):
+        conv_dw(x.t().contiguous().t(), go, idx)  # not contiguous
+    with pytest.raises(TypeError):
+        conv_dw(x.half(), go, idx)
+    with pytest.raises(TypeError):  # float64 runs on the CPU only
+        conv_dw(x.double(), go.double(), idx)
+    with pytest.raises(ValueError):
+        conv_dw(x, go.cpu(), idx)
+    with pytest.raises(ValueError):
+        conv_dw(x, go[:10], idx)
+
+
+def _matching(dev, K, n_in, n_out, seed=0):
+    """Injective per-offset map with -1 holes, and its inverse."""
+    gen = torch.Generator().manual_seed(seed)
+    m = min(n_in, n_out)
+    idx = torch.full((K, n_out), -1, dtype=torch.int32)
+    for k in range(K):
+        idx[k, torch.randperm(n_out, generator=gen)[:m]] = torch.randperm(n_in, generator=gen)[:m].int()
+    idx[torch.rand(K, n_out, generator=gen) > 0.7] = -1
+    return idx.to(dev), _invert_matching(idx, n_in).to(dev)
+
+
+@pytest.mark.parametrize("K,n_in,n_out,cin,cout", [(27, 900, 900, 32, 64), (8, 300, 1200, 96, 96)])
+def test_autograd_matches_cpu_plain_path(dev, K, n_in, n_out, cin, cout):
+    in_idx, out_idx_t = _matching(dev, K, n_in, n_out)
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn(n_in, cin, generator=gen)
+    w = torch.randn(K, cin, cout, generator=gen) / (K * cin) ** 0.5
+    go = torch.randn(n_out, cout, generator=gen)
+    grads = []
+    for d in ("cpu", dev):
+        xd = x.to(d, copy=True).requires_grad_()
+        wd = w.to(d, copy=True).requires_grad_()
+        sparse_conv(xd, wd, in_idx.to(d), out_idx_t.to(d)).backward(go.to(d))
+        grads.append((xd.grad.cpu(), wd.grad.cpu()))
+    (dx_cpu, dw_cpu), (dx_gpu, dw_gpu) = grads
+    assert _rel(dx_gpu, dx_cpu) <= 1e-5
+    assert _rel(dw_gpu, dw_cpu) <= DW_RTOL
+
+
+def test_cuda_grad_launches_both_kernels(dev):
+    in_idx, out_idx_t = _matching(dev, 27, 500, 500)
+    x = torch.randn(500, 32, device=dev, requires_grad=True)
+    w = torch.randn(27, 32, 32, device=dev, requires_grad=True)
+    fwd_dx, dw = gather_gemm.launches, conv_dw.launches
+    sparse_conv(x, w, in_idx, out_idx_t).sum().backward()
+    assert gather_gemm.launches == fwd_dx + 2  # forward, then dX
+    assert conv_dw.launches == dw + 1
+    x2 = torch.randn(500, 32, device=dev)  # an input without a gradient: no dX launch
+    before = gather_gemm.launches
+    sparse_conv(x2, w, in_idx, out_idx_t).sum().backward()
+    assert gather_gemm.launches == before + 1

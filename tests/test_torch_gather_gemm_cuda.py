@@ -12,6 +12,7 @@ chip_smoke.py states.
 import pytest
 import torch
 
+from minkowskiengine_tpu_torch.coords.kernel_map import _invert_matching
 from minkowskiengine_tpu_torch.kernels.gather_gemm import gather_gemm, gather_gemm_reference
 from minkowskiengine_tpu_torch.ops.functional import sparse_conv
 
@@ -73,7 +74,18 @@ def test_rejects_what_it_does_not_take(dev):
         gather_gemm(x.t().contiguous().t(), w, idx)  # not contiguous
     with pytest.raises(TypeError):
         gather_gemm(x.half(), w, idx)
+    with pytest.raises(TypeError):  # float64 runs on the CPU only
+        gather_gemm(x.double(), w.double(), idx)
     with pytest.raises(ValueError):
         gather_gemm(x, w.cpu(), idx)
-    with pytest.raises(NotImplementedError):  # forward-only on CUDA for now
-        sparse_conv(x.requires_grad_(), w, idx)
+    # the input gradient runs the kernel on the inverse matching with W[k]ᵀ
+    in_idx = torch.stack([torch.randperm(100, device=x.device)[:64] for _ in range(8)]).int()
+    in_idx[:, ::3] = -1
+    out_idx_t = _invert_matching(in_idx, 100)
+    xg = x.clone().requires_grad_()
+    go = torch.randn(64, 16, device=x.device)
+    before = gather_gemm.launches
+    sparse_conv(xg, w, in_idx, out_idx_t).backward(go)
+    assert gather_gemm.launches == before + 2
+    want = gather_gemm_reference(go, w.transpose(1, 2).contiguous(), out_idx_t)
+    assert ((xg.grad - want).abs().max() / want.abs().max()).item() <= 1e-5

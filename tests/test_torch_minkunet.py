@@ -19,9 +19,11 @@ from flax import nnx
 import minkowskiengine_tpu as ME
 from minkowskiengine_tpu.models import MinkUNet34 as JMinkUNet34
 from minkowskiengine_tpu.nn.norm import MinkowskiBatchNorm as JBatchNorm
+from minkowskiengine_tpu.utils.collation import sparse_collate as j_sparse_collate
 from minkowskiengine_tpu.utils.torch_import import export_reference_state_dict
 import minkowskiengine_tpu_torch as MT
 from minkowskiengine_tpu_torch.models import MinkUNet34
+from minkowskiengine_tpu_torch.utils.collation import sparse_collate
 from minkowskiengine_tpu_torch.utils.datasets import room_scan_voxels
 from minkowskiengine_tpu_torch.utils.torch_import import load_state_dict_from_reference
 
@@ -84,6 +86,27 @@ def test_logits_match_jax(setup, training):
         tsd = setup[3].state_dict()
         for k in ("bn0.bn.running_mean", "block4.1.norm2.bn.running_var"):
             np.testing.assert_allclose(tsd[k].numpy(), jsd[k], rtol=RTOL, atol=ATOL)
+
+
+def test_batch_of_two_scans_matches_jax(setup):
+    """Two scans collated by each package's ``sparse_collate``: batch field 0
+    and 1 in the keys, logits in the same rows."""
+    _, _, jnet, tnet, _ = setup
+    _jax_bn_mode(jnet, False)
+    tnet.eval()
+    scans = [
+        room_scan_voxels(voxel_size=0.2, n_points=120_000, extent=(2.0, 2.0, 2.2),
+                         n_objects=4, seed=s)
+        for s in (3, 4)
+    ]
+    jc, jf = j_sparse_collate([c[:, 1:] for c, _ in scans], [f for _, f in scans])
+    tc, tf = sparse_collate([torch.from_numpy(c[:, 1:]) for c, _ in scans], [f for _, f in scans])
+    want = jnet(ME.SparseTensor(jnp.asarray(jf), jnp.asarray(jc)))
+    with torch.no_grad():
+        out = tnet(MT.SparseTensor(tf, tc))
+    np.testing.assert_array_equal(out.C.numpy(), np.asarray(want.C))
+    assert set(out.C[:, 0].tolist()) == {0, 1}
+    np.testing.assert_allclose(out.F.numpy(), np.asarray(want.F), rtol=RTOL, atol=ATOL)
 
 
 def test_state_dict_names_are_the_reference_names(setup):

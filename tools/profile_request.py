@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Where the time of one MinkUNet34 inference request goes, on one CUDA card.
+"""Where the time of one MinkUNet34 inference request, and of one training
+step, goes on one CUDA card.
 
 Run from the root of a checkout, with one CUDA card visible:
 
@@ -19,9 +20,19 @@ prints:
    kernels and copies, gather_gemm's share of it, and the device's busy
    share of that request's wall time.  The profiler slows the host, so the
    idle share from this run is an upper bound;
-4. the profiler's table, by device time;
+4. the profiler's table, by device time.
 
-and, last, one JSON line with the numbers.
+Then the training step, in train mode, as ``chip_smoke.py`` takes it: a
+batch of the scans of seeds 0 and 1 (about 51k voxels) collated into a
+fresh manager, forward, cross-entropy, backward, SGD step.  It prints
+
+5. the wall time of five steps;
+6. one profiled step: the device time of gather_gemm (forward and input
+   gradient) and of conv_dw (weight gradient, both of its kernels), and
+   the device's idle share;
+7. the profiler's table;
+
+and, last, one JSON line with the numbers of both.
 """
 
 from __future__ import annotations
@@ -39,10 +50,11 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import minkowskiengine_tpu_torch as MT  # noqa: E402
-from chip_smoke import answer, scan  # noqa: E402
+from chip_smoke import answer, collate, labels_for, scan, train_step  # noqa: E402
 from minkowskiengine_tpu_torch.models import MinkUNet34  # noqa: E402
 
 K1_NAME = "gather_gemm_kernel"
+K2_NAMES = ("conv_dw_kernel", "sum_splits_kernel")
 SEED = 0
 REPEATS = 5
 
@@ -70,15 +82,64 @@ def warm_request(model, x):
     return time.perf_counter() - t0
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("profile_request: torch.cuda.is_available() is false", file=sys.stderr)
-        return 1
-    dev = torch.device("cuda:0")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    print(f"{torch.cuda.get_device_name(0)}, torch {torch.__version__}, CUDA {torch.version.cuda}")
+def device_split(prof, secs):
+    """Busy device time, per-kernel shares and the idle share of a profiled
+    run that took ``secs`` on the host clock."""
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not device:
+        raise AssertionError("the profiler recorded no device activity")
 
+    def span(names):
+        events = [e for e in device if any(n in e.name for n in names)]
+        return busy_us((e.time_range.start, e.time_range.end) for e in events), len(events)
+
+    device_us = busy_us((e.time_range.start, e.time_range.end) for e in device)
+    k1_us, k1_n = span((K1_NAME,))
+    k2_us, k2_n = span(K2_NAMES)
+    wall_us = secs * 1e6
+    return dict(
+        wall_ms=wall_us / 1e3, device_busy_ms=device_us / 1e3, device_events=len(device),
+        gather_gemm_ms=k1_us / 1e3, gather_gemm_launches=k1_n,
+        conv_dw_ms=k2_us / 1e3, conv_dw_kernels=k2_n, idle_share=1 - device_us / wall_us,
+    )
+
+
+def train_once(model, opt, scans, labels, dev):
+    """One chip_smoke.py training step, collate to SGD step, synced."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    coords, feats = collate(scans)
+    train_step(model, opt, coords, feats, labels, dev)
+    opt.step()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def profile_train(dev):
+    model = MinkUNet34(3, 20, D=3, generator=torch.Generator().manual_seed(0), device=dev).train()
+    opt = torch.optim.SGD(model.parameters(), lr=0.01)
+    scans = [scan(SEED), scan(SEED + 1)]
+    labels = labels_for(0, sum(len(c) for c, _ in scans))
+    train_once(model, opt, scans, labels, dev)  # warm-up
+    steps = [train_once(model, opt, scans, labels, dev) * 1e3 for _ in range(REPEATS)]
+    print(f"[5 training steps] {len(labels)} voxels, ms: {', '.join(f'{t:.2f}' for t in steps)}")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        secs = train_once(model, opt, scans, labels, dev)
+    split = device_split(prof, secs)
+    print(
+        f"[6 profiled step] wall {split['wall_ms']:.2f} ms; device busy "
+        f"{split['device_busy_ms']:.3f} ms in {split['device_events']} kernels and copies; "
+        f"gather_gemm {split['gather_gemm_ms']:.3f} ms in {split['gather_gemm_launches']} "
+        f"launches, conv_dw {split['conv_dw_ms']:.3f} ms in {split['conv_dw_kernels']} "
+        f"kernels; device idle {100 * split['idle_share']:.1f}% of the wall"
+    )
+    print("[7 profiler table]")
+    print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=20))
+    return {"voxels": len(labels), "step_ms": steps,
+            **{f"profiled_{k}": v for k, v in split.items()}}
+
+
+def profile_request(dev):
     coords, feats = scan(SEED)
     model = MinkUNet34(3, 20, D=3, generator=torch.Generator().manual_seed(0), device=dev).eval()
     answer(model, coords, feats, dev)  # warm-up: kernel build, allocator, cuBLAS
@@ -98,33 +159,36 @@ def main() -> int:
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, secs = answer(model, coords, feats, dev)
-    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    k1 = [e for e in device if K1_NAME in e.name]
-    device_us = busy_us((e.time_range.start, e.time_range.end) for e in device)
-    k1_us = busy_us((e.time_range.start, e.time_range.end) for e in k1)
-    wall_us = secs * 1e6
-    if not device:
-        raise AssertionError("the profiler recorded no device activity")
+    split = device_split(prof, secs)
     print(
-        f"[3 profiled request] wall {wall_us / 1e3:.2f} ms; device busy "
-        f"{device_us / 1e3:.3f} ms in {len(device)} kernels and copies; gather_gemm "
-        f"{k1_us / 1e3:.3f} ms in {len(k1)} launches ({100 * k1_us / device_us:.1f}% of "
-        f"device time); device idle {100 * (1 - device_us / wall_us):.1f}% of the wall"
+        f"[3 profiled request] wall {split['wall_ms']:.2f} ms; device busy "
+        f"{split['device_busy_ms']:.3f} ms in {split['device_events']} kernels and copies; "
+        f"gather_gemm {split['gather_gemm_ms']:.3f} ms in {split['gather_gemm_launches']} "
+        f"launches ({100 * split['gather_gemm_ms'] / split['device_busy_ms']:.1f}% of "
+        f"device time); device idle {100 * split['idle_share']:.1f}% of the wall"
     )
     print("[4 profiler table]")
     print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=15))
-
-    print(json.dumps({
+    return {
         "voxels": len(coords),
         "fresh_ms": fresh,
         "warm_manager_ms": cached,
         "coordinate_phase_ms": coord_ms,
-        "profiled_wall_ms": wall_us / 1e3,
-        "profiled_device_busy_ms": device_us / 1e3,
-        "profiled_gather_gemm_ms": k1_us / 1e3,
-        "profiled_gather_gemm_launches": len(k1),
-        "profiled_idle_share": 1 - device_us / wall_us,
-    }))
+        **{f"profiled_{k}": v for k, v in split.items()},
+    }
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("profile_request: torch.cuda.is_available() is false", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda:0")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"{torch.cuda.get_device_name(0)}, torch {torch.__version__}, CUDA {torch.version.cuda}")
+    request = profile_request(dev)
+    train = profile_train(dev)
+    print(json.dumps({"request": request, "train_step": train}))
     return 0
 
 
