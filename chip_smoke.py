@@ -11,7 +11,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions; TF32 off, so every comparison below is full float32.
 2. build: compile the CUDA kernels (``minkowskiengine_tpu_torch/csrc``) with
-   nvcc for sm_90a and load them.
+   nvcc for sm_90a and load them; print each instance's ptxas report
+   (registers, shared memory, spills).
 3. kernel check, synthetic maps: ``gather_gemm`` against its plain PyTorch
    version at every shape MinkUNet34's sparse convs give it (rows of each
    level of a 26k-voxel room scan, about 30% of indices -1).
@@ -27,7 +28,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 7. backward kernels, synthetic maps: at every shape of phase 3, on the row
    counts of a batch of two scans, ``gather_gemm`` as the input gradient
    (output gradient, W[k]ᵀ, the inverse of an injective map) and
-   ``conv_dw`` (the weight gradient) against their plain versions.
+   ``conv_dw`` (the weight gradient) against their plain versions; per
+   call each kernel's split S and its useful TFLOP/s
+   (2 · pairs · Cin · Cout / time).
 8. backward kernels, real maps: the 55 conv calls of one training step
    (inputs, kernel maps and output gradients captured with hooks); forward,
    input gradient and weight gradient against their plain versions, per
@@ -212,18 +215,32 @@ def injective_map(K, n_in, n_out, gen, dev):
     return idx
 
 
+def pairs(idx, n_in):
+    return int(((idx >= 0) & (idx < n_in)).sum())
+
+
 def backward_rows(x, w, g, in_idx, out_idx_t, label, with_dx=True):
     """Phases 7-8: forward, input gradient and weight gradient of one conv,
-    each against its plain version."""
+    each against its plain version, with the kernel's split S and its
+    useful TFLOP/s (2 * pairs * Cin * Cout / time)."""
     row = dict(label=label, K=w.shape[0], cin=w.shape[1], cout=w.shape[2],
                n_in=x.shape[0], n_out=g.shape[0])
+    flop = 2 * pairs(in_idx, x.shape[0]) * w.shape[1] * w.shape[2]
     row["fwd"] = check(gather_gemm, gather_gemm_reference, (x, w, in_idx), KERNEL_RTOL, label)
+    row["fwd"]["splits"] = gather_gemm.last_plan.splits
     if with_dx:
         args = (g, w.transpose(1, 2).contiguous(), out_idx_t)
         row["dx"] = check(gather_gemm, gather_gemm_reference, args, KERNEL_RTOL, label + " dX")
+        row["dx"]["splits"] = gather_gemm.last_plan.splits
+        row["dx"]["flop"] = 2 * pairs(out_idx_t, g.shape[0]) * w.shape[1] * w.shape[2]
     row["dw"] = check(conv_dw, conv_dw_reference, (x, g, in_idx), DW_RTOL, label + " dW")
+    row["dw"]["splits"] = conv_dw.last_plan.splits
+    for p in ("fwd", "dx", "dw"):
+        if p in row:
+            row[p]["tflops"] = row[p].get("flop", flop) / (row[p]["ms"] * 1e-3) / 1e12
     parts = "  ".join(
-        f"{p} {row[p]['ms']:.4f}/{row[p]['plain_ms']:.4f} ms ({row[p]['max_rel_err']:.1e})"
+        f"{p} {row[p]['ms']:.4f}/{row[p]['plain_ms']:.4f} ms ({row[p]['max_rel_err']:.1e}, "
+        f"S={row[p]['splits']}, {row[p]['tflops']:.2f} TFLOP/s)"
         for p in ("fwd", "dx", "dw") if p in row
     )
     print(

@@ -12,32 +12,41 @@
 // index straight from the dense matching, so there are no slabs and no
 // outlier list: every pair is carried.
 //
-// Design (right and simple first):
-//   * one block of 256 threads per (Cin tile, Cout tile of 64, offset k,
-//     row split s);
-//   * a loop over the split's output rows in chunks of 64: the chunk's 64
-//     indices go to shared memory, and a chunk with no pair is skipped (one
-//     block-wide vote); the X rows are gathered by index into shared memory
-//     (zero for -1) and the G rows are staged beside them;
-//   * each thread accumulates a 4 x 4 register tile of dW with f32 FMAs;
-//   * Cin tiles are 64 wide, or 4 for Cin <= 4 (the 3-channel stem): there
-//     the 256 threads split the chunk's rows into 16 groups, and the groups'
+// Design:
+//   * one block per (Cin tile, Cout tile, offset k, row split s);
+//   * in-block row compaction: the block scans its split's output rows,
+//     one row per thread, and keeps only those with a pair (0 <= idx[k, o]
+//     < N_in), packed in order of o by ballots and prefix sums into a ring
+//     in shared memory (mma_tile.cuh::compact_scan).  Full tiles of
+//     compacted rows are gathered, X rows by index and G rows by o; the
+//     split's last tile is partial and zero-filled.  No load and no
+//     product goes to a pairless row;
+//   * Cin > 4 (conv_dw_mma_kernel): 128 threads, a Cin tile of 64, or 32
+//     for Cin <= 32 and Cout tiles <= 64 (m16 fragments of X^T), by a Cout
+//     tile of 32, 64, 96 or 128 fitted to Cout (96 -> one 96-wide tile).
+//     32-row tiles of X and G are copied with cp.async (16 bytes when Cin
+//     and Cout are multiples of 4 and the pointers 16-byte aligned, else 4
+//     bytes) through a 3-stage ring, two tiles ahead of the one being
+//     computed; the products run on the
+//     tensor cores in 3xTF32 (mma_tile.cuh), the reduction over the
+//     compacted rows in steps of 8, each tile into a zeroed fragment that
+//     is then added to the float32 accumulator;
+//   * Cin <= 4 (the 3-channel stem, conv_dw_stem_kernel): SIMT f32 on
+//     64-row compacted tiles, 256 threads in 16 row groups whose 4 x 64
 //     partial tiles are summed in shared memory in a fixed order;
 //   * a deterministic reduction over the splits: with S > 1 each block
-//     writes its partial tile to an (S, K, Cin, Cout) workspace and a second
-//     small kernel sums the S partials in order s = 0 .. S-1.  No atomics,
-//     so two launches on the same inputs give the same bits.
+//     writes its partial tile to an (S, K, Cin, Cout) workspace and a
+//     second pass sums the S partials in order s = 0 .. S-1.  The
+//     compacted order is fixed by the map, and there are no atomics, so two
+//     launches on the same inputs give the same bits.
 //
-// What bounds it on the H100: like K1, the f32 FMA rate at 64-256 channels
-// (16 FMAs per 8 shared-memory loads, SIMT only; no tensor cores yet), and
-// at Cin = 3 the staging and barriers of each chunk (the 4-wide instance
-// took 1.09 ms against 2.80 ms for the 64-wide one on the stem of a 51k-
-// voxel batch).  Whole chunks are computed, pairless rows and the padding
-// of a ragged Cout tile included: on the 51k-row K = 27 96 -> 96 convs this
-// kernel (2.9 ms) is slower than the plain gather + matmul (2.3 ms).  The
-// row split S is chosen by the caller so that the grid fills the SMs;
-// without it K * tiles blocks (108 for K = 27, 96 -> 96) would each walk
-// every row of the level.
+// What bounds it on the H100: the gathers.  On the 51k-row stride-1 convs
+// each paired row brings Cin + Cout floats from L2 (X and G stay resident)
+// for 2 Cin Cout useful flops, 3xTF32 triples the tensor-core work, and the
+// row split S (chosen by the caller so the grid fills the SMs) adds an
+// (S, K, Cin, Cout) workspace pass.  At Cin = 3 the staging and barriers of
+// the SIMT tiles bound it.  wgmma (needs both shared operands K-major; X^T
+// is not) and bf16 operands are later work.
 //
 // Plain C interface, launched on the caller's stream; returns cudaError_t.
 
@@ -45,171 +54,336 @@
 
 #include <cstdint>
 
+#include "mma_tile.cuh"
+
 namespace {
 
-constexpr int BR = 64;                     // output rows per chunk
-constexpr int BN = 64;                     // output channels per block
-constexpr int TM = 4;                      // input channels per thread
-constexpr int TN = 4;                      // output channels per thread
-constexpr int THREADS = 256;
-constexpr int COL_THREADS = BN / TN;       // 16
+constexpr int SCAN = 256;  // the unit of the row split (rows)
 
-template <int BC>  // input channels per block: 64, or 4 for Cin <= 4
+// --- Cin > 4: tensor cores ----------------------------------------------------
+
+constexpr int THREADS = 128;  // one row scan of 128 rows per compaction
+constexpr int BR = 32;        // compacted rows per tile
+constexpr int NSTAGE = 3;     // ring depth
+constexpr int CAP = 256;      // compaction ring: < BR pending + one 128-row scan
+
+template <int BC, int BN>
+constexpr int mma_smem_bytes() {
+  return (NSTAGE * BR * ((BC + 8) + (BN + 8)) + 2 * CAP + THREADS / 32) * 4;
+}
+
+template <int BC, int BN, int VEC>
 __global__ void __launch_bounds__(THREADS)
-conv_dw_kernel(const float* __restrict__ x, const float* __restrict__ g,
-               const int* __restrict__ idx, float* __restrict__ dst,
-               int n_in, int n_out, int k_vol, int cin, int cout,
-               int chunks_per_split) {
-  constexpr int ROW_THREADS = BC / TM;                              // 16 or 1
-  constexpr int GROUPS = THREADS / (ROW_THREADS * COL_THREADS);     // 1 or 16
-  // row stride of the G tile: with GROUPS > 1 a warp reads two rows at
-  // once, and 16 floats of padding put them on disjoint banks
-  constexpr int GS = BN + (GROUPS > 1 ? 16 : 0);
-  static_assert(GROUPS * BC * BN <= BR * GS, "group partials must fit in gs");
+conv_dw_mma_kernel(const float* __restrict__ x, const float* __restrict__ g,
+                   const int* __restrict__ idx, float* __restrict__ dst, int n_in, int n_out,
+                   int k_vol, int cin, int cout, int rows_per_split) {
+  constexpr int WM = BC / 16;            // warps along Cin (m16 each)
+  constexpr int WN = (THREADS / 32) / WM;  // warps along Cout
+  constexpr int NT = BN / 8 / WN;        // n8 tiles per warp
+  constexpr int LDX = BC + 8;            // = 8 (mod 32): fragment loads hit 32 banks
+  constexpr int LDG = BN + 8;
+  static_assert(WM * WN == THREADS / 32 && NT * 8 * WN == BN, "warp layout");
+  static_assert(LDX % 32 == 8 && LDG % 32 == 8, "padding");
 
-  __shared__ int rows[BR];
-  __shared__ float xs[BR][BC];
-  __shared__ float gs[BR * GS];
+  extern __shared__ float4 smem4[];
+  float* xs = reinterpret_cast<float*>(smem4);        // [NSTAGE][BR][LDX]
+  float* gs = xs + NSTAGE * BR * LDX;                 // [NSTAGE][BR][LDG]
+  int* p_row = reinterpret_cast<int*>(gs + NSTAGE * BR * LDG);  // [CAP]
+  int* p_o = p_row + CAP;                             // [CAP]
+  int* warp_counts = p_o + CAP;
 
   const int tid = threadIdx.x;
-  const int tx = tid % COL_THREADS;
-  const int ty = (tid / COL_THREADS) % ROW_THREADS;
-  const int grp = tid / (COL_THREADS * ROW_THREADS);
+  const int lane = tid % 32;
+  const int warp = tid / 32;
+  const int gq = lane / 4;
+  const int t = lane % 4;
+  const int cb = (warp % WM) * 16;        // warp's Cin rows in the tile
+  const int nb = (warp / WM) * (NT * 8);  // warp's Cout columns in the tile
   const int tiles_n = (cout + BN - 1) / BN;
   const int c0 = (blockIdx.x / tiles_n) * BC;
   const int n0 = (blockIdx.x % tiles_n) * BN;
   const int k = blockIdx.y;
   const int* idx_k = idx + static_cast<int64_t>(k) * n_out;
+  const int o_begin = blockIdx.z * rows_per_split;
+  const int o_end = min(n_out, o_begin + rows_per_split);
 
-  float acc[TM][TN];
+  float acc[NT][4];
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
+  for (int j = 0; j < NT; ++j)
 #pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+    for (int q = 0; q < 4; ++q) acc[j][q] = 0.f;
 
-  const int n_chunks = (n_out + BR - 1) / BR;
-  const int ch_begin = blockIdx.z * chunks_per_split;
-  const int ch_end = min(n_chunks, ch_begin + chunks_per_split);
-  for (int ch = ch_begin; ch < ch_end; ++ch) {
-    const int o0 = ch * BR;
-    int r = -1;
-    if (tid < BR) {
-      if (o0 + tid < n_out) r = idx_k[o0 + tid];
-      if (r >= n_in) r = -1;  // out-of-range rows gather zero, as take_rows does
-      rows[tid] = r;
+  // gather n <= BR compacted rows from the ring at head into buffer b
+  auto issue = [&](int b, int head, int n) {
+    float* xd = xs + b * BR * LDX;
+    float* gd = gs + b * BR * LDG;
+    for (int e = tid; e < BR * (BC / VEC); e += THREADS) {
+      const int i = e / (BC / VEC);
+      const int c = (e % (BC / VEC)) * VEC;
+      const bool ok = i < n && c0 + c < cin;
+      const int r = ok ? p_row[(head + i) & (CAP - 1)] : 0;
+      cp_async_vec<VEC>(xd + i * LDX + c, x + static_cast<int64_t>(r) * cin + (ok ? c0 + c : 0),
+                        ok);
     }
-    // barrier + vote: skip chunks with no pair at this offset
-    if (!__syncthreads_or(r >= 0)) continue;
+    for (int e = tid; e < BR * (BN / VEC); e += THREADS) {
+      const int i = e / (BN / VEC);
+      const int j = (e % (BN / VEC)) * VEC;
+      const bool ok = i < n && n0 + j < cout;
+      const int o = ok ? p_o[(head + i) & (CAP - 1)] : 0;
+      cp_async_vec<VEC>(gd + i * LDG + j, g + static_cast<int64_t>(o) * cout + (ok ? n0 + j : 0),
+                        ok);
+    }
+    cp_async_commit();
+  };
 
-    for (int e = tid; e < BR * BC; e += THREADS) {
-      const int i = e / BC;
-      const int c = e % BC;
-      const int row = rows[i];
+  // acc += X_tile^T G_tile on buffer b; rows past the tile's count are zero
+  auto compute = [&](int b) {
+    const float* xb = xs + b * BR * LDX + cb + gq;
+    const float* gb = gs + b * BR * LDG + nb + gq;
+    float part[NT][4];  // this tile's products (see mma_tile.cuh: accumulation)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) part[j][q] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < BR; kk += 8) {
+      uint32_t a_hi[4], a_lo[4];
+      const float* a = xb + (kk + t) * LDX;
+      split_tf32(a[0], a_hi[0], a_lo[0]);                // (c = g,     row t)
+      split_tf32(a[8], a_hi[1], a_lo[1]);                // (c = g + 8, row t)
+      split_tf32(a[4 * LDX], a_hi[2], a_lo[2]);          // (c = g,     row t + 4)
+      split_tf32(a[4 * LDX + 8], a_hi[3], a_lo[3]);      // (c = g + 8, row t + 4)
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const float* bp = gb + (kk + t) * LDG + j * 8;
+        uint32_t b_hi[2], b_lo[2];
+        split_tf32(bp[0], b_hi[0], b_lo[0]);
+        split_tf32(bp[4 * LDG], b_hi[1], b_lo[1]);
+        mma_3xtf32(part[j], a_hi, a_lo, b_hi, b_lo);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[j][q] += part[j][q];
+  };
+
+  int head = 0, pending = 0, issued = 0;
+  // after each issue: compute the tile issued NSTAGE - 1 issues ago
+  auto advance = [&]() {
+    ++issued;
+    if (issued >= NSTAGE) {
+      cp_async_wait<NSTAGE - 1>();
+      __syncthreads();
+      compute((issued - NSTAGE) % NSTAGE);
+      __syncthreads();  // the buffer is refilled by the next issue
+    }
+  };
+  for (int o0 = o_begin; o0 < o_end; o0 += THREADS) {
+    pending = compact_scan<THREADS, CAP>(idx_k, o0, o_end, n_in, p_row, p_o, head, pending,
+                                         warp_counts);
+    while (pending >= BR) {
+      issue(issued % NSTAGE, head, BR);
+      head += BR;
+      pending -= BR;
+      advance();
+    }
+  }
+  if (pending > 0) {
+    issue(issued % NSTAGE, head, pending);
+    advance();
+  }
+  // the last NSTAGE - 1 tiles
+  cp_async_wait<0>();
+  __syncthreads();
+  for (int q = max(0, issued - NSTAGE + 1); q < issued; ++q) compute(q % NSTAGE);
+
+  // this block's (Cin, Cout) tile of split blockIdx.z
+  float* out = dst + (static_cast<int64_t>(blockIdx.z) * k_vol + k) * cin * cout;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int ci = c0 + cb + gq + h * 8;
+    if (ci >= cin) continue;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int co = n0 + nb + j * 8 + 2 * t;
+      if (co < cout) out[static_cast<int64_t>(ci) * cout + co] = acc[j][2 * h];
+      if (co + 1 < cout) out[static_cast<int64_t>(ci) * cout + co + 1] = acc[j][2 * h + 1];
+    }
+  }
+}
+
+// --- Cin <= 4 (the stem): SIMT f32 ------------------------------------------
+
+constexpr int S_THREADS = 256;
+constexpr int S_BR = 64;                          // compacted rows per tile
+constexpr int S_BC = 4;                           // input channels per block
+constexpr int S_BN = 64;                          // output channels per block
+constexpr int S_TN = 4;                           // output channels per thread
+constexpr int COL_THREADS = S_BN / S_TN;          // 16
+constexpr int GROUPS = S_THREADS / COL_THREADS;   // 16 row groups
+constexpr int S_CAP = 512;                        // < S_BR pending + one 256-row scan
+// row stride of the G tile: a warp reads two rows at once, and 16 floats
+// of padding put them on disjoint banks
+constexpr int GS = S_BN + 16;
+static_assert(GROUPS * S_BC * S_BN <= S_BR * GS, "group partials must fit in gs");
+
+__global__ void __launch_bounds__(S_THREADS)
+conv_dw_stem_kernel(const float* __restrict__ x, const float* __restrict__ g,
+                    const int* __restrict__ idx, float* __restrict__ dst, int n_in, int n_out,
+                    int k_vol, int cin, int cout, int rows_per_split) {
+  __shared__ int p_row[S_CAP];
+  __shared__ int p_o[S_CAP];
+  __shared__ int warp_counts[S_THREADS / 32];
+  __shared__ float xs[S_BR][S_BC];
+  __shared__ float gs[S_BR * GS];
+
+  const int tid = threadIdx.x;
+  const int tx = tid % COL_THREADS;
+  const int grp = tid / COL_THREADS;
+  const int n0 = blockIdx.x * S_BN;
+  const int k = blockIdx.y;
+  const int* idx_k = idx + static_cast<int64_t>(k) * n_out;
+  const int o_begin = blockIdx.z * rows_per_split;
+  const int o_end = min(n_out, o_begin + rows_per_split);
+
+  float acc[S_BC][S_TN];
+#pragma unroll
+  for (int m = 0; m < S_BC; ++m)
+#pragma unroll
+    for (int n = 0; n < S_TN; ++n) acc[m][n] = 0.f;
+
+  // stage n <= S_BR compacted rows from the ring at head and accumulate them
+  auto tile = [&](int head, int n) {
+    for (int e = tid; e < S_BR * S_BC; e += S_THREADS) {
+      const int i = e / S_BC;
+      const int c = e % S_BC;
       float v = 0.f;
-      if (row >= 0 && c0 + c < cin) v = x[static_cast<int64_t>(row) * cin + c0 + c];
+      if (i < n && c < cin) v = x[static_cast<int64_t>(p_row[(head + i) & (S_CAP - 1)]) * cin + c];
       xs[i][c] = v;
     }
-    for (int e = tid; e < BR * BN; e += THREADS) {
-      const int i = e / BN;
-      const int j = e % BN;
-      float v = 0.f;  // rows without a pair add nothing: skip their G row
-      if (rows[i] >= 0 && n0 + j < cout)
-        v = g[static_cast<int64_t>(o0 + i) * cout + n0 + j];
+    for (int e = tid; e < S_BR * S_BN; e += S_THREADS) {
+      const int i = e / S_BN;
+      const int j = e % S_BN;
+      float v = 0.f;
+      if (i < n && n0 + j < cout)
+        v = g[static_cast<int64_t>(p_o[(head + i) & (S_CAP - 1)]) * cout + n0 + j];
       gs[i * GS + j] = v;
     }
     __syncthreads();
 #pragma unroll 4
-    for (int i = grp; i < BR; i += GROUPS) {
-      float a[TM], b[TN];
+    for (int i = grp; i < n; i += GROUPS) {
+      float b[S_TN];
 #pragma unroll
-      for (int m = 0; m < TM; ++m) a[m] = xs[i][ty + m * ROW_THREADS];
+      for (int q = 0; q < S_TN; ++q) b[q] = gs[i * GS + tx + q * COL_THREADS];
 #pragma unroll
-      for (int n = 0; n < TN; ++n) b[n] = gs[i * GS + tx + n * COL_THREADS];
+      for (int m = 0; m < S_BC; ++m) {
+        const float a = xs[i][m];
 #pragma unroll
-      for (int m = 0; m < TM; ++m)
-#pragma unroll
-        for (int n = 0; n < TN; ++n) acc[m][n] = fmaf(a[m], b[n], acc[m][n]);
-    }
-    __syncthreads();  // the tiles (and rows[]) are rewritten next
-  }
-
-  // this block's (Cin, Cout) tile of split blockIdx.z
-  float* out = dst + (static_cast<int64_t>(blockIdx.z) * k_vol + k) * cin * cout;
-  if constexpr (GROUPS == 1) {
-#pragma unroll
-    for (int m = 0; m < TM; ++m) {
-      const int ci = c0 + ty + m * ROW_THREADS;
-      if (ci >= cin) continue;
-#pragma unroll
-      for (int n = 0; n < TN; ++n) {
-        const int co = n0 + tx + n * COL_THREADS;
-        if (co < cout) out[static_cast<int64_t>(ci) * cout + co] = acc[m][n];
+        for (int q = 0; q < S_TN; ++q) acc[m][q] = fmaf(a, b[q], acc[m][q]);
       }
     }
-  } else {
-    // sum the row groups' partial tiles in a fixed order
-    float* red = gs;
-    __syncthreads();
-#pragma unroll
-    for (int m = 0; m < TM; ++m)
-#pragma unroll
-      for (int n = 0; n < TN; ++n)
-        red[(grp * BC + ty + m * ROW_THREADS) * BN + tx + n * COL_THREADS] = acc[m][n];
-    __syncthreads();
-    for (int e = tid; e < BC * BN; e += THREADS) {
-      float s = 0.f;
-#pragma unroll
-      for (int q = 0; q < GROUPS; ++q) s += red[q * BC * BN + e];
-      const int ci = c0 + e / BN;
-      const int co = n0 + e % BN;
-      if (ci < cin && co < cout) out[static_cast<int64_t>(ci) * cout + co] = s;
+    __syncthreads();  // the tiles are rewritten next
+  };
+
+  int head = 0, pending = 0;
+  for (int o0 = o_begin; o0 < o_end; o0 += S_THREADS) {
+    pending = compact_scan<S_THREADS, S_CAP>(idx_k, o0, o_end, n_in, p_row, p_o, head, pending,
+                                             warp_counts);
+    while (pending >= S_BR) {
+      tile(head, S_BR);
+      head += S_BR;
+      pending -= S_BR;
     }
+  }
+  if (pending > 0) tile(head, pending);
+
+  // sum the row groups' partial tiles in a fixed order
+  float* out = dst + (static_cast<int64_t>(blockIdx.z) * k_vol + k) * cin * cout;
+  float* red = gs;
+#pragma unroll
+  for (int m = 0; m < S_BC; ++m)
+#pragma unroll
+    for (int q = 0; q < S_TN; ++q) red[(grp * S_BC + m) * S_BN + tx + q * COL_THREADS] = acc[m][q];
+  __syncthreads();
+  for (int e = tid; e < S_BC * S_BN; e += S_THREADS) {
+    float s = 0.f;
+#pragma unroll
+    for (int q = 0; q < GROUPS; ++q) s += red[q * S_BC * S_BN + e];
+    const int ci = e / S_BN;
+    const int co = n0 + e % S_BN;
+    if (ci < cin && co < cout) out[static_cast<int64_t>(ci) * cout + co] = s;
   }
 }
 
-// out[e] = sum_s ws[s, e] in order s = 0 .. splits-1
-__global__ void sum_splits_kernel(const float* __restrict__ ws, float* __restrict__ out,
-                                  int64_t n, int splits) {
-  for (int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; e < n;
-       e += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    float s = 0.f;
-    for (int q = 0; q < splits; ++q) s += ws[q * n + e];
-    out[e] = s;
-  }
+template <int BC, int BN, int VEC>
+cudaError_t launch_mma(dim3 grid, cudaStream_t s, const float* x, const float* g, const int* idx,
+                       float* dst, int n_in, int n_out, int k_vol, int cin, int cout,
+                       int rows_per_split) {
+  return launch_dynamic(conv_dw_mma_kernel<BC, BN, VEC>, grid, THREADS, mma_smem_bytes<BC, BN>(),
+                        s, x, g, idx, dst, n_in, n_out, k_vol, cin, cout, rows_per_split);
+}
+
+template <int VEC>
+cudaError_t launch_mma_tiles(int cin_tile, int cout_tile, dim3 grid, cudaStream_t s,
+                             const float* x, const float* g, const int* idx, float* dst,
+                             int n_in, int n_out, int k_vol, int cin, int cout,
+                             int rows_per_split) {
+#define ME_CONV_DW_TILE(BC, BN)                                                               \
+  if (cin_tile == BC && cout_tile == BN)                                                      \
+    return launch_mma<BC, BN, VEC>(grid, s, x, g, idx, dst, n_in, n_out, k_vol, cin, cout, \
+                                   rows_per_split);
+  ME_CONV_DW_TILE(32, 32)
+  ME_CONV_DW_TILE(32, 64)
+  ME_CONV_DW_TILE(64, 32)
+  ME_CONV_DW_TILE(64, 64)
+  ME_CONV_DW_TILE(64, 96)
+  ME_CONV_DW_TILE(64, 128)
+#undef ME_CONV_DW_TILE
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// workspace: (splits, k_vol, cin, cout) float32 when splits > 1, else unused
-extern "C" int me_conv_dw_f32(const void* x, const void* g, const void* idx,
-                              void* out, void* workspace, int n_in, int n_out,
-                              int k_vol, int cin, int cout, int splits,
-                              void* stream) {
+// workspace: (splits, k_vol, cin, cout) float32 when splits > 1, else unused.
+// Cin > 4: (cin_tile, cout_tile) in {32} x {32, 64} or {64} x {32, 64,
+// 96, 128}; vec 4
+// for 16-byte copies (Cin % 4 == 0, Cout % 4 == 0, x and g 16-byte
+// aligned), 1 for 4-byte copies.  Cin <= 4 takes the stem instance (tiles
+// 4 x 64) and ignores cin_tile, cout_tile and vec.
+extern "C" int me_conv_dw_f32(const void* x, const void* g, const void* idx, void* out,
+                              void* workspace, int n_in, int n_out, int k_vol, int cin, int cout,
+                              int splits, int cin_tile, int cout_tile, int vec, void* stream) {
   if (k_vol <= 0 || cin <= 0 || cout <= 0) return static_cast<int>(cudaSuccess);
-  if (splits < 1 || (splits > 1 && workspace == nullptr))
+  if (splits < 1 || (splits > 1 && workspace == nullptr) || (vec != 1 && vec != 4))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int n_chunks = (n_out + BR - 1) / BR;
-  const int chunks_per_split = (n_chunks + splits - 1) / splits;
+  const int scans = (n_out + SCAN - 1) / SCAN;
+  const int rows_per_split = (scans + splits - 1) / splits * SCAN;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* xf = static_cast<const float*>(x);
   const float* gf = static_cast<const float*>(g);
   const int* ii = static_cast<const int*>(idx);
   float* dst = static_cast<float*>(splits > 1 ? workspace : out);
-  const int tiles_n = (cout + BN - 1) / BN;
+  cudaError_t err;
   if (cin <= 4) {
-    const dim3 grid((cin + 3) / 4 * tiles_n, k_vol, splits);
-    conv_dw_kernel<4><<<grid, THREADS, 0, s>>>(xf, gf, ii, dst, n_in, n_out, k_vol,
-                                               cin, cout, chunks_per_split);
+    const dim3 grid((cout + S_BN - 1) / S_BN, k_vol, splits);
+    conv_dw_stem_kernel<<<grid, S_THREADS, 0, s>>>(xf, gf, ii, dst, n_in, n_out, k_vol, cin, cout,
+                                                    rows_per_split);
+    err = cudaGetLastError();
   } else {
-    const dim3 grid((cin + 63) / 64 * tiles_n, k_vol, splits);
-    conv_dw_kernel<64><<<grid, THREADS, 0, s>>>(xf, gf, ii, dst, n_in, n_out, k_vol,
-                                                cin, cout, chunks_per_split);
+    if (vec == 4 && (cin % 4 != 0 || cout % 4 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+                     reinterpret_cast<uintptr_t>(g) % 16 != 0))
+      return static_cast<int>(cudaErrorMisalignedAddress);
+    if (cin_tile <= 0 || cout_tile <= 0) return static_cast<int>(cudaErrorInvalidValue);
+    const dim3 grid((cin + cin_tile - 1) / cin_tile * ((cout + cout_tile - 1) / cout_tile), k_vol,
+                    splits);
+    err = vec == 4 ? launch_mma_tiles<4>(cin_tile, cout_tile, grid, s, xf, gf, ii, dst, n_in,
+                                         n_out, k_vol, cin, cout, rows_per_split)
+                   : launch_mma_tiles<1>(cin_tile, cout_tile, grid, s, xf, gf, ii, dst, n_in,
+                                         n_out, k_vol, cin, cout, rows_per_split);
   }
-  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
-  const int64_t n = static_cast<int64_t>(k_vol) * cin * cout;
-  const int64_t blocks = (n + 255) / 256;
-  sum_splits_kernel<<<static_cast<int>(blocks < 4096 ? blocks : 4096), 256, 0, s>>>(
-      static_cast<const float*>(workspace), static_cast<float*>(out), n, splits);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(sum_splits(static_cast<const float*>(workspace),
+                                     static_cast<float*>(out),
+                                     static_cast<int64_t>(k_vol) * cin * cout, splits, s));
 }

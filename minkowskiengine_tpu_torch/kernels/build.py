@@ -1,7 +1,8 @@
 """Build the port's CUDA sources into one shared library at first use.
 
 Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` for Hopper
-(``sm_90a``), all at once, and the objects are linked into one library in
+(``sm_90a``), all at once (the shared ``csrc/*.cuh`` headers they include
+count in the build key too), and the objects are linked into one library in
 ``build/kernels/`` at the root of a source checkout, under a name keyed on a
 hash of the sources and flags, and loaded with ``ctypes``.  An
 installed package (no ``setup.py`` beside it) builds into the user's cache,
@@ -39,10 +40,12 @@ LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 # stream are c_void_p so ctypes passes them at full width
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
-    # (x, w, idx, out, n_in, n_out, k_vol, cin, cout, stream) -> cudaError_t
-    "me_gather_gemm_f32": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
-    # (x, g, idx, out, workspace, n_in, n_out, k_vol, cin, cout, splits, stream)
-    "me_conv_dw_f32": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P], _I),
+    # (x, w, idx, out, workspace, n_in, n_out, k_vol, cin, cout, splits, vec,
+    #  stream) -> cudaError_t
+    "me_gather_gemm_f32": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P], _I),
+    # (x, g, idx, out, workspace, n_in, n_out, k_vol, cin, cout, splits,
+    #  cin_tile, cout_tile, vec, stream)
+    "me_conv_dw_f32": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P], _I),
 }
 
 _lib = None

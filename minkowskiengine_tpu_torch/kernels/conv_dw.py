@@ -11,12 +11,16 @@ It replaces the JAX package's Pallas dW family behind
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from . import build
 
-ROWS_PER_CHUNK = 64  # BR in csrc/conv_dw.cu
-BLOCKS_PER_SM = 4  # resident 256-thread blocks per SM the row split aims to fill
+ROWS_PER_SCAN = 256  # SCAN in csrc/conv_dw.cu: the unit of the row split
+BLOCKS_PER_SM = 4  # blocks per SM the row split aims to fill
+WORKSPACE_CAP = 16 * 2**20  # bytes of (S, K, Cin, Cout) partials: stays in the 50 MB L2
+COUT_TILES = (32, 64, 96, 128)  # the tensor-core instances' Cout tiles
 
 
 def conv_dw_reference(x: torch.Tensor, g: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -52,13 +56,47 @@ def _check(x: torch.Tensor, g: torch.Tensor, idx: torch.Tensor) -> None:
         raise TypeError(f"idx must be int32, got {idx.dtype}")
 
 
-def _row_splits(k_vol: int, cin: int, cout: int, n_out: int, sms: int) -> int:
-    """How many blocks share one dW tile's rows: enough that the grid fills
-    ``sms`` SMs, and no more splits than 64-row chunks."""
-    cin_tile = 4 if cin <= 4 else 64  # the kernel's two instances
-    blocks = -(-cin // cin_tile) * -(-cout // 64) * k_vol
-    chunks = -(-n_out // ROWS_PER_CHUNK)
-    return max(1, min(-(-BLOCKS_PER_SM * sms // blocks), chunks))
+class Plan(NamedTuple):
+    """How ``conv_dw`` launches its kernel, chosen from shapes alone."""
+
+    splits: int  # row ranges S; > 1: partial tiles summed in order by a second pass
+    cin_tile: int
+    cout_tile: int
+    vec: int  # 4: 16-byte cp.async copies; 1: 4-byte copies (Cin or Cout % 4, or unaligned)
+    body: str  # "mma" (3xTF32 tensor cores) or "simt" (Cin <= 4, the stem)
+
+    def blocks(self, k_vol: int, cin: int, cout: int) -> int:
+        """Blocks of one row range."""
+        return -(-cin // self.cin_tile) * -(-cout // self.cout_tile) * k_vol
+
+    def workspace_bytes(self, k_vol: int, cin: int, cout: int) -> int:
+        return 4 * self.splits * k_vol * cin * cout if self.splits > 1 else 0
+
+
+def cout_tile(cout: int) -> int:
+    """The Cout tile of the tensor-core instances: the fewest tiles of at
+    most 128 channels, each rounded up to a multiple of 32 (96 -> one
+    96-wide tile, 256 -> two of 128)."""
+    per_tile = -(-cout // -(-cout // COUT_TILES[-1]))
+    return -(-per_tile // 32) * 32
+
+
+def plan(k_vol: int, cin: int, cout: int, n_out: int, sms: int, aligned: bool = True) -> Plan:
+    """Tiles fitted to the channels, and the row split: enough row ranges
+    that the grid fills ``BLOCKS_PER_SM`` blocks per SM, no more than
+    256-row scans, and no more than keep the workspace within
+    ``WORKSPACE_CAP``.  ``aligned``: both input pointers are 16-byte
+    aligned."""
+    if cin <= 4:
+        p = Plan(1, 4, 64, 1, "simt")
+    else:
+        vec = 4 if aligned and cin % 4 == 0 and cout % 4 == 0 else 1
+        n_tile = cout_tile(cout)
+        p = Plan(1, 32 if cin <= 32 and n_tile <= 64 else 64, n_tile, vec, "mma")
+    want = -(-BLOCKS_PER_SM * sms // p.blocks(k_vol, cin, cout))
+    scans = -(-n_out // ROWS_PER_SCAN)
+    fit = WORKSPACE_CAP // (4 * k_vol * cin * cout)
+    return p._replace(splits=max(1, min(want, scans, fit)))
 
 
 def conv_dw(x: torch.Tensor, g: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -71,9 +109,10 @@ def conv_dw(x: torch.Tensor, g: torch.Tensor, idx: torch.Tensor) -> torch.Tensor
       idx: (K, N_out) int32.
 
     Returns (K, Cin, Cout) of x's type.  ``conv_dw.launches`` counts the kernel
-    launches (CPU calls run the plain version and do not count).  The sum
-    over rows is deterministic: two launches on the same inputs give the
-    same bits.
+    launches (CPU calls run the plain version and do not count);
+    ``conv_dw.last_plan`` is the ``Plan`` of the last launch.  The sum over
+    rows is deterministic: two launches on the same inputs give the same
+    bits.
     """
     _check(x, g, idx)
     if x.device.type == "cpu":
@@ -94,21 +133,24 @@ def conv_dw(x: torch.Tensor, g: torch.Tensor, idx: torch.Tensor) -> torch.Tensor
     if out.numel() == 0:
         return out
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    splits = _row_splits(k_vol, cin, cout, n_out, sms)
+    aligned = x.data_ptr() % 16 == 0 and g.data_ptr() % 16 == 0
+    p = plan(k_vol, cin, cout, n_out, sms, aligned)
     ws = None
-    if splits > 1:  # per-split partial tiles, summed in order by a second pass
-        ws = torch.empty((splits, k_vol, cin, cout), dtype=torch.float32, device=x.device)
+    if p.splits > 1:  # per-split partial tiles, summed in order by a second pass
+        ws = torch.empty((p.splits, k_vol, cin, cout), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = build.library().me_conv_dw_f32(
             x.data_ptr(), g.data_ptr(), idx.data_ptr(), out.data_ptr(),
             None if ws is None else ws.data_ptr(),
-            n_in, n_out, k_vol, cin, cout, splits, stream,
+            n_in, n_out, k_vol, cin, cout, p.splits, p.cin_tile, p.cout_tile, p.vec, stream,
         )
     if err != 0:
-        raise RuntimeError(f"conv_dw kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"conv_dw kernel launch failed: cudaError {err} ({p})")
     conv_dw.launches += 1
+    conv_dw.last_plan = p
     return out
 
 
 conv_dw.launches = 0
+conv_dw.last_plan = None

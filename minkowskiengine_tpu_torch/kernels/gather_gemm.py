@@ -11,9 +11,44 @@ It replaces the JAX package's Pallas forward family behind
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from . import build
+
+ROWS_PER_TILE = 64  # BM in csrc/gather_gemm.cu
+COUT_PER_TILE = 64  # BN
+BLOCKS_PER_SM = 2  # blocks per SM the offset split aims for
+WORKSPACE_CAP = 16 * 2**20  # bytes of (S, N_out, Cout) partials: stays in the 50 MB L2
+
+
+class Plan(NamedTuple):
+    """How ``gather_gemm`` launches its kernel, chosen from shapes alone."""
+
+    splits: int  # offset ranges S; > 1: partial tiles summed in order by a second pass
+    offsets_per_split: int
+    vec: int  # 4: 16-byte cp.async copies; 1: 4-byte copies (Cin or Cout % 4, or unaligned)
+    body: str  # "mma" (3xTF32 tensor cores) or "simt" (Cin <= 4, the stem)
+
+    def workspace_bytes(self, n_out: int, cout: int) -> int:
+        return 4 * self.splits * n_out * cout if self.splits > 1 else 0
+
+
+def plan(n_out: int, k_vol: int, cin: int, cout: int, sms: int, aligned: bool = True) -> Plan:
+    """The offset split: when the row x Cout tiles number fewer than
+    ``BLOCKS_PER_SM`` per SM, each block takes a contiguous range of
+    offsets, enough ranges to fill the SMs, no more than ``k_vol``, and no
+    more than keep the workspace within ``WORKSPACE_CAP``.  ``aligned``:
+    both input pointers are 16-byte aligned."""
+    tiles = -(-n_out // ROWS_PER_TILE) * -(-cout // COUT_PER_TILE)
+    want = -(-BLOCKS_PER_SM * sms // tiles)
+    fit = WORKSPACE_CAP // (4 * n_out * cout)
+    splits = max(1, min(k_vol, want, fit))
+    per = -(-k_vol // splits)
+    splits = -(-k_vol // per)  # no empty range
+    vec = 4 if aligned and cin % 4 == 0 and cout % 4 == 0 else 1
+    return Plan(splits, per, vec, "simt" if cin <= 4 else "mma")
 
 
 def gather_gemm_reference(x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -62,7 +97,9 @@ def gather_gemm(x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor) -> torch.Te
       idx: (K, N_out) int32.
 
     Returns (N_out, Cout) of x's type.  ``gather_gemm.launches`` counts the
-    kernel launches (CPU calls run the plain version and do not count).
+    kernel launches (CPU calls run the plain version and do not count);
+    ``gather_gemm.last_plan`` is the ``Plan`` of the last launch.  Two
+    launches on the same inputs give the same bits.
     """
     _check(x, w, idx)
     if x.device.type == "cpu":
@@ -82,16 +119,25 @@ def gather_gemm(x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor) -> torch.Te
     out = torch.empty((n_out, cout), dtype=torch.float32, device=x.device)
     if n_out == 0 or cout == 0:
         return out
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    aligned = x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
+    p = plan(n_out, k_vol, cin, cout, sms, aligned)
+    ws = None
+    if p.splits > 1:  # per-range partial tiles, summed in order by a second pass
+        ws = torch.empty((p.splits, n_out, cout), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = build.library().me_gather_gemm_f32(
             x.data_ptr(), w.data_ptr(), idx.data_ptr(), out.data_ptr(),
-            n_in, n_out, k_vol, cin, cout, stream,
+            None if ws is None else ws.data_ptr(),
+            n_in, n_out, k_vol, cin, cout, p.splits, p.vec, stream,
         )
     if err != 0:
-        raise RuntimeError(f"gather_gemm kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"gather_gemm kernel launch failed: cudaError {err} ({p})")
     gather_gemm.launches += 1
+    gather_gemm.last_plan = p
     return out
 
 
 gather_gemm.launches = 0
+gather_gemm.last_plan = None

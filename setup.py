@@ -40,7 +40,7 @@ setup(
     packages=find_packages(include=["minkowskiengine_tpu*"]),
     package_data={
         "minkowskiengine_tpu.cpp": ["hostengine.cpp"],
-        "minkowskiengine_tpu_torch": ["csrc/*.cu"],
+        "minkowskiengine_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"],
     },
     python_requires=">=3.10",
     install_requires=["jax", "flax", "optax", "numpy"],

@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from minkowskiengine_tpu_torch.coords.kernel_map import _invert_matching
-from minkowskiengine_tpu_torch.kernels.conv_dw import conv_dw, conv_dw_reference
+from minkowskiengine_tpu_torch.kernels.conv_dw import conv_dw, conv_dw_reference, plan
 from minkowskiengine_tpu_torch.kernels.gather_gemm import gather_gemm
 from minkowskiengine_tpu_torch.ops.functional import sparse_conv
 
@@ -80,8 +80,62 @@ def test_pairless_and_out_of_range_rows_add_nothing(dev):
     assert torch.all(conv_dw(x, go[:130].contiguous(), empty) == 0)
 
 
+def _check(x, go, idx):
+    got = conv_dw(x, go, idx)
+    want = conv_dw_reference(x, go, idx)
+    torch.cuda.synchronize()
+    if want.abs().max() == 0:
+        assert torch.all(got == 0)
+    else:
+        assert _rel(got, want) <= DW_RTOL
+    return got
+
+
+@pytest.mark.parametrize("cin", [3, 5, 96, 384])
+@pytest.mark.parametrize("cout", [8, 70, 96, 130])
+def test_channel_widths(dev, cin, cout):
+    x, go, idx = _inputs(dev, 8, 1500, 1700, cin, cout)
+    _check(x, go, idx)
+    assert conv_dw.last_plan.body == ("simt" if cin <= 4 else "mma")
+
+
+@pytest.mark.parametrize("case", ["all_pairless", "none_pairless", "last_tile_only", "straddle"])
+def test_row_compaction_edges(dev, case):
+    K, n, cin, cout = 4, 3000, 64, 96
+    x, go, idx = _inputs(dev, K, n, n, cin, cout, density=1.0)
+    if case == "all_pairless":
+        idx[:] = -1
+    elif case == "last_tile_only":
+        idx[:, :-5] = -1  # five paired rows, all in the split's last, partial tile
+    elif case == "straddle":
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        splits = plan(K, cin, cout, n, sms).splits
+        assert splits > 1
+        per = -(-n // 256 // splits) * 256  # rows per split (csrc/conv_dw.cu)
+        idx[:] = -1
+        idx[:, per - 37: per + 41] = torch.arange(78, device=dev, dtype=torch.int32)
+    got = _check(x, go, idx)
+    if case == "all_pairless":
+        assert torch.all(got == 0)
+
+
+def test_four_byte_copies_match_plain(dev):
+    # Cin % 4 != 0, and a view one row in (4-byte aligned only)
+    x, go, idx = _inputs(dev, 27, 801, 700, 5, 64)
+    for xv in (x[:800], x[1:]):
+        _check(xv, go, idx)
+        assert conv_dw.last_plan.vec == 1
+    # Cin % 4 == 0 but g starts 4 bytes past a 16-byte boundary
+    x8, g8, idx8 = _inputs(dev, 8, 500, 400, 8, 32)
+    flat = torch.cat([g8.new_zeros(1), g8.flatten()])
+    gv = flat[1:].view(400, 32)
+    assert gv.data_ptr() % 16 != 0
+    _check(x8, gv, idx8)
+    assert conv_dw.last_plan.vec == 1
+
+
 def test_two_launches_are_bit_equal(dev):
-    for shape in [(27, 20000, 20000, 96, 96), (125, 5000, 5000, 3, 32)]:
+    for shape in [(27, 20000, 20000, 96, 96), (125, 5000, 5000, 3, 32), (27, 618, 618, 384, 256)]:
         x, go, idx = _inputs(dev, *shape)
         assert torch.equal(conv_dw(x, go, idx), conv_dw(x, go, idx))
 

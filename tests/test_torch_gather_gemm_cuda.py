@@ -60,6 +60,53 @@ def test_kernel_matches_plain(dev, K, n_in, n_out, cin, cout):
         assert gather_gemm.launches == before + 1
 
 
+def _rel(got, want):
+    return ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)).item()
+
+
+@pytest.mark.parametrize(
+    "K,n,cin,cout",
+    [(27, 125, 256, 256), (27, 125, 384, 256), (27, 618, 256, 256), (27, 618, 384, 256)],
+)
+def test_offset_split_on_the_deep_levels(dev, K, n, cin, cout):
+    x, w, idx = _inputs(dev, K, n, n, cin, cout, density=0.4)
+    got = gather_gemm(x, w, idx)
+    assert gather_gemm.last_plan.splits > 1 and gather_gemm.last_plan.body == "mma"
+    assert _rel(got, gather_gemm_reference(x, w, idx)) <= 1e-5
+
+
+@pytest.mark.parametrize("K,n,cin,cout", [(27, 20000, 96, 64), (1, 3000, 64, 96), (1, 40, 32, 32)])
+def test_one_split_and_one_offset(dev, K, n, cin, cout):
+    x, w, idx = _inputs(dev, K, n, n, cin, cout)
+    got = gather_gemm(x, w, idx)
+    if n >= 20000:
+        assert gather_gemm.last_plan.splits == 1  # enough row tiles: no second pass
+    assert _rel(got, gather_gemm_reference(x, w, idx)) <= 1e-5
+
+
+def test_four_byte_copies_match_plain(dev):
+    # Cin % 4 != 0, and a view one row in (4-byte aligned only)
+    x, w, idx = _inputs(dev, 27, 801, 700, 5, 64)
+    for xv in (x[:800], x[1:]):
+        got = gather_gemm(xv, w, idx)
+        assert gather_gemm.last_plan.vec == 1
+        assert _rel(got, gather_gemm_reference(xv, w, idx)) <= 1e-5
+    # Cin % 4 == 0 but x starts 4 bytes past a 16-byte boundary
+    x8, w8, idx8 = _inputs(dev, 8, 500, 400, 8, 32)
+    flat = torch.cat([x8.new_zeros(1), x8.flatten()])
+    xv = flat[1:].view(500, 8)
+    assert xv.data_ptr() % 16 != 0
+    got = gather_gemm(xv, w8, idx8)
+    assert gather_gemm.last_plan.vec == 1
+    assert _rel(got, gather_gemm_reference(x8, w8, idx8)) <= 1e-5
+
+
+def test_two_launches_are_bit_equal(dev):
+    for shape in [(27, 618, 618, 384, 256), (27, 5000, 5000, 96, 96), (125, 2000, 2000, 3, 32)]:
+        x, w, idx = _inputs(dev, *shape)
+        assert torch.equal(gather_gemm(x, w, idx), gather_gemm(x, w, idx))
+
+
 def test_rows_without_pairs_and_out_of_range_are_zero(dev):
     x, w, idx = _inputs(dev, 8, 100, 200, 16, 16)
     idx[:, :64] = -1           # a whole tile with no pair: every offset skipped

@@ -1,0 +1,121 @@
+"""The kernels' launch plans, chosen in Python from shapes alone.
+
+``gather_gemm`` splits the offsets across blocks where the row x Cout
+tiles are too few to fill the card; ``conv_dw`` fits its Cout tile to Cout
+and splits the output rows across blocks.  Both sum their splits in order
+in a second pass, through a workspace kept within its cap.  These tests
+check the plans at every distinct sparse conv of a MinkUNet34 training step
+on a batch of two room scans (51,028 / 12,533 / 2,817 / 618 / 125 rows at
+strides 1-16), for an H100's 132 SMs.  Nothing here needs a card.
+"""
+
+import pytest
+
+from minkowskiengine_tpu_torch.kernels import conv_dw as dw
+from minkowskiengine_tpu_torch.kernels import gather_gemm as gg
+
+SMS = 132  # an H100 SXM
+
+# (K, Cin, Cout, rows in, rows out): the 24 distinct sparse convs of a step
+STEP_CONVS = [
+    (125, 3, 32, 51028, 51028),
+    (8, 32, 32, 51028, 12533),
+    (27, 32, 32, 12533, 12533),
+    (8, 32, 32, 12533, 2817),
+    (27, 32, 64, 2817, 2817),
+    (27, 64, 64, 2817, 2817),
+    (8, 64, 64, 2817, 618),
+    (27, 64, 128, 618, 618),
+    (27, 128, 128, 618, 618),
+    (8, 128, 128, 618, 125),
+    (27, 128, 256, 125, 125),
+    (27, 256, 256, 125, 125),
+    (8, 256, 256, 125, 618),
+    (27, 384, 256, 618, 618),
+    (27, 256, 256, 618, 618),
+    (8, 256, 128, 618, 2817),
+    (27, 192, 128, 2817, 2817),
+    (27, 128, 128, 2817, 2817),
+    (8, 128, 96, 2817, 12533),
+    (27, 128, 96, 12533, 12533),
+    (27, 96, 96, 12533, 12533),
+    (8, 96, 96, 12533, 51028),
+    (27, 128, 96, 51028, 51028),
+    (27, 96, 96, 51028, 51028),
+]
+IDS = [f"k{k}-{ci}to{co}-{n_in}to{n_out}" for k, ci, co, n_in, n_out in STEP_CONVS]
+
+
+def _check_offset_split(n_out, k_vol, cin, cout):
+    p = gg.plan(n_out, k_vol, cin, cout, SMS)
+    tiles = -(-n_out // gg.ROWS_PER_TILE) * -(-cout // gg.COUT_PER_TILE)
+    assert 1 <= p.splits <= k_vol
+    assert p.offsets_per_split * (p.splits - 1) < k_vol <= p.offsets_per_split * p.splits
+    assert p.workspace_bytes(n_out, cout) <= gg.WORKSPACE_CAP
+    # the grid fills the SMs, unless every offset already has its own range
+    # or the workspace cap binds
+    capped = 4 * (p.splits + 1) * n_out * cout > gg.WORKSPACE_CAP
+    assert tiles * p.splits >= SMS or p.offsets_per_split == 1 or capped
+    if tiles >= gg.BLOCKS_PER_SM * SMS:
+        assert p.splits == 1  # enough tiles: no workspace, no second pass
+    assert p.body == ("simt" if cin <= 4 else "mma")
+    assert p.vec == (4 if cin % 4 == 0 and cout % 4 == 0 else 1)
+    return p
+
+
+@pytest.mark.parametrize("k_vol,cin,cout,n_in,n_out", STEP_CONVS, ids=IDS)
+def test_gather_gemm_offset_split(k_vol, cin, cout, n_in, n_out):
+    """K1 forward on the map, and as the input gradient on the inverse map
+    with W[k] transposed (Cin and Cout swap, the rows come out at n_in)."""
+    fwd = _check_offset_split(n_out, k_vol, cin, cout)
+    dx = _check_offset_split(n_in, k_vol, cout, cin)
+    for n, p in ((n_out, fwd), (n_in, dx)):
+        if n >= 51028:
+            assert p.splits == 1
+        if n <= 618:  # the deep levels, where the split is the point
+            assert p.splits > 1
+
+
+@pytest.mark.parametrize("k_vol,cin,cout,n_in,n_out", STEP_CONVS, ids=IDS)
+def test_conv_dw_row_split_and_tiles(k_vol, cin, cout, n_in, n_out):
+    p = dw.plan(k_vol, cin, cout, n_out, SMS)
+    scans = -(-n_out // dw.ROWS_PER_SCAN)
+    assert 1 <= p.splits <= scans
+    assert p.workspace_bytes(k_vol, cin, cout) <= dw.WORKSPACE_CAP
+    capped = 4 * (p.splits + 1) * k_vol * cin * cout > dw.WORKSPACE_CAP
+    assert p.blocks(k_vol, cin, cout) * p.splits >= SMS or p.splits == scans or capped
+    if cin <= 4:
+        assert (p.body, p.cin_tile, p.cout_tile) == ("simt", 4, 64)
+    else:
+        assert p.body == "mma" and p.vec == 4
+        assert p.cin_tile in (32, 64) and cin % 16 == 0  # m16 fragments; no ragged Cin on the path
+        assert p.cout_tile in dw.COUT_TILES and p.cout_tile % 8 == 0  # mma n = 8
+        n_tiles = -(-cout // p.cout_tile)
+        assert n_tiles * p.cout_tile - cout < 32  # less than one 32-wide step of padding
+    if (k_vol, cin, cout, n_out) == (27, 96, 96, 51028):
+        assert p.cout_tile == 96 and p.splits > 1  # one 96-wide tile, not 2 x 64
+
+
+@pytest.mark.parametrize(
+    "cout,tile", [(8, 32), (32, 32), (64, 64), (70, 96), (96, 96), (128, 128), (130, 96), (256, 128)]
+)
+def test_conv_dw_cout_tile(cout, tile):
+    assert dw.cout_tile(cout) == tile
+
+
+def test_narrow_or_unaligned_operands_take_four_byte_copies():
+    assert gg.plan(1000, 27, 5, 64, SMS).vec == 1
+    assert gg.plan(1000, 27, 64, 70, SMS).vec == 1
+    assert gg.plan(1000, 27, 64, 64, SMS, aligned=False).vec == 1
+    assert dw.plan(27, 5, 64, 1000, SMS).vec == 1
+    assert dw.plan(27, 64, 70, 1000, SMS).vec == 1
+    assert dw.plan(27, 64, 64, 1000, SMS, aligned=False).vec == 1
+    assert dw.plan(27, 64, 64, 1000, SMS).vec == 4
+
+
+def test_workspace_cap_bounds_the_split():
+    # 384 -> 256 at K = 27: one split's partials are 10.6 MB, so only one fits
+    assert dw.plan(27, 384, 256, 618, SMS).splits == 1
+    # a huge output with few tiles: the offset split stops at the cap
+    p = gg.plan(20000, 27, 64, 64, 10_000)
+    assert p.splits == 3 and p.workspace_bytes(20000, 64) <= gg.WORKSPACE_CAP

@@ -28,8 +28,8 @@ fresh manager, forward, cross-entropy, backward, SGD step.  It prints
 
 5. the wall time of five steps;
 6. one profiled step: the device time of gather_gemm (forward and input
-   gradient) and of conv_dw (weight gradient, both of its kernels), and
-   the device's idle share;
+   gradient), of conv_dw (weight gradient) and of the in-order sums over
+   both kernels' splits, and the device's idle share;
 7. the profiler's table;
 
 and, last, one JSON line with the numbers of both.
@@ -53,8 +53,9 @@ import minkowskiengine_tpu_torch as MT  # noqa: E402
 from chip_smoke import answer, collate, labels_for, scan, train_step  # noqa: E402
 from minkowskiengine_tpu_torch.models import MinkUNet34  # noqa: E402
 
-K1_NAME = "gather_gemm_kernel"
-K2_NAMES = ("conv_dw_kernel", "sum_splits_kernel")
+K1_NAME = "gather_gemm_"  # gather_gemm_mma_kernel, gather_gemm_stem_kernel
+K2_NAME = "conv_dw_"  # conv_dw_mma_kernel, conv_dw_stem_kernel
+SPLITS_NAME = "sum_splits_kernel"  # the second pass of either kernel
 SEED = 0
 REPEATS = 5
 
@@ -89,18 +90,20 @@ def device_split(prof, secs):
     if not device:
         raise AssertionError("the profiler recorded no device activity")
 
-    def span(names):
-        events = [e for e in device if any(n in e.name for n in names)]
+    def span(name):
+        events = [e for e in device if name in e.name]
         return busy_us((e.time_range.start, e.time_range.end) for e in events), len(events)
 
     device_us = busy_us((e.time_range.start, e.time_range.end) for e in device)
-    k1_us, k1_n = span((K1_NAME,))
-    k2_us, k2_n = span(K2_NAMES)
+    k1_us, k1_n = span(K1_NAME)
+    k2_us, k2_n = span(K2_NAME)
+    sums_us, sums_n = span(SPLITS_NAME)
     wall_us = secs * 1e6
     return dict(
         wall_ms=wall_us / 1e3, device_busy_ms=device_us / 1e3, device_events=len(device),
         gather_gemm_ms=k1_us / 1e3, gather_gemm_launches=k1_n,
-        conv_dw_ms=k2_us / 1e3, conv_dw_kernels=k2_n, idle_share=1 - device_us / wall_us,
+        conv_dw_ms=k2_us / 1e3, conv_dw_launches=k2_n,
+        split_sums_ms=sums_us / 1e3, split_sums=sums_n, idle_share=1 - device_us / wall_us,
     )
 
 
@@ -130,7 +133,8 @@ def profile_train(dev):
         f"[6 profiled step] wall {split['wall_ms']:.2f} ms; device busy "
         f"{split['device_busy_ms']:.3f} ms in {split['device_events']} kernels and copies; "
         f"gather_gemm {split['gather_gemm_ms']:.3f} ms in {split['gather_gemm_launches']} "
-        f"launches, conv_dw {split['conv_dw_ms']:.3f} ms in {split['conv_dw_kernels']} "
+        f"launches, conv_dw {split['conv_dw_ms']:.3f} ms in {split['conv_dw_launches']} "
+        f"launches, split sums {split['split_sums_ms']:.3f} ms in {split['split_sums']} "
         f"kernels; device idle {100 * split['idle_share']:.1f}% of the wall"
     )
     print("[7 profiler table]")
@@ -165,7 +169,8 @@ def profile_request(dev):
         f"{split['device_busy_ms']:.3f} ms in {split['device_events']} kernels and copies; "
         f"gather_gemm {split['gather_gemm_ms']:.3f} ms in {split['gather_gemm_launches']} "
         f"launches ({100 * split['gather_gemm_ms'] / split['device_busy_ms']:.1f}% of "
-        f"device time); device idle {100 * split['idle_share']:.1f}% of the wall"
+        f"device time), split sums {split['split_sums_ms']:.3f} ms in {split['split_sums']} "
+        f"kernels; device idle {100 * split['idle_share']:.1f}% of the wall"
     )
     print("[4 profiler table]")
     print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=15))
