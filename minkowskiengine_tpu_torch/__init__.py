@@ -1,10 +1,12 @@
 """minkowskiengine_tpu_torch: the PyTorch/CUDA port of minkowskiengine_tpu.
 
-Sparse tensors, the coordinate engine, batch collation and the MinkUNet
-family on PyTorch, for inference and training.  The sparse convolution runs
-on two hand-written Hopper kernels: the gather-GEMM for the forward and the
-input gradient (``kernels/gather_gemm.py``, ``csrc/gather_gemm.cu``) and the
-weight gradient (``kernels/conv_dw.py``, ``csrc/conv_dw.cu``).  Imports torch
+Sparse tensors, tensor fields, the coordinate engine, batch collation,
+pooling, and the MinkUNet, ResNet and point-cloud classification models on
+PyTorch, for inference and training.  The sparse convolution runs on two
+hand-written Hopper kernels: the gather-GEMM for the forward and the input
+gradient (``kernels/gather_gemm.py``, ``csrc/gather_gemm.cu``) and the
+weight gradient (``kernels/conv_dw.py``, ``csrc/conv_dw.cu``).  State goes
+on the CUDA card unless the caller passes ``device="cpu"``.  Imports torch
 and numpy only.
 """
 
@@ -12,13 +14,29 @@ from .coords.kernel_map import KernelMap
 from .coords.manager import CoordinateManager, CoordinateMapKey
 from .kernel_generator import KernelGenerator, KernelRegion
 from .nn import (
+    MinkowskiAvgPooling,
     MinkowskiBatchNorm,
     MinkowskiConvolution,
     MinkowskiConvolutionTranspose,
+    MinkowskiDropout,
+    MinkowskiGELU,
+    MinkowskiGlobalAvgPooling,
+    MinkowskiGlobalMaxPooling,
+    MinkowskiGlobalPooling,
+    MinkowskiGlobalSumPooling,
+    MinkowskiInstanceNorm,
+    MinkowskiLeakyReLU,
+    MinkowskiLinear,
+    MinkowskiMaxPooling,
+    MinkowskiPoolingTranspose,
     MinkowskiReLU,
+    MinkowskiStableInstanceNorm,
+    MinkowskiSumPooling,
+    MinkowskiToFeature,
     cat,
 )
 from .sparse_tensor import SparseTensor
+from .tensor_field import TensorField
 from .tensor import (
     clear_global_coordinate_manager,
     global_coordinate_manager,
@@ -28,6 +46,7 @@ from .tensor import (
 )
 from .types import (
     ConvolutionMode,
+    PoolingMode,
     RegionType,
     SparseTensorOperationMode,
     SparseTensorQuantizationMode,
@@ -40,14 +59,31 @@ __all__ = [
     "KernelGenerator",
     "KernelMap",
     "KernelRegion",
+    "MinkowskiAvgPooling",
     "MinkowskiBatchNorm",
     "MinkowskiConvolution",
     "MinkowskiConvolutionTranspose",
+    "MinkowskiDropout",
+    "MinkowskiGELU",
+    "MinkowskiGlobalAvgPooling",
+    "MinkowskiGlobalMaxPooling",
+    "MinkowskiGlobalPooling",
+    "MinkowskiGlobalSumPooling",
+    "MinkowskiInstanceNorm",
+    "MinkowskiLeakyReLU",
+    "MinkowskiLinear",
+    "MinkowskiMaxPooling",
+    "MinkowskiPoolingTranspose",
     "MinkowskiReLU",
+    "MinkowskiStableInstanceNorm",
+    "MinkowskiSumPooling",
+    "MinkowskiToFeature",
+    "PoolingMode",
     "RegionType",
     "SparseTensor",
     "SparseTensorOperationMode",
     "SparseTensorQuantizationMode",
+    "TensorField",
     "cat",
     "clear_global_coordinate_manager",
     "global_coordinate_manager",

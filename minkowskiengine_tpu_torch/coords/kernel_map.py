@@ -12,6 +12,10 @@ The forward convolution is a gather-GEMM through ``in_idx``
 (kernels/gather_gemm.py); the transposed convolution is the same object
 with the two matrices swapped.  The JAX package's slab decomposition for
 its TPU kernel is not carried over.
+
+Pooling with stride == kernel size takes the stride-map fast path: a
+many-to-one stride map (``build_stride_map``) wrapped as a kernel map whose
+rows are collision slots, not offsets (``stride_map_to_kernel_map``).
 """
 
 from __future__ import annotations
@@ -96,3 +100,64 @@ def build_kernel_map(
     in_idx = _build_in_idx(in_map.keys, out_map.coordinates, offs)
     out_idx_t = _invert_matching(in_idx, in_map.size)
     return KernelMap(in_idx, out_idx_t, in_map.size, out_map.size)
+
+
+def build_stride_map(
+    in_map: CoordinateMap, out_map: CoordinateMap, out_tensor_stride
+) -> torch.Tensor:
+    """(N_in,) int32: the output row of each input row's strided voxel, or -1.
+
+    Counterpart of ``build_stride_map`` in
+    ``minkowskiengine_tpu/coords/kernel_map.py`` (reference: ``stride_map``,
+    src/coordinate_map_cpu.hpp:672-722).
+    """
+    c = in_map.coordinates
+    stride = torch.tensor(out_tensor_stride, dtype=torch.int32, device=c.device)
+    spatial = torch.div(c[:, 1:], stride, rounding_mode="floor") * stride
+    queries = torch.cat([c[:, :1], spatial], dim=1)
+    rows = find_rows(out_map.keys, K.pack(queries))
+    return rows.masked_fill_(K.overflow_mask(queries), -1)
+
+
+def _collision_rank(in_to_out: torch.Tensor, n_out: int):
+    """rank[i] = position of input i among the inputs sharing its output
+    row, in input-row order (a stable sort); and the largest count."""
+    n_in = in_to_out.shape[0]
+    dev = in_to_out.device
+    valid = in_to_out >= 0
+    tgt = torch.where(valid, in_to_out.long(), n_out)
+    sorted_tgt, order = torch.sort(tgt, stable=True)
+    is_new = torch.ones_like(sorted_tgt, dtype=torch.bool)
+    is_new[1:] = sorted_tgt[1:] != sorted_tgt[:-1]
+    pos = torch.arange(n_in, device=dev)
+    seg_start = torch.cummax(torch.where(is_new, pos, 0), 0).values
+    rank = torch.empty_like(pos)
+    rank[order] = pos - seg_start
+    max_rank = int(torch.where(valid, rank, -1).max()) + 1 if n_in else 0
+    return rank, max_rank
+
+
+def stride_map_to_kernel_map(in_to_out: torch.Tensor, n_in: int, n_out: int) -> KernelMap:
+    """Wrap a many-to-one stride map as a (Kmax, N_out) kernel map.
+
+    Counterpart of ``_stride_map_to_kernel_map`` in
+    ``minkowskiengine_tpu/coords/manager.py``.  A stride map sends every
+    input row to one output voxel, so colliding inputs go to successive
+    slots: slot r holds the r-th input, in input-row order, of each output
+    voxel.  Max pooling's tie-break and average pooling's sum order follow
+    that order.  ``Kmax`` (most inputs per voxel) is read on the host once,
+    when the map is built and cached.
+    """
+    dev = in_to_out.device
+    rank, max_rank = _collision_rank(in_to_out, n_out)
+    kmax = max(max_rank, 1)
+    valid = in_to_out >= 0
+    flat_tgt = torch.where(valid, rank * n_out + in_to_out.long(), kmax * n_out)
+    flat = torch.full((kmax * n_out + 1,), -1, dtype=torch.int32, device=dev)
+    flat.scatter_(0, flat_tgt, torch.arange(n_in, dtype=torch.int32, device=dev))
+    in_idx = flat[:-1].view(kmax, n_out)
+    slots = torch.arange(kmax, device=dev)[:, None]
+    out_idx_t = torch.where(
+        (slots == rank[None, :]) & valid[None, :], in_to_out[None, :], -1
+    ).to(torch.int32)
+    return KernelMap(in_idx, out_idx_t, n_in, n_out)

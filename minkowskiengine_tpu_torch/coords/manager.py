@@ -2,11 +2,14 @@
 
 Counterpart of the eager part of ``minkowskiengine_tpu/coords/manager.py``
 (reference: src/coordinate_map_manager.hpp:87-565, .cpp:349-1414).  The
-coordinate phase runs eagerly on the manager's device: each op sorts or
-searches packed int64 keys and caches its result under the reference's
-cache keys (``kernel_map_key_type``, src/types.hpp:183-192).  Maps hold
-exact row counts.  The JAX package's oplog and replay, slab floors and
-grid probes are TPU machinery and are not carried over.
+coordinate phase runs eagerly on the manager's device (the card unless
+the caller passes ``device="cpu"``): each op sorts or searches packed
+int64 keys and caches its result under the reference's cache keys
+(``kernel_map_key_type``, src/types.hpp:183-192).  Maps hold exact row
+counts.  Field maps (a TensorField's float coordinates), origin maps,
+stride maps and field-to-sparse maps live beside the coordinate maps.
+The JAX package's oplog and replay, slab floors and grid probes are TPU
+machinery and are not carried over.
 """
 
 from __future__ import annotations
@@ -18,9 +21,11 @@ import numpy as np
 import torch
 
 from ..kernel_generator import KernelRegion, region_offsets
-from ..types import RegionType, as_tuple
-from .kernel_map import KernelMap, build_kernel_map
-from .map import CoordinateMap
+from ..types import RegionType, as_tuple, resolve_device
+from . import keys as K
+from .kernel_map import KernelMap, build_kernel_map, build_stride_map, stride_map_to_kernel_map
+from .lookup import find_rows
+from .map import CoordinateFieldMap, CoordinateMap
 from .unique import unique_coordinates
 
 
@@ -60,24 +65,55 @@ def region_offsets_for(
     )
 
 
-class CoordinateManager:
-    """Caches coordinate maps and kernel maps on ``device``."""
+def _quantize_field(field_coords: torch.Tensor, tensor_stride) -> torch.Tensor:
+    """Float field coordinates → int32 voxel coordinates at ``tensor_stride``:
+    ``floor(coord / stride) * stride``, divided in float32 as the JAX
+    package's ``_quantize_field`` does (a float64 division would move points
+    on voxel boundaries).  The batch column is truncated to int32."""
+    ts = torch.tensor(tensor_stride, dtype=torch.int32, device=field_coords.device)
+    spatial = torch.floor(field_coords[:, 1:] / ts.to(field_coords.dtype)).to(torch.int32) * ts
+    return torch.cat([field_coords[:, :1].to(torch.int32), spatial], dim=1)
 
-    def __init__(self, D: int, device="cpu"):
+
+def _origin_coords(coords: torch.Tensor) -> torch.Tensor:
+    """(b, 0, ..., 0) for every row."""
+    out = torch.zeros_like(coords)
+    out[:, 0] = coords[:, 0]
+    return out
+
+
+class CoordinateManager:
+    """Caches coordinate maps and kernel maps on ``device`` (default: the
+    CUDA card; ``device="cpu"`` for the CPU)."""
+
+    def __init__(self, D: int, device=None):
         if D < 1:
             raise ValueError(f"Invalid dimension {D}")
         self.D = int(D)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self._maps: Dict[Tuple[Tuple[int, ...], str], CoordinateMap] = {}
+        self._field_maps: Dict[Tuple[Tuple[int, ...], str], CoordinateFieldMap] = {}
         self._kernel_maps: Dict[tuple, KernelMap] = {}
+        # stride maps, origin maps and origin field maps: row maps by key pair
+        self._stride_maps: Dict[tuple, torch.Tensor] = {}
+        self._origin_keys: Dict[tuple, CoordinateMapKey] = {}
+        # (field key, sparse key) -> sparse row of each field row
+        self._field_to_sparse: Dict[tuple, torch.Tensor] = {}
         self._id_counter = itertools.count()
 
     # ------------------------------------------------------------------
     # map bookkeeping
     # ------------------------------------------------------------------
-    def _unique_string_id(self, tensor_stride: Tuple[int, ...], string_id: str) -> str:
+    def _unique_string_id(
+        self, tensor_stride: Tuple[int, ...], string_id: str, field: bool = False
+    ) -> str:
+        """First free string id.  Field maps and coordinate maps have
+        separate key spaces, as in the JAX package (a field map and the
+        sparse map it quantizes to share ``(stride, "")``); both draw from
+        one counter, so a second quantization of a field gets ``map-N``."""
+        taken = self._field_maps if field else self._maps
         sid = string_id
-        while (tensor_stride, sid) in self._maps:
+        while (tensor_stride, sid) in taken:
             sid = f"{string_id or 'map'}-{next(self._id_counter)}"
         return sid
 
@@ -87,11 +123,25 @@ class CoordinateManager:
             raise KeyError(f"Coordinate map {k} not found in manager")
         return self._maps[k]
 
+    def _get_field_map(self, key: CoordinateMapKey) -> CoordinateFieldMap:
+        k = key.get_key()
+        if k not in self._field_maps:
+            raise KeyError(f"Coordinate field map {k} not found in manager")
+        return self._field_maps[k]
+
     def size(self, key: CoordinateMapKey) -> int:
         return self._get_map(key).size
 
     def get_coordinates(self, key: CoordinateMapKey) -> torch.Tensor:
         return self._get_map(key).coordinates
+
+    def get_coordinate_field(self, key: CoordinateMapKey) -> torch.Tensor:
+        return self._get_field_map(key).coordinates
+
+    def _find_rows_in(self, key: CoordinateMapKey, coords: torch.Tensor) -> torch.Tensor:
+        """Row of each integer query coordinate in a map, or -1 (int32)."""
+        rows = find_rows(self._get_map(key).keys, K.pack(coords))
+        return rows.masked_fill_(K.overflow_mask(coords), -1)
 
     def __repr__(self):
         lines = [f"CoordinateManager(D={self.D}, device={self.device})"]
@@ -138,6 +188,20 @@ class CoordinateManager:
             )
         key, unique_map, inverse_map = self._register_unique(coords, ts, string_id)
         return key, (unique_map, inverse_map)
+
+    def insert_field(self, coordinates, tensor_stride=1, string_id: str = "") -> CoordinateMapKey:
+        """Insert continuous coordinates, the store behind a TensorField
+        (reference: insert_field, src/coordinate_map_manager.cpp:139-186)."""
+        ts = as_tuple(tensor_stride, self.D)
+        coords = torch.as_tensor(coordinates, device=self.device).to(torch.float32)
+        if coords.ndim != 2 or coords.shape[1] != self.D + 1:
+            raise ValueError(
+                f"coordinates must be (N, {self.D + 1}), got {tuple(coords.shape)}"
+            )
+        sid = self._unique_string_id(ts, string_id, field=True)
+        key = CoordinateMapKey(ts, sid)
+        self._field_maps[key.get_key()] = CoordinateFieldMap(coords, ts)
+        return key
 
     # ------------------------------------------------------------------
     # derived maps
@@ -193,6 +257,81 @@ class CoordinateManager:
         new_key, _, _ = self._register_unique(cand, out_ts, sid)
         return new_key
 
+    def origin(self, key: CoordinateMapKey) -> CoordinateMapKey:
+        """Map of the per-batch origins (b, 0, ..., 0) (reference: origin,
+        src/coordinate_map_cpu.hpp:492-513)."""
+        k = key.get_key()
+        if k not in self._origin_keys:
+            ocoords = _origin_coords(self._get_map(key).coordinates)
+            self._origin_keys[k], _, _ = self._register_unique(
+                ocoords, (1,) * self.D, f"origin-{k[1]}"
+            )
+        return self._origin_keys[k]
+
+    def origin_field(self, key: CoordinateMapKey) -> CoordinateMapKey:
+        """Origin map of a field map: the batch indices of its float rows."""
+        k = key.get_key()
+        cache_k = (k, "field-origin")
+        if cache_k not in self._origin_keys:
+            ocoords = _origin_coords(self._get_field_map(key).coordinates.to(torch.int32))
+            self._origin_keys[cache_k], _, _ = self._register_unique(
+                ocoords, (1,) * self.D, f"origin-field-{k[1]}"
+            )
+        return self._origin_keys[cache_k]
+
+    def origin_map(self, key: CoordinateMapKey) -> Tuple[CoordinateMapKey, torch.Tensor]:
+        """(origin key, (N,) int32 origin row of each row): the batch segment
+        id that global pooling and instance norm reduce over (reference:
+        origin_map, src/coordinate_map_cpu.hpp:724-783)."""
+        origin_key = self.origin(key)
+        ck = (key.get_key(), origin_key.get_key())
+        if ck not in self._stride_maps:
+            ocoords = _origin_coords(self._get_map(key).coordinates)
+            self._stride_maps[ck] = self._find_rows_in(origin_key, ocoords)
+        return origin_key, self._stride_maps[ck]
+
+    def origin_field_map(self, key: CoordinateMapKey) -> Tuple[CoordinateMapKey, torch.Tensor]:
+        """``origin_map`` for a field map; the float batch column is cast to
+        int32 (reference: src/global_pooling_cpu.cpp:72-85)."""
+        origin_key = self.origin_field(key)
+        ck = (key.get_key(), "field", origin_key.get_key())
+        if ck not in self._stride_maps:
+            coords = self._get_field_map(key).coordinates.to(torch.int32)
+            self._stride_maps[ck] = self._find_rows_in(origin_key, _origin_coords(coords))
+        return origin_key, self._stride_maps[ck]
+
+    def number_of_unique_batch_indices(self, key: CoordinateMapKey) -> int:
+        return self._get_map(self.origin(key)).size
+
+    # ------------------------------------------------------------------
+    # field → sparse
+    # ------------------------------------------------------------------
+    def field_to_sparse_insert_and_map(
+        self, field_key: CoordinateMapKey, sparse_tensor_stride, sparse_string_id: str = ""
+    ) -> Tuple[CoordinateMapKey, Tuple[torch.Tensor, torch.Tensor]]:
+        """Quantize a field map into a new sparse map; returns
+        (sparse key, (unique_map, inverse_map)) (reference:
+        src/coordinate_map_manager.cpp:193-266)."""
+        ts = as_tuple(sparse_tensor_stride, self.D)
+        qcoords = _quantize_field(self._get_field_map(field_key).coordinates, ts)
+        sparse_key, unique_map, inverse_map = self._register_unique(qcoords, ts, sparse_string_id)
+        inverse_map = inverse_map.to(torch.int32)
+        self._field_to_sparse[(field_key.get_key(), sparse_key.get_key())] = inverse_map
+        return sparse_key, (unique_map, inverse_map)
+
+    def exists_field_to_sparse(self, field_key: CoordinateMapKey, sparse_key: CoordinateMapKey) -> bool:
+        return (field_key.get_key(), sparse_key.get_key()) in self._field_to_sparse
+
+    def field_to_sparse_map(self, field_key: CoordinateMapKey, sparse_key: CoordinateMapKey) -> torch.Tensor:
+        """(N_field,) sparse row of each field row, or -1 where the field
+        row's voxel is not in the sparse map."""
+        ck = (field_key.get_key(), sparse_key.get_key())
+        if ck not in self._field_to_sparse:
+            smap = self._get_map(sparse_key)
+            qcoords = _quantize_field(self._get_field_map(field_key).coordinates, smap.tensor_stride)
+            self._field_to_sparse[ck] = self._find_rows_in(sparse_key, qcoords)
+        return self._field_to_sparse[ck]
+
     # ------------------------------------------------------------------
     # kernel maps
     # ------------------------------------------------------------------
@@ -242,17 +381,19 @@ class CoordinateManager:
         if cache_key in self._kernel_maps:
             return self._kernel_maps[cache_key]
         _, _, ks, s, dil, _, _, _, off_key = cache_key
-        if is_pool and s == ks and off_key is None:
-            raise NotImplementedError(
-                "the stride-map pooling fast path is not ported yet"
-            )
+        fast_pool = is_pool and s == ks and off_key is None
         in_map = self._get_map(in_key)
         out_map = self._get_map(out_key)
         if not is_transpose:
-            offs = region_offsets_for(
-                region_type, ks, dil, in_map.tensor_stride, region_offsets
-            )
-            kmap = build_kernel_map(in_map, out_map, offs)
+            if fast_pool:
+                kmap = stride_map_to_kernel_map(
+                    self.stride_map(in_key, out_key), in_map.size, out_map.size
+                )
+            else:
+                offs = region_offsets_for(
+                    region_type, ks, dil, in_map.tensor_stride, region_offsets
+                )
+                kmap = build_kernel_map(in_map, out_map, offs)
         else:
             swapped_key = (
                 out_key.get_key(), in_key.get_key(), ks, s, dil,
@@ -260,6 +401,10 @@ class CoordinateManager:
             )
             if swapped_key in self._kernel_maps:
                 kmap = self._kernel_maps[swapped_key].swap()
+            elif fast_pool:
+                kmap = stride_map_to_kernel_map(
+                    self.stride_map(out_key, in_key), out_map.size, in_map.size
+                ).swap()
             else:
                 # build out→in with offsets at the *output's* (finer)
                 # stride, then swap (src/coordinate_map_manager.cpp:759-813)
@@ -269,3 +414,14 @@ class CoordinateManager:
                 kmap = build_kernel_map(out_map, in_map, offs).swap()
         self._kernel_maps[cache_key] = kmap
         return kmap
+
+    def stride_map(self, in_key: CoordinateMapKey, out_key: CoordinateMapKey) -> torch.Tensor:
+        """(N_in,) int32 output row of each input row, cached (the pooling
+        fast path's map; reference: src/coordinate_map_cpu.hpp:672-722)."""
+        ck = (in_key.get_key(), out_key.get_key())
+        if ck not in self._stride_maps:
+            out_map = self._get_map(out_key)
+            self._stride_maps[ck] = build_stride_map(
+                self._get_map(in_key), out_map, out_map.tensor_stride
+            )
+        return self._stride_maps[ck]

@@ -1,4 +1,5 @@
-"""CoordinateMap: an immutable, sorted coordinate set on one device.
+"""CoordinateMap: an immutable, sorted coordinate set on one device, and
+CoordinateFieldMap: the continuous coordinates behind a TensorField.
 
 Counterpart of ``minkowskiengine_tpu/coords/map.py``.  Rows are stored in
 ascending packed-key order (the canonical batch-major order) with their
@@ -27,6 +28,36 @@ class CoordinateMap:
 
     coordinates: torch.Tensor
     keys: torch.Tensor
+    tensor_stride: Tuple[int, ...]
+
+    @property
+    def size(self) -> int:
+        return int(self.coordinates.shape[0])
+
+    @property
+    def dimension(self) -> int:
+        return int(self.coordinates.shape[1]) - 1
+
+    @property
+    def device(self) -> torch.device:
+        return self.coordinates.device
+
+
+@dataclasses.dataclass(frozen=True)
+class CoordinateFieldMap:
+    """Continuous (float) coordinate store backing ``TensorField``.
+
+    Counterpart of ``CoordinateFieldMap`` in
+    ``minkowskiengine_tpu/coords/manager.py`` (reference:
+    ``CoordinateFieldMapCPU``, src/coordinate_map_cpu.hpp:945-1146): a plain
+    row store in input order, no hashing, exactly ``size`` rows.
+
+    Attributes:
+      coordinates: (N, D+1) float32; column 0 is the batch index.
+      tensor_stride: D-tuple of ints.
+    """
+
+    coordinates: torch.Tensor
     tensor_stride: Tuple[int, ...]
 
     @property

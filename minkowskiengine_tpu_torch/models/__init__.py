@@ -1,4 +1,7 @@
-"""Model zoo (the MinkUNet family so far)."""
+"""Model zoo: the MinkUNet family, the classification ResNets and the
+point-cloud classifiers."""
+
+from .classification import GlobalMaxAvgPool, MinkowskiFCNN, MinkowskiPointNet
 
 from .minkunet import (
     MinkUNet14,
@@ -18,8 +21,18 @@ from .minkunet import (
     MinkUNet101,
     MinkUNetBase,
 )
+from .resnet import ResNet14, ResNet18, ResNet34, ResNet50, ResNet101, ResNetBase
 
 __all__ = [
+    "GlobalMaxAvgPool",
+    "MinkowskiFCNN",
+    "MinkowskiPointNet",
+    "ResNetBase",
+    "ResNet14",
+    "ResNet18",
+    "ResNet34",
+    "ResNet50",
+    "ResNet101",
     "MinkUNetBase",
     "MinkUNet14",
     "MinkUNet14A",

@@ -5,15 +5,40 @@ from .conv import (
     MinkowskiConvolutionBase,
     MinkowskiConvolutionTranspose,
 )
-from .nonlinearity import MinkowskiReLU
-from .norm import MinkowskiBatchNorm
-from .ops import cat
+from .nonlinearity import MinkowskiDropout, MinkowskiGELU, MinkowskiLeakyReLU, MinkowskiReLU
+from .norm import MinkowskiBatchNorm, MinkowskiInstanceNorm, MinkowskiStableInstanceNorm
+from .ops import MinkowskiLinear, MinkowskiToFeature, cat
+from .pooling import (
+    MinkowskiAvgPooling,
+    MinkowskiGlobalAvgPooling,
+    MinkowskiGlobalMaxPooling,
+    MinkowskiGlobalPooling,
+    MinkowskiGlobalSumPooling,
+    MinkowskiMaxPooling,
+    MinkowskiPoolingTranspose,
+    MinkowskiSumPooling,
+)
 
 __all__ = [
+    "MinkowskiAvgPooling",
     "MinkowskiBatchNorm",
     "MinkowskiConvolution",
     "MinkowskiConvolutionBase",
     "MinkowskiConvolutionTranspose",
+    "MinkowskiDropout",
+    "MinkowskiGELU",
+    "MinkowskiGlobalAvgPooling",
+    "MinkowskiGlobalMaxPooling",
+    "MinkowskiGlobalPooling",
+    "MinkowskiGlobalSumPooling",
+    "MinkowskiInstanceNorm",
+    "MinkowskiLeakyReLU",
+    "MinkowskiLinear",
+    "MinkowskiMaxPooling",
+    "MinkowskiPoolingTranspose",
     "MinkowskiReLU",
+    "MinkowskiStableInstanceNorm",
+    "MinkowskiSumPooling",
+    "MinkowskiToFeature",
     "cat",
 ]

@@ -20,7 +20,7 @@ from ..coords.manager import CoordinateManager, CoordinateMapKey
 from ..kernel_generator import KernelGenerator
 from ..ops import functional as F
 from ..sparse_tensor import SparseTensor
-from ..types import RegionType
+from ..types import RegionType, resolve_device
 
 
 def _resolve_out_key(input: SparseTensor, coordinates, out_tensor_stride):
@@ -80,7 +80,8 @@ class MinkowskiConvolutionBase(nn.Module):
     Parameters: ``kernel`` (K, Cin, Cout), or (Cin, Cout) for a stride-1
     volume-1 kernel, and an optional ``bias`` stored (1, Cout).  Both are
     drawn from U(±1/√(fan·K)) (reference: MinkowskiConvolution.py:330-339)
-    with ``generator`` on the CPU, then moved to ``device``.
+    with ``generator`` on the CPU, then moved to ``device`` (default: the
+    CUDA card).
     """
 
     def __init__(
@@ -131,10 +132,11 @@ class MinkowskiConvolutionBase(nn.Module):
             kernel_shape = (kernel_generator.kernel_volume, self.in_channels, self.out_channels)
         fan = self.out_channels if is_transpose else self.in_channels
         stdv = 1.0 / math.sqrt(fan * kernel_generator.kernel_volume)
+        dev = resolve_device(device)
 
         def uniform(shape):
             t = torch.empty(shape, dtype=torch.float32)
-            return nn.Parameter(t.uniform_(-stdv, stdv, generator=generator).to(device))
+            return nn.Parameter(t.uniform_(-stdv, stdv, generator=generator).to(dev))
 
         self.kernel = uniform(kernel_shape)
         self.bias = uniform((1, self.out_channels)) if bias else None

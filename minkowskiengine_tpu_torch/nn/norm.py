@@ -1,17 +1,28 @@
-"""Batch normalization over sparse-tensor rows.
+"""Normalization over sparse-tensor rows.
 
-Counterpart of ``minkowskiengine_tpu/nn/norm.py::MinkowskiBatchNorm``.  Rows
-are exact-size, so no padding mask is needed, and the module wraps
-``torch.nn.BatchNorm1d`` as ``.bn`` the way the reference does
-(MinkowskiNormalization.py:51-98): its state-dict names
+Counterpart of ``minkowskiengine_tpu/nn/norm.py``.
+
+``MinkowskiBatchNorm``: rows are exact-size, so no padding mask is needed,
+and the module wraps ``torch.nn.BatchNorm1d`` as ``.bn`` the way the
+reference does (MinkowskiNormalization.py:51-98): its state-dict names
 (``bn.weight``, ``bn.running_mean``, ...) are the reference's.  Train mode
 normalizes with the biased batch variance and updates the running variance
-with the unbiased one; eval mode uses the running statistics.
+with the unbiased one; eval mode uses the running statistics.  It takes a
+SparseTensor or a TensorField.
+
+``MinkowskiInstanceNorm``: per batch item (point cloud), the mean and the
+biased variance over the item's rows (its origin-map segment), then
+``weight`` and ``bias`` of shape (1, C) under the reference's names
+(MinkowskiNormalization.py:361-399).
 """
 
 from __future__ import annotations
 
+import torch
 from torch import nn
+
+from ..ops import functional as F
+from ..types import resolve_device
 
 
 class MinkowskiBatchNorm(nn.Module):
@@ -31,8 +42,37 @@ class MinkowskiBatchNorm(nn.Module):
             momentum=momentum,
             affine=affine,
             track_running_stats=track_running_stats,
-            device=device,
+            device=resolve_device(device),
         )
 
     def forward(self, input):
         return input._wrap(self.bn(input.F))
+
+
+class MinkowskiInstanceNorm(nn.Module):
+    def __init__(self, num_features: int, device=None):
+        super().__init__()
+        self.num_features = int(num_features)
+        dev = resolve_device(device)
+        self.weight = nn.Parameter(torch.ones((1, num_features), device=dev))
+        self.bias = nn.Parameter(torch.zeros((1, num_features), device=dev))
+        self.eps = 1e-6
+
+    def forward(self, input):
+        manager = input.coordinate_manager
+        origin_key, origin_rows = manager.origin_map(input.coordinate_map_key)
+        num = manager.size(origin_key)
+        feats = input.F
+        mean = F.segment_mean(feats, origin_rows, num)
+        centered = feats - F.take_rows(mean, origin_rows)
+        var = F.segment_mean(centered * centered, origin_rows, num)
+        out = centered * F.take_rows(torch.rsqrt(var + self.eps), origin_rows)
+        return input._wrap(out * self.weight + self.bias)
+
+    def extra_repr(self):
+        return f"nchannels={self.num_features}"
+
+
+class MinkowskiStableInstanceNorm(MinkowskiInstanceNorm):
+    """The reference's numerically stabilized form (MinkowskiNormalization.py:
+    313-360); the base class already centers before it squares."""

@@ -1,8 +1,11 @@
-"""Feature-phase primitives: row gathers and the sparse convolution.
+"""Feature-phase primitives: row gathers, segment reductions, pooling and
+the sparse convolution.
 
-Counterpart of the convolution part of
-``minkowskiengine_tpu/ops/functional.py``.  Rows are exact-size; index -1
-means "no pair" and gathers a zero row.
+Counterpart of ``minkowskiengine_tpu/ops/functional.py``.  Rows are
+exact-size; index -1 means "no pair" and gathers a zero row.  The segment
+reductions and pooling are XLA ops in the JAX package and plain torch
+here (``index_add``, ``scatter_reduce``); only the sparse convolution runs
+on hand-written kernels.
 """
 
 from __future__ import annotations
@@ -23,6 +26,104 @@ def take_rows(feats: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     padded = torch.cat([feats, feats.new_zeros((1,) + tuple(feats.shape[1:]))])
     safe = torch.where((idx >= 0) & (idx < n), idx, n).long()
     return padded.index_select(0, safe)
+
+
+# ---------------------------------------------------------------------------
+# segment reductions (quantization, global pooling, instance norm)
+# ---------------------------------------------------------------------------
+
+
+def _segment_ids(seg_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """ids < 0 go to one spare segment past the end, which is dropped."""
+    return torch.where(seg_ids >= 0, seg_ids.long(), num_segments)
+
+
+def segment_sum(feats: torch.Tensor, seg_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """Sum rows by segment id; ids < 0 are dropped."""
+    out = feats.new_zeros((num_segments + 1,) + tuple(feats.shape[1:]))
+    return out.index_add(0, _segment_ids(seg_ids, num_segments), feats)[:num_segments]
+
+
+def segment_count(seg_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """Rows per segment (int64); ids < 0 are dropped."""
+    ids = _segment_ids(seg_ids, num_segments)
+    return torch.bincount(ids, minlength=num_segments + 1)[:num_segments]
+
+
+def segment_mean(feats: torch.Tensor, seg_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+    s = segment_sum(feats, seg_ids, num_segments)
+    c = segment_count(seg_ids, num_segments)
+    return s / c.clamp_min(1).to(s.dtype)[:, None]
+
+
+def segment_max(feats: torch.Tensor, seg_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """Max rows by segment id; an empty segment gives 0.  The gradient of a
+    tie is split evenly among the tied rows, as JAX's ``.at[].max`` does."""
+    ids = _segment_ids(seg_ids, num_segments)[:, None].expand_as(feats)
+    out = feats.new_full((num_segments + 1,) + tuple(feats.shape[1:]), -torch.inf)
+    out = out.scatter_reduce(0, ids, feats, "amax", include_self=False)[:num_segments]
+    return torch.where(torch.isneginf(out), 0.0, out)
+
+
+# ---------------------------------------------------------------------------
+# local pooling over a kernel map's in_idx (K, N_out)
+# ---------------------------------------------------------------------------
+
+
+def local_pool_sum(feats: torch.Tensor, in_idx: torch.Tensor):
+    """Returns (pooled (N_out, ch), pairs per output row (N_out,)), summed
+    over the kernel slots in order, as JAX's scan does."""
+    n_out = in_idx.shape[1]
+    acc = feats.new_zeros((n_out, feats.shape[1]))
+    cnt = feats.new_zeros((n_out,))
+    for idx_k in in_idx:
+        acc = acc + take_rows(feats, idx_k)
+        cnt = cnt + (idx_k >= 0).to(feats.dtype)
+    return acc, cnt
+
+
+def local_pool_avg(feats: torch.Tensor, in_idx: torch.Tensor):
+    acc, cnt = local_pool_sum(feats, in_idx)
+    return acc / cnt.clamp_min(1.0)[:, None], cnt
+
+
+def local_pool_max(feats: torch.Tensor, in_idx: torch.Tensor) -> torch.Tensor:
+    """Max pooling; rows with no pairs give 0.
+
+    The gradient goes whole to the stored argmax, and the first maximum in
+    slot order wins a tie (a strict comparison per slot), as in JAX's
+    ``local_pool_max`` and the reference's max_index mask
+    (src/pooling_max_kernel.hpp:35-117).  ``torch.amax`` over the slots, or
+    a chain of ``torch.maximum``, would split a tie's gradient.
+    """
+    n_out = in_idx.shape[1]
+    with torch.no_grad():
+        best = feats.new_full((n_out, feats.shape[1]), -torch.inf)
+        best_k = torch.full(best.shape, -1, dtype=torch.int64, device=feats.device)
+        for k, idx_k in enumerate(in_idx):
+            g = take_rows(feats, idx_k).masked_fill_((idx_k < 0)[:, None], -torch.inf)
+            better = g > best
+            best = torch.where(better, g, best)
+            best_k.masked_fill_(better, k)
+        # the winning input row of each (output row, channel); -1 for none
+        win_row = in_idx.T.long().gather(1, best_k.clamp_min(0))
+        win_row = torch.where(best_k >= 0, win_row, -1)
+    gathered = feats.gather(0, win_row.clamp_min(0))
+    return torch.where(win_row >= 0, gathered, 0.0)
+
+
+def global_pool(feats: torch.Tensor, origin_rows: torch.Tensor, num_batches: int, mode: str):
+    """Pool the rows of each batch item into one row; returns (pooled
+    (num_batches, ch), rows per batch item).  ``mode``: sum, avg or max
+    (reference: src/global_pooling_cpu.cpp:44-227)."""
+    cnt = segment_count(origin_rows, num_batches)
+    if mode == "sum":
+        return segment_sum(feats, origin_rows, num_batches), cnt
+    if mode == "avg":
+        return segment_mean(feats, origin_rows, num_batches), cnt
+    if mode == "max":
+        return segment_max(feats, origin_rows, num_batches), cnt
+    raise ValueError(f"unknown mode {mode}")
 
 
 class _SparseConv(torch.autograd.Function):

@@ -2,7 +2,8 @@
 
 Counterpart of ``minkowskiengine_tpu/sparse_tensor.py`` (reference:
 MinkowskiEngine/MinkowskiSparseTensor.py).  Feature rows are exact-size
-and follow the map's canonical batch-major key order.
+and follow the map's canonical batch-major key order.  ``slice`` and
+``cat_slice`` carry features back to the TensorField they came from.
 """
 
 from __future__ import annotations
@@ -12,13 +13,64 @@ from typing import Optional, Sequence, Tuple, Union
 import torch
 
 from .coords.manager import CoordinateManager, CoordinateMapKey
+from .ops import functional as F
 from .ops.functional import take_rows
 from .tensor import (
     global_coordinate_manager,
     set_global_coordinate_manager,
     sparse_tensor_operation_mode,
 )
-from .types import SparseTensorOperationMode, SparseTensorQuantizationMode
+from .types import SparseTensorOperationMode, SparseTensorQuantizationMode, resolve_device
+
+_SPLAT_PENDING = (
+    "SPLAT_LINEAR_INTERPOLATION (TensorField.splat) waits for the "
+    "interpolation slice, ROADMAP queue 1 item 9"
+)
+
+
+def as_features(features, device=None) -> torch.Tensor:
+    """Features as a tensor.  ``device`` when given; otherwise a tensor stays
+    on its device and host data (numpy, lists) goes to the card."""
+    if isinstance(features, torch.Tensor):
+        return features if device is None else features.to(device)
+    return torch.as_tensor(features, device=resolve_device(device))
+
+
+def default_manager(D: int, device) -> CoordinateManager:
+    """The manager of a tensor built from raw coordinates: the global one in
+    SHARE_COORDINATE_MANAGER mode, else a new one on ``device``."""
+    if sparse_tensor_operation_mode() != SparseTensorOperationMode.SHARE_COORDINATE_MANAGER:
+        return CoordinateManager(D=D, device=device)
+    manager = global_coordinate_manager()
+    if manager is None:
+        manager = CoordinateManager(D=D, device=device)
+        set_global_coordinate_manager(manager)
+    return manager
+
+
+def quantize_features(features, inverse_map, n_out: int, mode, unique_map=None) -> torch.Tensor:
+    """Reduce the feature rows that share a voxel (``inverse_map``: the
+    voxel of each row, -1 for none): the voxel's first row
+    (RANDOM_SUBSAMPLE, NO_QUANTIZATION; ``unique_map`` when the caller has
+    it), or the rows' mean (UNWEIGHTED_AVERAGE), sum (UNWEIGHTED_SUM) or
+    max (MAX_POOL) (reference: MinkowskiSparseTensor.py:311-345)."""
+    Q = SparseTensorQuantizationMode
+    if mode in (Q.RANDOM_SUBSAMPLE, Q.NO_QUANTIZATION):
+        if unique_map is None:
+            rows = torch.arange(inverse_map.shape[0], device=inverse_map.device)
+            first = torch.full((n_out + 1,), inverse_map.shape[0], device=inverse_map.device)
+            ids = torch.where(inverse_map >= 0, inverse_map.long(), n_out)
+            unique_map = first.scatter_reduce(0, ids, rows, "amin")[:n_out]
+        return take_rows(features, unique_map.to(features.device))
+    if mode == Q.UNWEIGHTED_AVERAGE:
+        return F.segment_mean(features, inverse_map, n_out)
+    if mode == Q.UNWEIGHTED_SUM:
+        return F.segment_sum(features, inverse_map, n_out)
+    if mode == Q.MAX_POOL:
+        return F.segment_max(features, inverse_map, n_out)
+    if mode == Q.SPLAT_LINEAR_INTERPOLATION:
+        raise NotImplementedError(_SPLAT_PENDING)
+    raise ValueError(f"Unsupported quantization mode {mode!r}")
 
 
 class SparseTensor:
@@ -27,13 +79,16 @@ class SparseTensor:
     Construction paths (reference: MinkowskiSparseTensor.py:122-345):
 
     * ``SparseTensor(features, coordinates)`` quantizes the coordinates
-      (unique + inverse); duplicate coordinates keep their first row's
-      features (RANDOM_SUBSAMPLE / NO_QUANTIZATION).
+      (unique + inverse); the rows of a duplicate coordinate are reduced
+      by ``quantization_mode``: the first row (RANDOM_SUBSAMPLE,
+      NO_QUANTIZATION), their mean (UNWEIGHTED_AVERAGE), sum
+      (UNWEIGHTED_SUM) or max (MAX_POOL).
     * ``SparseTensor(features, coordinate_map_key=key,
       coordinate_manager=mgr)`` attaches features to an existing map, in
       the map's row order.
 
-    A new manager lives on ``device`` (default: the features' device).
+    ``device``: where the features and a new manager live.  By default a
+    feature tensor stays on its device and host data goes to the card.
     """
 
     def __init__(
@@ -56,18 +111,15 @@ class SparseTensor:
                 "Either coordinates or (coordinate_map_key, coordinate_manager) "
                 "must be provided"
             )
-        features = torch.as_tensor(features, device=device)
+        features = as_features(features, device)
         if features.ndim != 2:
             raise ValueError(f"features must be rank-2, got {tuple(features.shape)}")
         self.unique_index = None
         self.inverse_mapping = None
 
         if coordinates is not None:
-            Q = SparseTensorQuantizationMode
-            if quantization_mode not in (Q.RANDOM_SUBSAMPLE, Q.NO_QUANTIZATION):
-                raise NotImplementedError(
-                    f"quantization mode {quantization_mode!r} is not ported yet"
-                )
+            if quantization_mode == SparseTensorQuantizationMode.SPLAT_LINEAR_INTERPOLATION:
+                raise NotImplementedError(_SPLAT_PENDING)
             coordinates = torch.as_tensor(coordinates)
             if coordinates.ndim != 2:
                 raise ValueError(
@@ -78,24 +130,16 @@ class SparseTensor:
                     "features and coordinates must have matching rows: "
                     f"{features.shape[0]} vs {coordinates.shape[0]}"
                 )
-            D = coordinates.shape[1] - 1
             if coordinate_manager is None:
-                shared = (
-                    sparse_tensor_operation_mode()
-                    == SparseTensorOperationMode.SHARE_COORDINATE_MANAGER
-                )
-                if shared:
-                    coordinate_manager = global_coordinate_manager()
-                if coordinate_manager is None:
-                    coordinate_manager = CoordinateManager(D=D, device=features.device)
-                    if shared:
-                        set_global_coordinate_manager(coordinate_manager)
+                coordinate_manager = default_manager(coordinates.shape[1] - 1, features.device)
             coordinate_map_key, (unique_map, inverse_map) = (
                 coordinate_manager.insert_and_map(coordinates, tensor_stride)
             )
             self.unique_index = unique_map
             self.inverse_mapping = inverse_map
-            features = take_rows(features, unique_map.to(features.device))
+            features = quantize_features(
+                features, inverse_map, unique_map.shape[0], quantization_mode, unique_map
+            )
         elif features.shape[0] != coordinate_manager.size(coordinate_map_key):
             raise ValueError(
                 f"features rows ({features.shape[0]}) != coordinate map size "
@@ -165,6 +209,28 @@ class SparseTensor:
                 )
             return self._wrap(self._F + other._F)
         return self._wrap(self._F + other)
+
+    # ------------------------------------------------------------------
+    # field bridges (reference: MinkowskiSparseTensor.py:559-688)
+    # ------------------------------------------------------------------
+    def slice(self, X):
+        """This tensor's features on the points of the TensorField ``X`` it
+        was quantized from: each point takes its voxel's row."""
+        from .tensor_field import TensorField
+
+        if not isinstance(X, TensorField):
+            raise TypeError("slice requires a TensorField input")
+        feats = take_rows(self._F, X.inverse_mapping(self.coordinate_map_key))
+        return X._wrap(feats)
+
+    def cat_slice(self, X):
+        """``X``'s own features, then the sliced features, side by side."""
+        from .tensor_field import TensorField
+
+        if not isinstance(X, TensorField):
+            raise TypeError("cat_slice requires a TensorField input")
+        sliced = take_rows(self._F, X.inverse_mapping(self.coordinate_map_key))
+        return X._wrap(torch.cat([X.F, sliced], dim=1))
 
     def __repr__(self):
         return (

@@ -1,13 +1,17 @@
 """Core enums and helpers of the PyTorch port.
 
 Counterpart of ``minkowskiengine_tpu/types.py``; only the enums that the
-sparse-convolution path reads are carried over.
+sparse-convolution and pooling paths read are carried over.  Also the
+port's device rule: state goes on the card unless the caller asks for the
+CPU.
 """
 
 from __future__ import annotations
 
 import enum
 from typing import Sequence, Tuple, Union
+
+import torch
 
 
 class RegionType(enum.IntEnum):
@@ -26,6 +30,23 @@ class ConvolutionMode(enum.IntEnum):
     DEFAULT = 0
     DIRECT_GEMM = 1
     COPY_GEMM = 2
+
+
+class PoolingMode(enum.IntEnum):
+    """Pooling reduction modes (reference: src/types.hpp:134-150)."""
+
+    LOCAL_SUM_POOLING = 0
+    LOCAL_AVG_POOLING = 1
+    LOCAL_MAX_POOLING = 2
+    GLOBAL_SUM_POOLING_DEFAULT = 3
+    GLOBAL_AVG_POOLING_DEFAULT = 4
+    GLOBAL_MAX_POOLING_DEFAULT = 5
+    GLOBAL_SUM_POOLING_KERNEL = 6
+    GLOBAL_AVG_POOLING_KERNEL = 7
+    GLOBAL_MAX_POOLING_KERNEL = 8
+    GLOBAL_SUM_POOLING_PYTORCH_INDEX = 9
+    GLOBAL_AVG_POOLING_PYTORCH_INDEX = 10
+    GLOBAL_MAX_POOLING_PYTORCH_INDEX = 11
 
 
 class SparseTensorOperationMode(enum.IntEnum):
@@ -59,3 +80,17 @@ def as_tuple(value: StrideLike, dimension: int) -> Tuple[int, ...]:
             f"Expected a sequence of length {dimension}, got {value!r}"
         )
     return value
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device a constructor places its state on: ``device`` when given,
+    else the CUDA card.  There is no silent CPU fallback: without a card the
+    default raises, and CPU callers pass ``device="cpu"``."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; minkowskiengine_tpu_torch places its "
+            "state on the card by default: pass device='cpu' to run on the CPU"
+        )
+    return torch.device("cuda")

@@ -31,7 +31,7 @@ def cloud():
 
 def _pair(cls_j, cls_t, cin, cout, seed, **kw):
     j = cls_j(cin, cout, dimension=3, rngs=nnx.Rngs(seed), **kw)
-    t = cls_t(cin, cout, dimension=3, **kw)
+    t = cls_t(cin, cout, dimension=3, device="cpu", **kw)
     with torch.no_grad():
         t.kernel.copy_(torch.tensor(np.asarray(j.kernel[...])))
         if kw.get("bias"):
@@ -88,7 +88,7 @@ def test_convolution_to_explicit_coordinates(cloud):
 @pytest.mark.parametrize("training", [False, True])
 def test_batchnorm_relu_cat_match_jax(cloud, training):
     jx, tx = _inputs(cloud)
-    jbn, tbn = ME.MinkowskiBatchNorm(8), MT.MinkowskiBatchNorm(8)
+    jbn, tbn = ME.MinkowskiBatchNorm(8), MT.MinkowskiBatchNorm(8, device="cpu")
     rng = np.random.RandomState(3)
     w, b = rng.rand(8).astype(np.float32) + 0.5, rng.randn(8).astype(np.float32)
     mu, var = rng.randn(8).astype(np.float32), rng.rand(8).astype(np.float32) + 0.5
@@ -112,7 +112,7 @@ def test_batchnorm_relu_cat_match_jax(cloud, training):
 
 def test_mixed_coordinates_are_refused(cloud):
     _, tx = _inputs(cloud)
-    down = MT.MinkowskiConvolution(8, 8, kernel_size=2, stride=2, dimension=3)
+    down = MT.MinkowskiConvolution(8, 8, kernel_size=2, stride=2, dimension=3, device="cpu")
     with torch.no_grad():
         ty = down(tx)
     with pytest.raises(ValueError):

@@ -69,6 +69,32 @@ def test_kernel_matches_plain(dev, K, n_in, n_out, cin, cout):
         assert torch.all(got == 0)
 
 
+# MinkowskiFCNN's seven convs and ResNet18's k = 1, stride-2 downsamples on
+# a batch of 32 shapes x 2048 points at 2.5 cm, as in
+# test_torch_gather_gemm_cuda.py: (K, Cin, Cout, rows in, rows out).
+# Cout 48 takes a 64-wide tile; Cout 1024 eight 128-wide tiles.
+CLASSIFICATION_CONVS = [
+    (27, 32, 48, 47834, 47834), (27, 48, 64, 27633, 9538), (27, 64, 96, 3012, 1142),
+    (27, 96, 128, 262, 246), (27, 336, 256, 47834, 27633), (27, 256, 512, 27633, 9538),
+    (27, 512, 1024, 9538, 3012),
+    (1, 64, 64, 9538, 3012), (1, 64, 128, 3012, 1142), (1, 128, 256, 1142, 262),
+    (1, 256, 512, 262, 246),
+]
+
+
+@pytest.mark.parametrize(
+    "K,cin,cout,n_in,n_out", CLASSIFICATION_CONVS,
+    ids=[f"k{k}-{ci}to{co}-{a}to{b}" for k, ci, co, a, b in CLASSIFICATION_CONVS],
+)
+def test_classification_shapes(dev, K, cin, cout, n_in, n_out):
+    in_idx, _ = _matching(dev, K, n_in, n_out)
+    g = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn(n_in, cin, device=dev, generator=g)
+    go = torch.randn(n_out, cout, device=dev, generator=g)
+    _check(x, go, in_idx)
+    assert conv_dw.last_plan.body == "mma" and conv_dw.last_plan.vec == 4
+
+
 def test_pairless_and_out_of_range_rows_add_nothing(dev):
     x, go, idx = _inputs(dev, 8, 100, 200, 16, 16)
     idx[:, :64] = -1           # a whole chunk with no pair: skipped

@@ -43,7 +43,7 @@ CLOUDS = {
 def _managers(cloud):
     c = CLOUDS[cloud]()
     D = c.shape[1] - 1
-    jm, tm = ME.CoordinateManager(D=D), CoordinateManager(D=D)
+    jm, tm = ME.CoordinateManager(D=D), CoordinateManager(D=D, device="cpu")
     jk, jmaps = jm.insert_and_map(c)
     tk, tmaps = tm.insert_and_map(torch.from_numpy(c))
     return c, (jm, jk, jmaps), (tm, tk, tmaps)
@@ -188,10 +188,10 @@ def test_overflow_raises_like_jax(row, bad):
         with pytest.raises(ValueError):
             ME.CoordinateManager(D=3).insert_and_map(c)
         with pytest.raises(ValueError):
-            CoordinateManager(D=3).insert_and_map(torch.from_numpy(c))
+            CoordinateManager(D=3, device="cpu").insert_and_map(torch.from_numpy(c))
     else:
         _, (ju, _) = ME.CoordinateManager(D=3).insert_and_map(c)
-        _, (tu, _) = CoordinateManager(D=3).insert_and_map(torch.from_numpy(c))
+        _, (tu, _) = CoordinateManager(D=3, device="cpu").insert_and_map(torch.from_numpy(c))
         np.testing.assert_array_equal(np.asarray(ju), tu.numpy())
 
 

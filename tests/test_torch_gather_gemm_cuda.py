@@ -84,6 +84,46 @@ def test_one_split_and_one_offset(dev, K, n, cin, cout):
     assert _rel(got, gather_gemm_reference(x, w, idx)) <= 1e-5
 
 
+# (K, Cin, Cout, rows in, rows out): MinkowskiFCNN's seven convs and
+# ResNet18's k = 1, stride-2 downsamples on a batch of 32 shapes x 2048
+# points at 2.5 cm (47,834 / 27,633 / 9,538 / 3,012 / 1,142 / 262 / 246
+# rows at strides 1-64).  Cin 48 and 336 end in a ragged 32-wide chunk of
+# the 16-byte copy ring; Cout 48 pads to a 64-wide tile; Cout 1024 takes
+# sixteen.
+CLASSIFICATION_CONVS = [
+    (27, 32, 48, 47834, 47834), (27, 48, 64, 27633, 9538), (27, 64, 96, 3012, 1142),
+    (27, 96, 128, 262, 246), (27, 336, 256, 47834, 27633), (27, 256, 512, 27633, 9538),
+    (27, 512, 1024, 9538, 3012),
+    (1, 64, 64, 9538, 3012), (1, 64, 128, 3012, 1142), (1, 128, 256, 1142, 262),
+    (1, 256, 512, 262, 246),
+]
+CLASSIFICATION_IDS = [f"k{k}-{ci}to{co}-{a}to{b}" for k, ci, co, a, b in CLASSIFICATION_CONVS]
+
+
+def _matching(dev, K, n_in, n_out, seed=0):
+    """Injective per-offset map with -1 holes, and its inverse."""
+    gen = torch.Generator().manual_seed(seed)
+    m = min(n_in, n_out)
+    idx = torch.full((K, n_out), -1, dtype=torch.int32)
+    for k in range(K):
+        idx[k, torch.randperm(n_out, generator=gen)[:m]] = torch.randperm(n_in, generator=gen)[:m].int()
+    idx[torch.rand(K, n_out, generator=gen) > 0.7] = -1
+    return idx.to(dev), _invert_matching(idx, n_in).to(dev)
+
+
+@pytest.mark.parametrize("K,cin,cout,n_in,n_out", CLASSIFICATION_CONVS, ids=CLASSIFICATION_IDS)
+def test_classification_shapes_forward_and_input_gradient(dev, K, cin, cout, n_in, n_out):
+    in_idx, out_idx_t = _matching(dev, K, n_in, n_out)
+    g = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn(n_in, cin, device=dev, generator=g)
+    w = torch.randn(K, cin, cout, device=dev, generator=g) / (K * cin) ** 0.5
+    go = torch.randn(n_out, cout, device=dev, generator=g)
+    assert _rel(gather_gemm(x, w, in_idx), gather_gemm_reference(x, w, in_idx)) <= 1e-5
+    assert gather_gemm.last_plan.vec == 4 and gather_gemm.last_plan.body == "mma"
+    wt = w.transpose(1, 2).contiguous()
+    assert _rel(gather_gemm(go, wt, out_idx_t), gather_gemm_reference(go, wt, out_idx_t)) <= 1e-5
+
+
 def test_four_byte_copies_match_plain(dev):
     # Cin % 4 != 0, and a view one row in (4-byte aligned only)
     x, w, idx = _inputs(dev, 27, 801, 700, 5, 64)

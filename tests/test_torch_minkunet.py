@@ -53,7 +53,7 @@ def setup():
         elif k.endswith("running_var"):
             sd[k] = rng.uniform(0.5, 2.0, sd[k].shape).astype(np.float32)
     ME.utils.torch_import.load_reference_state_dict(jnet, sd)
-    tnet = TNarrow(3, 5, D=3)
+    tnet = TNarrow(3, 5, D=3, device="cpu")
     load_state_dict_from_reference(tnet, sd)
     return coords, feats, jnet, tnet, sd
 
@@ -129,7 +129,7 @@ def test_strict_load_rejects(setup, fault):
         sd["bn0.bn.weight"] = np.ones(7, np.float32)
         err = ValueError
     with pytest.raises(err):
-        load_state_dict_from_reference(TNarrow(3, 5, D=3), sd)
+        load_state_dict_from_reference(TNarrow(3, 5, D=3, device="cpu"), sd)
 
 
 def test_port_does_not_import_jax():
@@ -144,7 +144,7 @@ def test_port_does_not_import_jax():
 
 
 def test_generator_seeds_the_weights():
-    a = TNarrow(3, 5, D=3, generator=torch.Generator().manual_seed(3))
-    b = TNarrow(3, 5, D=3, generator=torch.Generator().manual_seed(3))
+    a = TNarrow(3, 5, D=3, generator=torch.Generator().manual_seed(3), device="cpu")
+    b = TNarrow(3, 5, D=3, generator=torch.Generator().manual_seed(3), device="cpu")
     for (ka, va), (kb, vb) in zip(a.state_dict().items(), b.state_dict().items()):
         assert ka == kb and torch.equal(va, vb)

@@ -71,7 +71,7 @@ def _rel(got, want):
 @pytest.fixture(scope="module")
 def nets():
     jnet = JNarrow(3, 5, D=3, rngs=nnx.Rngs(1))
-    tnet = TNarrow(3, 5, D=3)
+    tnet = TNarrow(3, 5, D=3, device="cpu")
     load_state_dict_from_reference(tnet, export_reference_state_dict(jnet))
     return jnet, tnet
 
@@ -156,7 +156,7 @@ def test_batchnorm_on_one_row():
     package returns the bias (zero batch variance)."""
     coords = np.array([[0, 0, 0, 0]], np.int32)
     feats = np.array([[1.0, -2.0]], np.float32)
-    tbn = MT.MinkowskiBatchNorm(2).train()
+    tbn = MT.MinkowskiBatchNorm(2, device="cpu").train()
     with pytest.raises(ValueError):
         tbn(MT.SparseTensor(torch.from_numpy(feats), torch.from_numpy(coords)))
     jbn = ME.MinkowskiBatchNorm(2)

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Where the time of one MinkUNet34 inference request, and of one training
-step, goes on one CUDA card.
+"""Where the time of one MinkUNet34 inference request and training step,
+and of one MinkowskiFCNN classification batch and training step, goes on
+one CUDA card.
 
 Run from the root of a checkout, with one CUDA card visible:
 
@@ -29,10 +30,20 @@ fresh manager, forward, cross-entropy, backward, SGD step.  It prints
 5. the wall time of five steps;
 6. one profiled step: the device time of gather_gemm (forward and input
    gradient), of conv_dw (weight gradient) and of the in-order sums over
-   both kernels' splits, and the device's idle share;
-7. the profiler's table;
+   both kernels' splits, and the device's idle share; then the profiler's
+   table.
 
-and, last, one JSON line with the numbers of both.
+Then ``chip_smoke.py``'s classifier, ``MinkowskiFCNN(3, 40,
+embedding_channel=1024, channels=(32, 48, 64, 96, 128))``, on its batch of
+seed 0 (32 synthetic shapes x 2048 points, a TensorField):
+
+7. eval mode: the wall time of five batches, each with a fresh manager,
+   then one profiled batch, as in 6;
+8. train mode (SGD with momentum, as chip_smoke.py's phase 13, on the same
+   batch with ``CoordinateTransformation``): five steps, then one profiled
+   step, as in 6;
+
+and, last, one JSON line with the numbers of all four.
 """
 
 from __future__ import annotations
@@ -50,8 +61,12 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import minkowskiengine_tpu_torch as MT  # noqa: E402
-from chip_smoke import answer, collate, labels_for, scan, train_step  # noqa: E402
-from minkowskiengine_tpu_torch.models import MinkUNet34  # noqa: E402
+from chip_smoke import (  # noqa: E402
+    CLASSES, FCNN_LR, FCNN_MOMENTUM, FCNN_WD, FCNN_WIDTHS,
+    answer, classify, collate, fcnn_step, labels_for, scan, shapes, train_step,
+)
+from minkowskiengine_tpu_torch.models import MinkowskiFCNN, MinkUNet34  # noqa: E402
+from minkowskiengine_tpu_torch.utils.datasets import CoordinateTransformation  # noqa: E402
 
 K1_NAME = "gather_gemm_"  # gather_gemm_mma_kernel, gather_gemm_stem_kernel
 K2_NAME = "conv_dw_"  # conv_dw_mma_kernel, conv_dw_stem_kernel
@@ -129,18 +144,64 @@ def profile_train(dev):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         secs = train_once(model, opt, scans, labels, dev)
     split = device_split(prof, secs)
+    report("6 profiled step", split, prof)
+    return {"voxels": len(labels), "step_ms": steps,
+            **{f"profiled_{k}": v for k, v in split.items()}}
+
+
+def report(tag, split, prof):
+    """A profiled run's device split, then the profiler's table."""
     print(
-        f"[6 profiled step] wall {split['wall_ms']:.2f} ms; device busy "
+        f"[{tag}] wall {split['wall_ms']:.2f} ms; device busy "
         f"{split['device_busy_ms']:.3f} ms in {split['device_events']} kernels and copies; "
         f"gather_gemm {split['gather_gemm_ms']:.3f} ms in {split['gather_gemm_launches']} "
         f"launches, conv_dw {split['conv_dw_ms']:.3f} ms in {split['conv_dw_launches']} "
         f"launches, split sums {split['split_sums_ms']:.3f} ms in {split['split_sums']} "
         f"kernels; device idle {100 * split['idle_share']:.1f}% of the wall"
     )
-    print("[7 profiler table]")
     print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=20))
-    return {"voxels": len(labels), "step_ms": steps,
-            **{f"profiled_{k}": v for k, v in split.items()}}
+
+
+def profile_classification(dev):
+    """A MinkowskiFCNN batch in eval mode, then a training step."""
+    coords, feats, _ = shapes(SEED)
+    model = MinkowskiFCNN(
+        3, CLASSES, generator=torch.Generator().manual_seed(0), device=dev, **FCNN_WIDTHS
+    ).eval()
+    classify(model, coords, feats, dev)  # warm-up
+    batch = [classify(model, coords, feats, dev)[1] * 1e3 for _ in range(REPEATS)]
+    print(f"[7 FCNN batches] {len(coords)} points, ms: {', '.join(f'{t:.2f}' for t in batch)}")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, secs = classify(model, coords, feats, dev)
+    infer = device_split(prof, secs)
+    report("7 profiled FCNN batch", infer, prof)
+
+    model.train()
+    opt = torch.optim.SGD(
+        model.parameters(), lr=FCNN_LR, momentum=FCNN_MOMENTUM, weight_decay=FCNN_WD
+    )
+    train_batch = shapes(SEED, CoordinateTransformation())
+
+    def step():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt.zero_grad()
+        fcnn_step(model, *train_batch, dev)
+        opt.step()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    step()  # warm-up
+    steps = [step() * 1e3 for _ in range(REPEATS)]
+    print(f"[8 FCNN training steps] ms: {', '.join(f'{t:.2f}' for t in steps)}")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        secs = step()
+    train = device_split(prof, secs)
+    report("8 profiled FCNN step", train, prof)
+    return (
+        {"points": len(coords), "batch_ms": batch, **{f"profiled_{k}": v for k, v in infer.items()}},
+        {"points": len(coords), "step_ms": steps, **{f"profiled_{k}": v for k, v in train.items()}},
+    )
 
 
 def profile_request(dev):
@@ -193,7 +254,11 @@ def main() -> int:
     print(f"{torch.cuda.get_device_name(0)}, torch {torch.__version__}, CUDA {torch.version.cuda}")
     request = profile_request(dev)
     train = profile_train(dev)
-    print(json.dumps({"request": request, "train_step": train}))
+    fcnn_batch, fcnn_train = profile_classification(dev)
+    print(json.dumps({
+        "request": request, "train_step": train,
+        "fcnn_batch": fcnn_batch, "fcnn_train_step": fcnn_train,
+    }))
     return 0
 
 
