@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port once on one NVIDIA GPU: MinkUNet34 inference
-and training, then point-cloud classification with MinkowskiFCNN and a
-ResNet18 classifier.
+and training, point-cloud classification with MinkowskiFCNN and a ResNet18
+classifier, then shape completion with CompletionNet and a sparse VAE.
 
 Run from the root of a checkout, with one CUDA card visible:
 
@@ -70,6 +70,44 @@ Phases, in order; any failure raises and the script exits non-zero:
    on the card against the CPU; its ``gather_gemm`` launches must equal its
    sparse-conv count.
 
+15. generative kernels, synthetic maps: ``gather_gemm`` (forward and input
+   gradient) and ``conv_dw`` against their plain versions at every distinct
+   sparse conv of CompletionNet and the VAE, on kernel maps built from the
+   coordinates of one stand-in batch (``completion_batch``: 16 shapes at
+   128^3, seed 0; each decoder level generated from the full shapes at the
+   coarser stride), random features; per call S, useful TFLOP/s, the bound
+   and the share of -1 slots.
+16. completion inference: ``CompletionNet`` at the reference widths
+   (channels 16-1024, weights from torch.Generator seed 0; batch norms
+   calibrated on batch 0, see ``calibrate``) in eval mode completes 3
+   batches (seeds 0-2), each in a fresh coordinate manager; wall time,
+   input voxels/s, rows per decoder level, completed voxels.
+   ``gather_gemm`` >= 25 launches per batch.
+17. kernels on the real maps of one completion training step: its 25 conv
+   calls captured with hooks, forward, input gradient and weight gradient
+   against their plain versions, per call (with the -1 share) and summed.
+18. completion training: 4 SGD steps (lr 0.01, momentum 0.9, weight decay
+   1e-4) on seeds 0-3, loss the mean over levels of the sigmoid BCE against
+   the target masks; wall time, voxels/s, rows per level, peak memory.
+   ``gather_gemm`` >= 49 launches per step (25 + 24 input gradients),
+   ``conv_dw`` exactly 25.
+19. the VAE at the reference widths: per batch (seeds 0-1, the full
+   shapes) a training step (BCE + 0.1 KL) and a generation in eval mode;
+   times, rows per level, launches (per step ``gather_gemm`` >= 51,
+   ``conv_dw`` 26), peak memory; batch 0's 26 conv calls against the plain
+   versions, as phase 17.
+20. parity on a batch of 2 shapes at 64^3 (the CPU's plain path cannot take
+   full size) with the full-width weights: CompletionNet in train mode,
+   per level the keep mask, coordinates and logits, and step 0's loss and
+   every gradient as phase 10 judges them; the VAE's mean, log-variance and
+   per-level decoder logits with the same seeded noise.  Train-mode batch
+   norm over the few rows of the deepest levels puts ~1e-4 of relative
+   float32 rounding on every logit, so among the ~10^5 rows of the finer
+   levels a few lie that close to 0 and flip the keep mask (seed 0: one
+   row of 1,800 at level 2): the CPU runs then follow the card's mask on
+   those rows, printed with their margin (``ForcedPruning``), so every
+   level is compared on one map.
+
 Bound of a kernel call: the larger of its useful operations (2 · pairs ·
 Cin · Cout) over the H100's 495 TFLOP/s dense TF32 tensor peak and its
 bytes (each input read once, the output written once) over 3.35 TB/s.  The
@@ -86,6 +124,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 import minkowskiengine_tpu_torch as MT
@@ -93,24 +132,30 @@ from minkowskiengine_tpu_torch.coords.kernel_map import _invert_matching
 from minkowskiengine_tpu_torch.kernels import build
 from minkowskiengine_tpu_torch.kernels.conv_dw import conv_dw, conv_dw_reference
 from minkowskiengine_tpu_torch.kernels.gather_gemm import gather_gemm, gather_gemm_reference
-from minkowskiengine_tpu_torch.models import MinkowskiFCNN, MinkUNet34, ResNet18
-from minkowskiengine_tpu_torch.nn.conv import MinkowskiConvolutionBase
+from minkowskiengine_tpu_torch.models import VAE, CompletionNet, MinkowskiFCNN, MinkUNet34, ResNet18
+from minkowskiengine_tpu_torch.nn.conv import MinkowskiConvolutionBase, _conv_out_key
 from minkowskiengine_tpu_torch.nn.nonlinearity import MinkowskiDropout
+from minkowskiengine_tpu_torch.nn.norm import MinkowskiBatchNorm
 from minkowskiengine_tpu_torch.utils.collation import sparse_collate
 from minkowskiengine_tpu_torch.utils.datasets import (
+    COMPLETION_POINTS,
     CoordinateTransformation,
+    completion_batch,
     modelnet_batch,
     room_scan_voxels,
 )
 
-# f32 sums of up to 27,648 products (K*Cout of FCNN conv5c's input
-# gradient) taken in another order.  Relative to the output's largest
-# value the differences measured at most 1.2e-6 on every shape; 1e-5
-# leaves a factor of eight.
+# f32 sums of up to 65,536 products (K*Cin of CompletionNet's k = 4
+# generative conv, 1024 -> 512) taken in another order.  Relative to the
+# output's largest value the differences measured at most 1.2e-6 on every
+# shape; 1e-5 leaves a factor of eight.
 KERNEL_RTOL = 1e-5
-# dW sums over the output rows, up to ~59k (FCNN conv1 on an augmented
-# batch) at stride 1: sqrt(59k) * 2^-24 = 1.5e-5 relative to the output
-# scale; 1e-4 leaves a factor of six.
+# dW sums over each offset's paired output rows: up to ~3M at the stride-1
+# level of a CompletionNet training step (4.7M rows, 36% of the slots -1),
+# where a random walk of f32 roundings would reach sqrt(3M) * 2^-24 =
+# 1.0e-4 of the output scale; K2 sums 32-row tiles in fragments and splits
+# the rows over blocks, and the differences measured at most 1.8e-6 on
+# every shape and call, up to 4.7M rows.
 DW_RTOL = 1e-4
 # logits after 55 conv layers and 33 batch norms, CUDA kernel vs CPU plain path
 LOGIT_RTOL = 1e-4
@@ -134,6 +179,19 @@ FCNN_WIDTHS = dict(embedding_channel=1024, channels=(32, 48, 64, 96, 128), D=3)
 CLASSES, SHAPES, POINTS, VOXEL = 40, 32, 2048, 0.025
 FCNN_CONVS = 7  # conv1-4 and conv5's three
 FCNN_LR, FCNN_MOMENTUM, FCNN_WD = 0.1, 0.9, 1e-4
+# CompletionNet and the VAE at the reference examples' widths, on batches
+# of 16 stand-in shapes at 128^3 (``completion_batch``); SGD as the
+# reference completion example trains
+GEN_CHANNELS = (16, 32, 64, 128, 256, 512, 1024)
+GEN_RES, GEN_SHAPES = 128, 16
+GEN_WIDTHS = dict(resolution=GEN_RES, in_nchannel=1, enc_channels=GEN_CHANNELS,
+                  dec_channels=GEN_CHANNELS)
+VAE_WIDTHS = dict(channels=GEN_CHANNELS, in_nchannel=1, resolution=GEN_RES)
+GEN_LR, GEN_MOMENTUM, GEN_WD = 0.01, 0.9, 1e-4
+COMPLETION_CONVS = 25  # enc_first, 6 x 2 encoder and 6 x 2 decoder convs
+VAE_CONVS = 26  # 7 x 2 encoder and 6 x 2 decoder convs
+# phase 20's batch: small enough for the CPU's plain path at full width
+PARITY_SEED, PARITY_SHAPES, PARITY_RES = 0, 2, 64
 KERNELS = {
     "gather_gemm": ("minkowskiengine_tpu_torch/csrc/gather_gemm.cu",
                     "minkowskiengine_tpu/ops/pallas/conv_kernel.py:1105"),
@@ -349,6 +407,8 @@ def backward_rows(x, w, g, in_idx, out_idx_t, label, with_dx=True):
     n_in, n_out = x.shape[0], g.shape[0]
     row = dict(label=label, K=K, cin=cin, cout=cout, n_in=n_in, n_out=n_out)
     flop = 2 * pairs(in_idx, n_in) * cin * cout
+    # the map's slots that hold -1: K1 computes them all, K2 skips them
+    row["empty"] = 1 - pairs(in_idx, n_in) / max(1, K * n_out)
     nbytes = {  # each input read once (the map too), the output written once
         "fwd": 4 * (n_in * cin + K * cin * cout + K * n_out + n_out * cout),
         "dx": 4 * (n_out * cout + K * cin * cout + K * n_in + n_in * cin),
@@ -376,7 +436,7 @@ def backward_rows(x, w, g, in_idx, out_idx_t, label, with_dx=True):
     )
     print(
         f"  {label:>9} K={row['K']:<3} {row['cin']:>3}->{row['cout']:<3} "
-        f"rows {row['n_in']:>5}->{row['n_out']:<5}  kernel/plain {parts}"
+        f"rows {row['n_in']:>5}->{row['n_out']:<5}  -1 slots {row['empty']:.1%}  kernel/plain {parts}"
     )
     return row
 
@@ -478,34 +538,10 @@ def judge_step(tag, loss0, grads0, stats0, cpu):
         raise AssertionError(f"{tag}: training step disagrees with the CPU plain path")
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
-        return 1
-    dev = torch.device("cuda:0")
-
-    # 1. device
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
-    print(smi)
-    print(
-        f"[1 device] {torch.cuda.get_device_name(0)}, torch {torch.__version__}, "
-        f"CUDA {torch.version.cuda}, capability {torch.cuda.get_device_capability(0)}"
-    )
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
-    # 2. build
-    t0 = time.perf_counter()
-    path = build.library_path()
-    build.library()
-    print(f"[2 build] {time.perf_counter() - t0:.1f} s -> {path.name}")
-    for line in path.with_suffix(".log").read_text().splitlines():
-        if "Compiling entry" in line or "registers" in line or "spill" in line:
-            print("  " + line.strip())
-
+def segmentation_and_classification(dev, launches):
+    """Phases 3-14: MinkUNet34 inference and training, MinkowskiFCNN and
+    ResNet18 classification.  Adds the main-path launches to ``launches``;
+    returns the kernel rows of phases 3-4, 7, 8 and 12."""
     coords0, feats0 = scan(0)
     mgr = MT.CoordinateManager(D=3, device=dev)
     key, _ = mgr.insert_and_map(torch.from_numpy(coords0))
@@ -562,7 +598,6 @@ def main() -> int:
             raise AssertionError(f"bad logits: shape {tuple(logits.shape)}")
     if conv_dw.launches:
         raise AssertionError(f"inference launched conv_dw {conv_dw.launches} times")
-    launches = {"gather_gemm": 0, "conv_dw": 0}
     take_launches(launches)
 
     # 6. parity with the CPU plain path
@@ -826,15 +861,471 @@ def main() -> int:
     # as in phase 10, to GRAD_FACTOR times the CPU float32 run's error
     if not (rel <= LOGIT_RTOL or card64 <= GRAD_FACTOR * cpu64):
         raise AssertionError(f"ResNet18 logits disagree: {rel:.3e} > {LOGIT_RTOL}")
+    return rows, real, synth_bwd, real_bwd, fcnn_bwd
 
-    bwd = synth_bwd + real_bwd + fcnn_bwd
+def gen_batch(seed, shapes=GEN_SHAPES, res=GEN_RES):
+    """A stand-in completion batch: (partial coordinates, their ones
+    features, full coordinates), numpy."""
+    return completion_batch(shapes, res, seed=seed)
+
+
+def completion_input(batch, device):
+    """The partial shapes as a SparseTensor and the full shapes' key, in a
+    fresh coordinate manager."""
+    partial, feats, full = batch
+    mgr = MT.CoordinateManager(D=3, device=device)
+    x = MT.SparseTensor(
+        torch.from_numpy(feats).to(device), torch.from_numpy(partial).to(device),
+        coordinate_manager=mgr,
+    )
+    target_key, _ = mgr.insert_and_map(torch.from_numpy(full).to(device), 1)
+    return x, target_key
+
+
+def vae_input(batch, device):
+    """The full shapes as the VAE's input (ones features) and its target."""
+    _, _, full = batch
+    return completion_input((full, np.ones((len(full), 1), np.float32), full), device)
+
+
+def bce(out_cls, targets):
+    """The mean over levels of each level's sigmoid BCE (the reference
+    examples' loss)."""
+    return sum(
+        torch.nn.functional.binary_cross_entropy_with_logits(c.F[:, 0], t.to(c.F.dtype))
+        for c, t in zip(out_cls, targets)
+    ) / len(out_cls)
+
+
+def vae_loss(out_cls, targets, mean, log_var):
+    kl = -0.5 * torch.mean(1 + log_var.F - mean.F**2 - torch.exp(log_var.F))
+    return bce(out_cls, targets) + 0.1 * kl
+
+
+def counted(launches, fn):
+    """Run one main-path piece with the launch counts set to 0 just before
+    it; add them to ``launches`` and return (result, this piece's counts)."""
+    gather_gemm.launches = conv_dw.launches = 0
+    result = fn()
+    return result, take_launches(launches)
+
+
+def calibrate(model, run):
+    """Running statistics for eval mode: every batch norm takes the batch
+    statistics of one train-mode forward (momentum 1), as a trained model
+    carries them.  At their initial values (0, 1) the random-weight logits
+    all take one sign and no level prunes."""
+    bns = [m.bn for m in model.modules() if isinstance(m, MinkowskiBatchNorm)]
+    model.train()
+    for bn in bns:
+        bn.momentum = 1.0
+    with torch.no_grad():
+        run()
+    for bn in bns:
+        bn.momentum = 0.1
+    model.eval()
+
+
+def gen_sgd(net):
+    return torch.optim.SGD(net.parameters(), lr=GEN_LR, momentum=GEN_MOMENTUM, weight_decay=GEN_WD)
+
+
+def generative_shapes(dev, batch):
+    """Phase 15's convs: every sparse conv of CompletionNet and the VAE, on
+    kernel maps of a stand-in batch's own coordinates.  Encoder convs use
+    the partial shapes' (CompletionNet) or full shapes' (VAE) maps at each
+    stride; each decoder level generates its map from the full shapes' map
+    at the coarser stride, as if pruning kept exactly the targets.
+    Returns [(name, K, Cin, Cout, KernelMap)], one per distinct shape."""
+    ch = GEN_CHANNELS
+    x_c, _ = completion_input(batch, dev)
+    x_v, _ = vae_input(batch, dev)
+    calls = []
+
+    def conv(name, cls, x, cin, cout, k, stride):
+        m = cls(cin, cout, kernel_size=k, stride=stride, dimension=3, device=dev)
+        out_key = _conv_out_key(x.coordinate_manager, x.coordinate_map_key, m.kernel_generator,
+                                m.is_transpose, m.expand_coordinates)
+        calls.append((name, k**3, cin, cout, m._kernel_map(x, out_key)))
+        return MT.SparseTensor(
+            torch.zeros(x.coordinate_manager.size(out_key), 1, device=dev),
+            coordinate_map_key=out_key, coordinate_manager=x.coordinate_manager,
+        )
+
+    C, G = MT.MinkowskiConvolution, MT.MinkowskiGenerativeConvolutionTranspose
+    y = conv("c.enc_first", C, x_c, 1, ch[0], 3, 1)
+    full_c = [x_c.coordinate_manager.stride(x_c.coordinate_manager.insert_and_map(
+        torch.from_numpy(batch[2]).to(dev), 1, "full")[0], 2**i) for i in range(7)]
+    for i in range(6):
+        y = conv(f"c.enc{i}.down", C, y, ch[i], ch[i + 1], 2, 2)
+        conv(f"c.enc{i}.conv", C, y, ch[i + 1], ch[i + 1], 3, 1)
+    mgr = x_c.coordinate_manager
+    for i in range(6):  # output strides 32 .. 1
+        src = MT.SparseTensor(torch.zeros(mgr.size(full_c[6 - i]), 1, device=dev),
+                              coordinate_map_key=full_c[6 - i], coordinate_manager=mgr)
+        y = conv(f"c.dec{i}.gen", G, src, ch[6 - i], ch[5 - i], 4 if i == 0 else 2, 2)
+        conv(f"c.dec{i}.conv", C, y, ch[5 - i], ch[5 - i], 3, 1)
+    y = x_v
+    vch = (1,) + ch
+    for i in range(7):
+        y = conv(f"v.enc{i}.down", C, y, vch[i], vch[i + 1], 3, 2)
+        conv(f"v.enc{i}.conv", C, y, vch[i + 1], vch[i + 1], 3, 1)
+    mgr = x_v.coordinate_manager
+    for i in range(6):  # output strides 64 .. 2, from the full shapes' maps at 128 .. 4
+        src_key = mgr.stride(x_v.coordinate_map_key, 2 ** (7 - i))
+        src = MT.SparseTensor(torch.zeros(mgr.size(src_key), 1, device=dev),
+                              coordinate_map_key=src_key, coordinate_manager=mgr)
+        y = conv(f"v.dec{i}.gen", G, src, ch[6 - i], ch[5 - i], 2, 2)
+        conv(f"v.dec{i}.conv", C, y, ch[5 - i], ch[5 - i], 3, 1)
+    distinct = {}
+    for name, K, cin, cout, kmap in calls:
+        distinct.setdefault((K, cin, cout, kmap.n_in, kmap.n_out), (name, K, cin, cout, kmap))
+    return list(distinct.values())
+
+
+def check_calls(calls, grads, tag):
+    """Phases 17 and 19: each captured conv call's forward, input gradient
+    and weight gradient against their plain versions, on its real map."""
+    rows = []
+    for i, (m, inp, out) in enumerate(calls):
+        kmap = m._kernel_map(inp, out.coordinate_map_key)
+        rows.append(backward_rows(
+            inp.F.detach(), m.kernel.detach(), grads[i].contiguous(), kmap.in_idx,
+            kmap.out_idx_t, f"{tag}{i}", with_dx=inp.F.requires_grad,
+        ))
+    print_sums(step_sums(rows))
+    return rows
+
+
+def keep_masks(out_cls, targets):
+    return [((c.F[:, 0] > 0) | t).cpu() for c, t in zip(out_cls, targets)]
+
+
+class RecordedPruning(MT.MinkowskiPruning):
+    """The card's pruning, keeping each level's keep mask on the host."""
+
+    def __init__(self):
+        super().__init__()
+        self.masks = []
+
+    def forward(self, input, mask):
+        self.masks.append(mask.cpu())
+        return super().forward(input, mask)
+
+
+class ForcedPruning(MT.MinkowskiPruning):
+    """A CPU run's pruning, held to the card's keep masks so that every level
+    of both runs has the same map.  The masks may differ only on rows whose
+    card and CPU logits lie on either side of 0, each within the level's
+    card-to-CPU distance of 0 (which ``judge_levels`` holds to the logit
+    tolerance); such a row follows the card, and the level, the rows and
+    the margin are printed.  Any other difference fails."""
+
+    def __init__(self, model, card, tag):
+        super().__init__()
+        self.card_logits = [c.F.detach()[:, 0].cpu().double() for c in card[0]]
+        self.card_masks, self.tag, self.logits = card[1], tag, []
+        for head in model.cls_heads:
+            head.register_forward_hook(lambda m, a, o: self.logits.append(o.F.detach()[:, 0]))
+
+    def forward(self, input, mask):
+        level = len(self.logits) - 1
+        card = self.card_masks[level]
+        differ = mask != card
+        if differ.any():
+            logit, card_logit = self.logits[level].double(), self.card_logits[level]
+            margin = (logit[differ].abs().max() / logit.abs().max()).item()
+            apart = rel_diff(card_logit, logit)
+            print(f"  {self.tag} level {level}: keep mask differs on {int(differ.sum())} rows, CPU "
+                  f"logit within {margin:.2e} of 0 (relative; the level's logits {apart:.2e} "
+                  f"apart); the CPU follows the card")
+            if not margin <= apart:
+                raise AssertionError(f"{self.tag}: level {level} keep masks disagree")
+        return super().forward(input, card)
+
+
+def judge_levels(tag, card, cpu32, cpu64):
+    """Per level of a generative decoder in train mode, the card's
+    coordinates and logits against the CPU's float32 run (the keep masks are
+    held by ``ForcedPruning``).  ``card``, ``cpu32``, ``cpu64``: per-level
+    logits tensors.  The logits agree within LOGIT_RTOL or, as in phase 14c,
+    the card is held to GRAD_FACTOR times the CPU float32 run's distance
+    from the float64 run (batch norm over the few rows of the deepest
+    levels amplifies float32 rounding)."""
+    for level, (c, p, q) in enumerate(zip(card, cpu32, cpu64)):
+        if not (torch.equal(c.C.cpu(), p.C) and torch.equal(q.C, p.C)):
+            raise AssertionError(f"{tag}: level {level} coordinates differ")
+        got = c.F.detach().cpu().double()
+        rel = rel_diff(got, p.F.detach().double())
+        card64 = rel_diff(got, q.F.detach())
+        cpu64 = rel_diff(p.F.detach().double(), q.F.detach())
+        print(f"  {tag} level {level}: {c.size} rows at stride {c.tensor_stride[0]}, logits rel "
+              f"{rel:.2e}; against float64: card {card64:.2e}, CPU float32 {cpu64:.2e}")
+        if not (rel <= LOGIT_RTOL or card64 <= GRAD_FACTOR * cpu64):
+            raise AssertionError(f"{tag}: level {level} logits disagree: {rel:.3e}")
+
+
+def generative(dev, launches):
+    """Phases 15-20: CompletionNet and the VAE at the reference widths on
+    stand-in completion batches.  Adds the main-path launches to
+    ``launches``; returns the kernel rows of phases 15, 17 and 19."""
+    t0 = time.perf_counter()
+    batches = {s: gen_batch(s) for s in range(4)}
+    print(f"[15 generative kernels, synthetic maps] {GEN_SHAPES} shapes at {GEN_RES}^3, "
+          f"{COMPLETION_POINTS} points each: batches made in {time.perf_counter() - t0:.1f} s")
+    for s, (partial, _, full) in batches.items():
+        print(f"  batch seed {s}: {len(partial)} partial voxels, {len(full)} full voxels")
+    gen_rows = []
+    g = torch.Generator(device=dev).manual_seed(0)
+    for name, K, cin, cout, kmap in generative_shapes(dev, batches[0]):
+        x = torch.randn(kmap.n_in, cin, device=dev, generator=g)
+        w = torch.randn(K, cin, cout, device=dev, generator=g) / (K * cin) ** 0.5
+        gout = torch.randn(kmap.n_out, cout, device=dev, generator=g)
+        gen_rows.append(backward_rows(x, w, gout, kmap.in_idx, kmap.out_idx_t, name))
+    torch.cuda.empty_cache()
+
+    # 16. completion inference: three batches in eval mode, counted
+    net = CompletionNet(generator=torch.Generator().manual_seed(0), device=dev, **GEN_WIDTHS)
+    calibrate(net, lambda: net(*completion_input(batches[0], dev)))
+    completion_convs = sparse_convs(net)
+    if len(completion_convs) != COMPLETION_CONVS:
+        raise AssertionError(f"CompletionNet has {len(completion_convs)} sparse convs")
+
+    def complete(batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out_cls, _, out = net(*completion_input(batch, dev))
+            n_out = out.size
+        torch.cuda.synchronize()
+        return [c.size for c in out_cls], n_out, time.perf_counter() - t0
+
+    for seed in range(3):
+        (rows, n_out, secs), n = counted(launches, lambda: complete(batches[seed]))
+        n_in = len(batches[seed][0])
+        print(f"[16 complete] batch seed {seed}: {n_in} voxels in, {secs * 1e3:.2f} ms, "
+              f"{n_in / secs:.0f} voxels/s, rows per decoder level {rows}, {n_out} completed "
+              f"voxels, {n['gather_gemm']} gather_gemm launches")
+        if n["gather_gemm"] < COMPLETION_CONVS or n["conv_dw"] or n_out == 0:
+            raise AssertionError(f"completion batch {seed}: {n} launches, {n_out} voxels")
+    del net
+    torch.cuda.empty_cache()
+
+    # 17. kernels on the real maps of one completion training step
+    net = CompletionNet(generator=torch.Generator().manual_seed(0), device=dev, **GEN_WIDTHS)
+
+    def completion_step(model, batch, device):
+        out_cls, targets, _ = model(*completion_input(batch, device))
+        loss = bce(out_cls, targets)
+        loss.backward()
+        return loss, out_cls, targets
+
+    calls, grads, _ = capture_step(sparse_convs(net), lambda: completion_step(net, batches[0], dev))
+    if len(calls) != COMPLETION_CONVS or len(grads) != COMPLETION_CONVS:
+        raise AssertionError(f"captured {len(calls)} calls and {len(grads)} output gradients")
+    print(f"[17 kernels, completion training-step maps] {len(calls)} conv calls")
+    completion_bwd = check_calls(calls, grads, "comp")
+    del calls, grads, net
+    torch.cuda.empty_cache()
+
+    # 18. completion training: four SGD steps, counted
+    net = CompletionNet(generator=torch.Generator().manual_seed(0), device=dev, **GEN_WIDTHS).train()
+    opt = gen_sgd(net)
+    torch.cuda.reset_peak_memory_stats()
+    for step in range(TRAIN_STEPS):
+        def one_step():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            opt.zero_grad()
+            loss, out_cls, _ = completion_step(net, batches[step], dev)
+            opt.step()
+            torch.cuda.synchronize()
+            return loss.item(), [c.size for c in out_cls], time.perf_counter() - t0
+
+        (loss, rows, secs), n = counted(launches, one_step)
+        n_in = len(batches[step][0])
+        print(f"[18 train completion] step {step}: {n_in} voxels in, {secs * 1e3:.2f} ms, "
+              f"{n_in / secs:.0f} voxels/s, loss {loss:.6f}, rows per decoder level {rows}, "
+              f"{n['gather_gemm']} gather_gemm and {n['conv_dw']} conv_dw launches")
+        if n["gather_gemm"] < 2 * COMPLETION_CONVS - 1 or n["conv_dw"] != COMPLETION_CONVS:
+            raise AssertionError(f"step {step}: {n} launches")
+        if not np.isfinite(loss):
+            raise AssertionError(f"step {step}: loss {loss}")
+    print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del net, opt
+    torch.cuda.empty_cache()
+
+    # 19. the VAE: a training step and a generation per batch, counted
+    vae = VAE(generator=torch.Generator().manual_seed(0), device=dev, **VAE_WIDTHS).train()
+    vae_convs = sparse_convs(vae)
+    if len(vae_convs) != VAE_CONVS:
+        raise AssertionError(f"the VAE has {len(vae_convs)} sparse convs")
+    opt = gen_sgd(vae)
+    noise = torch.Generator(device=dev).manual_seed(0)
+    vae_bwd = []
+
+    def seeded(b):  # the same noise for a batch's calibration and its generation
+        return torch.Generator(device=dev).manual_seed(100 + b)
+
+    for b in range(2):
+        torch.cuda.reset_peak_memory_stats()
+
+        def vae_step():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            vae.train()
+            opt.zero_grad()
+            out_cls, targets, _, mean, log_var = vae(*vae_input(batches[b], dev), generator=noise)
+            loss = vae_loss(out_cls, targets, mean, log_var)
+            loss.backward()
+            opt.step()
+            torch.cuda.synchronize()
+            return loss.item(), [c.size for c in out_cls], time.perf_counter() - t0
+
+        if b == 0:  # its conv calls are held against the plain versions below
+            calls, grads, ((loss, rows, secs), n) = capture_step(vae_convs, lambda: counted(launches, vae_step))
+        else:
+            (loss, rows, secs), n = counted(launches, vae_step)
+        n_in = len(batches[b][2])
+        print(f"[19 VAE] batch seed {b}: training step {n_in} voxels, {secs * 1e3:.2f} ms, "
+              f"{n_in / secs:.0f} voxels/s, loss {loss:.6f}, rows per decoder level {rows}, "
+              f"{n['gather_gemm']} gather_gemm and {n['conv_dw']} conv_dw launches, peak device "
+              f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if n["gather_gemm"] < 2 * VAE_CONVS - 1 or n["conv_dw"] != VAE_CONVS or not np.isfinite(loss):
+            raise AssertionError(f"VAE step {b}: {n} launches, loss {loss}")
+        if b == 0:
+            if len(calls) != VAE_CONVS or len(grads) != VAE_CONVS:
+                raise AssertionError(f"captured {len(calls)} VAE calls and {len(grads)} gradients")
+            vae_bwd = check_calls(calls, grads, "vae")
+            del calls, grads
+        calibrate(vae, lambda: vae(*vae_input(batches[b], dev), generator=seeded(b)))
+
+        def generate():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                out_cls, _, out, _, _ = vae(*vae_input(batches[b], dev), generator=seeded(b))
+                n_out = out.size
+            torch.cuda.synchronize()
+            return [c.size for c in out_cls], n_out, out.tensor_stride, time.perf_counter() - t0
+
+        (rows, n_out, ts, secs), n = counted(launches, generate)
+        print(f"[19 VAE] batch seed {b}: generation {secs * 1e3:.2f} ms, rows per decoder level "
+              f"{rows}, {n_out} voxels at stride {ts[0]}, {n['gather_gemm']} gather_gemm launches")
+        if n["gather_gemm"] < VAE_CONVS or n["conv_dw"] or n_out == 0:
+            raise AssertionError(f"VAE generation {b}: {n} launches, {n_out} voxels")
+    del vae, opt
+    torch.cuda.empty_cache()
+
+    # 20. parity with the CPU plain path, on a small batch at full width
+    small = gen_batch(PARITY_SEED, PARITY_SHAPES, PARITY_RES)
+    print(f"[20 parity] batch seed {PARITY_SEED}: {PARITY_SHAPES} shapes at {PARITY_RES}^3, "
+          f"{len(small[0])} partial and {len(small[2])} full voxels")
+    widths = dict(GEN_WIDTHS, resolution=PARITY_RES)
+    net = CompletionNet(generator=torch.Generator().manual_seed(0), device=dev, **widths).train()
+    net.pruning = RecordedPruning()
+    init = {k: v.detach().cpu().clone() for k, v in net.state_dict().items()}
+    loss, card, _ = completion_step(net, small, dev)
+    loss0 = loss.item()
+    grads0 = {k: p.grad.detach().cpu().clone() for k, p in net.named_parameters()}
+    stats0 = {k: v.cpu().clone() for k, v in net.state_dict().items() if "running" in k}
+    card_masks = net.pruning.masks
+    del net, loss
+    cpu_levels = {}
+
+    def cpu_completion_step(dtype):
+        cpu_net = CompletionNet(device="cpu", **widths).train()
+        cpu_net.load_state_dict(init)
+        cpu_net.to(dtype)
+        cpu_net.pruning = ForcedPruning(cpu_net, (card, card_masks), f"20 CompletionNet {dtype}")
+        partial, feats, full = small
+        feats = feats if dtype == torch.float32 else feats.astype(np.float64)
+        loss, cpu_levels[dtype], _ = completion_step(cpu_net, (partial, feats, full), "cpu")
+        return loss, cpu_net, len(partial)
+
+    cpu = cpu_steps(cpu_completion_step, "20 parity", "voxels")
+    judge_levels("20 CompletionNet", card, cpu_levels[torch.float32], cpu_levels[torch.float64])
+    judge_step("20 parity", loss0, grads0, stats0, cpu)
+    del card, cpu_levels
+
+    vae_widths = dict(VAE_WIDTHS, resolution=PARITY_RES)
+
+    def vae_run(model, device, dtype):
+        x, target = vae_input(small, device)
+        with torch.no_grad():  # the same noise from a seeded CPU generator
+            out_cls, _, _, mean, log_var = model(
+                MT.SparseTensor(x.F.to(dtype), coordinate_map_key=x.coordinate_map_key,
+                                coordinate_manager=x.coordinate_manager),
+                target, generator=torch.Generator().manual_seed(1),
+            )
+        return out_cls, mean, log_var
+
+    vae = VAE(generator=torch.Generator().manual_seed(0), device=dev, **vae_widths).train()
+    vae.decoder.pruning = RecordedPruning()
+    vae_init = {k: v.cpu().clone() for k, v in vae.state_dict().items()}
+    runs = [vae_run(vae, dev, torch.float32)]
+    for dtype in (torch.float32, torch.float64):
+        cpu_vae = VAE(device="cpu", **vae_widths).train()
+        cpu_vae.load_state_dict(vae_init)
+        cpu_vae.to(dtype)
+        cpu_vae.decoder.pruning = ForcedPruning(
+            cpu_vae.decoder, (runs[0][0], vae.decoder.pruning.masks), f"20 VAE decoder {dtype}"
+        )
+        runs.append(vae_run(cpu_vae, "cpu", dtype))
+    del vae, cpu_vae
+    for name, i in (("mean", 1), ("log-variance", 2)):
+        got = runs[0][i].F.cpu().double()
+        rel = rel_diff(got, runs[1][i].F.double())
+        card64, cpu64 = rel_diff(got, runs[2][i].F), rel_diff(runs[1][i].F.double(), runs[2][i].F)
+        print(f"  20 VAE encoder {name}: card vs CPU {rel:.2e}; against float64: card "
+              f"{card64:.2e}, CPU float32 {cpu64:.2e}")
+        if not (rel <= LOGIT_RTOL or card64 <= GRAD_FACTOR * cpu64):
+            raise AssertionError(f"VAE {name} disagrees: {rel:.3e}")
+    judge_levels("20 VAE decoder", runs[0][0], runs[1][0], runs[2][0])
+    return gen_rows, completion_bwd, vae_bwd
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda:0")
+
+    # 1. device
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(smi)
+    print(
+        f"[1 device] {torch.cuda.get_device_name(0)}, torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}, capability {torch.cuda.get_device_capability(0)}"
+    )
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # 2. build
+    t0 = time.perf_counter()
+    path = build.library_path()
+    build.library()
+    print(f"[2 build] {time.perf_counter() - t0:.1f} s -> {path.name}")
+    for line in path.with_suffix(".log").read_text().splitlines():
+        if "Compiling entry" in line or "registers" in line or "spill" in line:
+            print("  " + line.strip())
+
+    launches = {"gather_gemm": 0, "conv_dw": 0}
+    rows, real, synth_bwd, real_bwd, fcnn_bwd = segmentation_and_classification(dev, launches)
+    gen_rows, completion_bwd, vae_bwd = generative(dev, launches)
+
+    bwd = synth_bwd + real_bwd + fcnn_bwd + gen_rows + completion_bwd + vae_bwd
     errors = {
         "gather_gemm": [r["max_abs_err"] for r in rows + real]
         + [r[p]["max_abs_err"] for r in bwd for p in ("fwd", "dx") if p in r],
         "conv_dw": [r["dw"]["max_abs_err"] for r in bwd],
     }
-    # per training step of MinkUNet34 and of MinkowskiFCNN, on their real maps
-    sums = step_sums(real_bwd + fcnn_bwd)
+    # per training step of MinkUNet34, MinkowskiFCNN, CompletionNet and the
+    # VAE, on their real maps
+    sums = step_sums(real_bwd + fcnn_bwd + completion_bwd + vae_bwd)
     timing = {
         "gather_gemm": [a + b for a, b in zip(sums["fwd"], sums["dx"])],
         "conv_dw": sums["dw"],

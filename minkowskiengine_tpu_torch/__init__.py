@@ -1,8 +1,9 @@
 """minkowskiengine_tpu_torch: the PyTorch/CUDA port of minkowskiengine_tpu.
 
 Sparse tensors, tensor fields, the coordinate engine, batch collation,
-pooling, and the MinkUNet, ResNet and point-cloud classification models on
-PyTorch, for inference and training.  The sparse convolution runs on two
+pooling, pruning, union, and the MinkUNet, ResNet, point-cloud
+classification and generative (CompletionNet, VAE) models on PyTorch, for
+inference and training.  The sparse convolution runs on two
 hand-written Hopper kernels: the gather-GEMM for the forward and the input
 gradient (``kernels/gather_gemm.py``, ``csrc/gather_gemm.cu``) and the
 weight gradient (``kernels/conv_dw.py``, ``csrc/conv_dw.cu``).  State goes
@@ -19,7 +20,9 @@ from .nn import (
     MinkowskiConvolution,
     MinkowskiConvolutionTranspose,
     MinkowskiDropout,
+    MinkowskiELU,
     MinkowskiGELU,
+    MinkowskiGenerativeConvolutionTranspose,
     MinkowskiGlobalAvgPooling,
     MinkowskiGlobalMaxPooling,
     MinkowskiGlobalPooling,
@@ -29,10 +32,12 @@ from .nn import (
     MinkowskiLinear,
     MinkowskiMaxPooling,
     MinkowskiPoolingTranspose,
+    MinkowskiPruning,
     MinkowskiReLU,
     MinkowskiStableInstanceNorm,
     MinkowskiSumPooling,
     MinkowskiToFeature,
+    MinkowskiUnion,
     cat,
 )
 from .sparse_tensor import SparseTensor
@@ -64,7 +69,9 @@ __all__ = [
     "MinkowskiConvolution",
     "MinkowskiConvolutionTranspose",
     "MinkowskiDropout",
+    "MinkowskiELU",
     "MinkowskiGELU",
+    "MinkowskiGenerativeConvolutionTranspose",
     "MinkowskiGlobalAvgPooling",
     "MinkowskiGlobalMaxPooling",
     "MinkowskiGlobalPooling",
@@ -74,10 +81,12 @@ __all__ = [
     "MinkowskiLinear",
     "MinkowskiMaxPooling",
     "MinkowskiPoolingTranspose",
+    "MinkowskiPruning",
     "MinkowskiReLU",
     "MinkowskiStableInstanceNorm",
     "MinkowskiSumPooling",
     "MinkowskiToFeature",
+    "MinkowskiUnion",
     "PoolingMode",
     "RegionType",
     "SparseTensor",

@@ -31,19 +31,35 @@ from .unique import unique_coordinates
 
 class CoordinateMapKey:
     """Handle of a coordinate map inside a manager: ``(tensor_stride, string id)``
-    (reference: pybind/extern.hpp:744-765)."""
+    (reference: pybind/extern.hpp:744-765).  ``CoordinateMapKey(D)`` with an
+    int is an unset key, for an op to fill (``set_key``)."""
 
-    def __init__(self, tensor_stride, string_id: str = ""):
+    def __init__(self, tensor_stride_or_dim, string_id: str = ""):
+        if isinstance(tensor_stride_or_dim, int):
+            self._key = None
+        else:
+            self.set_key(tensor_stride_or_dim, string_id)
+
+    def is_key_set(self) -> bool:
+        return self._key is not None
+
+    def set_key(self, tensor_stride, string_id: str = ""):
         self._key = (tuple(int(t) for t in tensor_stride), string_id)
 
     def get_key(self) -> Tuple[Tuple[int, ...], str]:
+        if self._key is None:
+            raise RuntimeError("CoordinateMapKey is not set")
         return self._key
 
     def get_tensor_stride(self) -> Tuple[int, ...]:
-        return self._key[0]
+        return self.get_key()[0]
 
     def __eq__(self, other):
-        return isinstance(other, CoordinateMapKey) and self._key == other._key
+        return (
+            isinstance(other, CoordinateMapKey)
+            and self._key is not None
+            and self._key == other._key
+        )
 
     def __hash__(self):
         return hash(self._key)
@@ -302,6 +318,53 @@ class CoordinateManager:
 
     def number_of_unique_batch_indices(self, key: CoordinateMapKey) -> int:
         return self._get_map(self.origin(key)).size
+
+    # ------------------------------------------------------------------
+    # pruning and union
+    # ------------------------------------------------------------------
+    def prune(
+        self, key: CoordinateMapKey, keep: torch.Tensor
+    ) -> Tuple[CoordinateMapKey, torch.Tensor, torch.Tensor]:
+        """The map's rows where ``keep`` is true, in their sorted order
+        (reference: prune, src/coordinate_map_cpu.hpp:519-536).
+
+        Returns (new key, in_to_out, out_from_in): ``in_to_out`` (N_in,)
+        int32 is the new row of each old row, or -1 if dropped;
+        ``out_from_in`` (n_kept,) int32 the old row of each new row, the
+        gather map of the feature copy.  The new map's string id is
+        ``pruned``, or ``pruned-N`` where that is taken, as in JAX.
+        """
+        in_map = self._get_map(key)
+        keep = torch.as_tensor(keep, device=in_map.device).to(torch.bool)
+        if keep.shape != (in_map.size,):
+            raise ValueError(f"keep mask of shape {tuple(keep.shape)} for {in_map.size} rows")
+        out_from_in = keep.nonzero().flatten().to(torch.int32)
+        in_to_out = torch.where(keep, torch.cumsum(keep, 0, dtype=torch.int32) - 1, -1).to(torch.int32)
+        sid = self._unique_string_id(in_map.tensor_stride, "pruned")
+        new_key = CoordinateMapKey(in_map.tensor_stride, sid)
+        self._maps[new_key.get_key()] = CoordinateMap(
+            in_map.coordinates[out_from_in.long()], in_map.keys[out_from_in.long()],
+            in_map.tensor_stride,
+        )
+        return new_key, in_to_out, out_from_in
+
+    def merge(self, keys) -> CoordinateMapKey:
+        """The union of several maps' coordinates, all at one tensor stride,
+        as a new map with string id ``merged`` (or ``merged-N``)
+        (reference: merge, src/coordinate_map_cpu.hpp:538-564)."""
+        maps = [self._get_map(k) for k in keys]
+        ts = maps[0].tensor_stride
+        if any(m.tensor_stride != ts for m in maps):
+            raise ValueError("merge requires identical tensor strides")
+        coords = torch.cat([m.coordinates for m in maps], dim=0)
+        new_key, _, _ = self._register_unique(coords, ts, "merged")
+        return new_key
+
+    def union_map(self, in_keys, out_key: CoordinateMapKey):
+        """Per input map, the (N_i,) int32 row of each of its rows in the
+        union map ``out_key``, -1 where absent (reference: union_map,
+        src/coordinate_map_cpu.hpp:842-873)."""
+        return [self._find_rows_in(out_key, self._get_map(k).coordinates) for k in in_keys]
 
     # ------------------------------------------------------------------
     # field → sparse

@@ -1,7 +1,8 @@
-"""Model zoo: the MinkUNet family, the classification ResNets and the
-point-cloud classifiers."""
+"""Model zoo: the MinkUNet family, the classification ResNets, the
+point-cloud classifiers and the generative models (CompletionNet, VAE)."""
 
 from .classification import GlobalMaxAvgPool, MinkowskiFCNN, MinkowskiPointNet
+from .completion import CompletionNet
 
 from .minkunet import (
     MinkUNet14,
@@ -22,8 +23,13 @@ from .minkunet import (
     MinkUNetBase,
 )
 from .resnet import ResNet14, ResNet18, ResNet34, ResNet50, ResNet101, ResNetBase
+from .vae import VAE, Decoder, Encoder
 
 __all__ = [
+    "CompletionNet",
+    "Decoder",
+    "Encoder",
+    "VAE",
     "GlobalMaxAvgPool",
     "MinkowskiFCNN",
     "MinkowskiPointNet",

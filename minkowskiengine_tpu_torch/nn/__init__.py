@@ -4,8 +4,15 @@ from .conv import (
     MinkowskiConvolution,
     MinkowskiConvolutionBase,
     MinkowskiConvolutionTranspose,
+    MinkowskiGenerativeConvolutionTranspose,
 )
-from .nonlinearity import MinkowskiDropout, MinkowskiGELU, MinkowskiLeakyReLU, MinkowskiReLU
+from .nonlinearity import (
+    MinkowskiDropout,
+    MinkowskiELU,
+    MinkowskiGELU,
+    MinkowskiLeakyReLU,
+    MinkowskiReLU,
+)
 from .norm import MinkowskiBatchNorm, MinkowskiInstanceNorm, MinkowskiStableInstanceNorm
 from .ops import MinkowskiLinear, MinkowskiToFeature, cat
 from .pooling import (
@@ -18,6 +25,8 @@ from .pooling import (
     MinkowskiPoolingTranspose,
     MinkowskiSumPooling,
 )
+from .pruning import MinkowskiPruning, MinkowskiPruningFunction
+from .union import MinkowskiUnion, MinkowskiUnionFunction
 
 __all__ = [
     "MinkowskiAvgPooling",
@@ -26,7 +35,9 @@ __all__ = [
     "MinkowskiConvolutionBase",
     "MinkowskiConvolutionTranspose",
     "MinkowskiDropout",
+    "MinkowskiELU",
     "MinkowskiGELU",
+    "MinkowskiGenerativeConvolutionTranspose",
     "MinkowskiGlobalAvgPooling",
     "MinkowskiGlobalMaxPooling",
     "MinkowskiGlobalPooling",
@@ -36,9 +47,13 @@ __all__ = [
     "MinkowskiLinear",
     "MinkowskiMaxPooling",
     "MinkowskiPoolingTranspose",
+    "MinkowskiPruning",
+    "MinkowskiPruningFunction",
     "MinkowskiReLU",
     "MinkowskiStableInstanceNorm",
     "MinkowskiSumPooling",
     "MinkowskiToFeature",
+    "MinkowskiUnion",
+    "MinkowskiUnionFunction",
     "cat",
 ]

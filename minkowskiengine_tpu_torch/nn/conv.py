@@ -256,3 +256,30 @@ class MinkowskiConvolutionTranspose(MinkowskiConvolutionBase):
             dimension=dimension,
             generator=generator, device=device,
         )
+
+
+class MinkowskiGenerativeConvolutionTranspose(MinkowskiConvolutionBase):
+    """Transposed convolution that always generates new coordinates: every
+    input voxel spreads to each offset of the kernel at the finer stride,
+    even where a map of that stride exists (reference:
+    MinkowskiConvolution.py:539-634).  Its output map takes a fresh string
+    id, ``map-N``, when the input's lineage id is taken at that stride."""
+
+    def __init__(
+        self,
+        in_channels,
+        out_channels,
+        kernel_size=-1,
+        stride=1,
+        dilation=1,
+        bias=False,
+        kernel_generator=None,
+        dimension=-1,
+        generator: Optional[torch.Generator] = None,
+        device=None,
+    ):
+        super().__init__(
+            in_channels, out_channels, kernel_size, stride, dilation, bias,
+            kernel_generator, is_transpose=True, expand_coordinates=True,
+            dimension=dimension, generator=generator, device=device,
+        )

@@ -1,8 +1,8 @@
 """Elementwise nonlinearities on sparse-tensor and tensor-field features.
 
 Counterpart of ``minkowskiengine_tpu/nn/nonlinearity.py``: ReLU, LeakyReLU,
-GELU and Dropout, the ones the MinkUNet, ResNet and classification models
-use.  Each applies to ``input.F`` and keeps the coordinates.
+ELU, GELU and Dropout, the ones the MinkUNet, ResNet, classification and
+generative models use.  Each applies to ``input.F`` and keeps the coordinates.
 """
 
 from __future__ import annotations
@@ -32,6 +32,13 @@ class MinkowskiLeakyReLU(MinkowskiNonlinearityBase):
 
     def _fn(self, x):
         return torch.nn.functional.leaky_relu(x, self.negative_slope)
+
+
+class MinkowskiELU(MinkowskiNonlinearityBase):
+    """ELU with alpha = 1, as ``jax.nn.elu``: x above 0, expm1(x) below."""
+
+    def _fn(self, x):
+        return torch.nn.functional.elu(x)
 
 
 class MinkowskiGELU(MinkowskiNonlinearityBase):

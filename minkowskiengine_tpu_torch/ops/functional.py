@@ -1,5 +1,5 @@
-"""Feature-phase primitives: row gathers, segment reductions, pooling and
-the sparse convolution.
+"""Feature-phase primitives: row gathers, segment reductions, pooling,
+pruning, union and the sparse convolution.
 
 Counterpart of ``minkowskiengine_tpu/ops/functional.py``.  Rows are
 exact-size; index -1 means "no pair" and gathers a zero row.  The segment
@@ -124,6 +124,29 @@ def global_pool(feats: torch.Tensor, origin_rows: torch.Tensor, num_batches: int
     if mode == "max":
         return segment_max(feats, origin_rows, num_batches), cnt
     raise ValueError(f"unknown mode {mode}")
+
+
+# ---------------------------------------------------------------------------
+# pruning and union: row gathers, so autograd gives their gradients
+# ---------------------------------------------------------------------------
+
+
+def prune_features(feats: torch.Tensor, out_from_in: torch.Tensor) -> torch.Tensor:
+    """The kept rows, gathered by the pruning map (reference:
+    src/pruning_cpu.cpp:43-140)."""
+    return take_rows(feats, out_from_in)
+
+
+def union_features(feats_list, out_from_in_list) -> torch.Tensor:
+    """Sum several tensors' features onto the union map's rows.  Each map is
+    (N_union,) int32: the source row of each union row, -1 where the tensor
+    has none (reference: MinkowskiUnion.py:33-83 scatter-adds; the rows of
+    one tensor are unique, so a gather per tensor and a sum is the same)."""
+    acc = None
+    for feats, idx in zip(feats_list, out_from_in_list):
+        g = take_rows(feats, idx)
+        acc = g if acc is None else acc + g
+    return acc
 
 
 class _SparseConv(torch.autograd.Function):

@@ -195,20 +195,57 @@ class SparseTensor:
             coordinate_manager=self._manager,
         )
 
+    # ------------------------------------------------------------------
+    # arithmetic (reference: MinkowskiTensor.py:511-585)
+    # ------------------------------------------------------------------
+    def _binary(self, other, op):
+        """``op`` on the features.  Two tensors on different maps of one
+        manager meet on the union of their coordinates (a ``merged`` map):
+        a row absent from one operand takes 0 for it, as in JAX.  (The
+        reference leaves rows found only in the left operand untouched, so
+        under ``*`` and ``/`` it keeps their value; ROADMAP queue 3.)"""
+        if not isinstance(other, SparseTensor):
+            return self._wrap(op(self._F, other))
+        if self._manager is not other._manager:
+            raise ValueError(
+                "Both SparseTensors must share a coordinate manager for "
+                "mixed-coordinate arithmetic"
+            )
+        if self.coordinate_map_key == other.coordinate_map_key:
+            return self._wrap(op(self._F, other._F))
+        keys = [self.coordinate_map_key, other.coordinate_map_key]
+        union_key = self._manager.merge(keys)
+        n = self._manager.size(union_key)
+        inv = [_invert_union_map(m, n) for m in self._manager.union_map(keys, union_key)]
+        return SparseTensor(
+            op(take_rows(self._F, inv[0]), take_rows(other._F, inv[1])),
+            coordinate_map_key=union_key,
+            coordinate_manager=self._manager,
+        )
+
     def __add__(self, other):
-        if isinstance(other, SparseTensor):
-            if self._manager is not other._manager:
-                raise ValueError(
-                    "Both SparseTensors must share a coordinate manager for "
-                    "mixed-coordinate arithmetic"
-                )
-            if self.coordinate_map_key != other.coordinate_map_key:
-                raise NotImplementedError(
-                    "mixed-coordinate arithmetic (the union path) is not "
-                    "ported yet"
-                )
-            return self._wrap(self._F + other._F)
-        return self._wrap(self._F + other)
+        return self._binary(other, lambda a, b: a + b)
+
+    def __radd__(self, other):
+        return self._binary(other, lambda a, b: b + a)
+
+    def __sub__(self, other):
+        return self._binary(other, lambda a, b: a - b)
+
+    def __mul__(self, other):
+        return self._binary(other, lambda a, b: a * b)
+
+    def __rmul__(self, other):
+        return self._binary(other, lambda a, b: b * a)
+
+    def __truediv__(self, other):
+        return self._binary(other, lambda a, b: a / b)
+
+    def __neg__(self):
+        return self._wrap(-self._F)
+
+    def __pow__(self, p):
+        return self._wrap(self._F**p)
 
     # ------------------------------------------------------------------
     # field bridges (reference: MinkowskiSparseTensor.py:559-688)
@@ -239,3 +276,13 @@ class SparseTensor:
             f"coordinate_map_key={self.coordinate_map_key}, "
             f"device={self.device})"
         )
+
+
+def _invert_union_map(in_to_union: torch.Tensor, n_union: int) -> torch.Tensor:
+    """Invert an injective row map: the source row of each union row, or -1.
+    Absent rows are scattered to one spare slot past the end, which is
+    dropped, so the inversion needs no host sync."""
+    src = torch.arange(in_to_union.shape[0], dtype=torch.int32, device=in_to_union.device)
+    tgt = torch.where(in_to_union >= 0, in_to_union.long(), n_union)
+    out = torch.full((n_union + 1,), -1, dtype=torch.int32, device=in_to_union.device)
+    return out.scatter_(0, tgt, src)[:n_union]

@@ -3,13 +3,14 @@
 The port's modules are named like the reference's, so ``model.state_dict()``
 keys are the reference names (``conv0p1s1.kernel``, ``bn0.bn.weight``,
 ``block1.0.conv1.kernel``, ``mlp1.0.linear.weight``, ``conv1.1.weight``
-of an instance norm, ...), the names under which the JAX package's
+of an instance norm, ``dec_blocks.0.0.kernel`` of CompletionNet,
+``encoder.linear_mean.linear.weight`` of the VAE, ...), the names under which the JAX package's
 ``minkowskiengine_tpu.utils.torch_import.export_reference_state_dict``
 exports its weights.  ``MinkowskiLinear`` wraps ``torch.nn.Linear``, so
 ``linear.weight`` is (out, in) on both sides; an instance norm's
 ``weight`` and ``bias`` are (1, C) on both.  The one layout that differs is
-a convolution bias: the reference stores (C,), the port (1, C); this
-module converts it.
+a convolution bias (CompletionNet's and the VAE's classifier heads): the
+reference stores (C,), the port (1, C); this module converts it.
 """
 
 from __future__ import annotations

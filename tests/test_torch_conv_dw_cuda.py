@@ -221,3 +221,47 @@ def test_cuda_grad_launches_both_kernels(dev):
     before = gather_gemm.launches
     sparse_conv(x2, w, in_idx, out_idx_t).sum().backward()
     assert gather_gemm.launches == before + 1
+
+
+# CompletionNet's and the VAE's new shapes: the Cin = 1 stems at stride 1
+# and 2, the k = 4 generative conv (K = 64, 1024 -> 512), Cout = 16
+GENERATIVE_CONVS = [
+    (27, 1, 16, 60000, 60000), (27, 1, 16, 80000, 21000), (64, 1024, 512, 60, 2000),
+    (27, 16, 16, 50000, 50000), (27, 32, 16, 9000, 9000),
+]
+
+
+@pytest.mark.parametrize(
+    "K,cin,cout,n_in,n_out", GENERATIVE_CONVS,
+    ids=[f"k{k}-{ci}to{co}-{a}to{b}" for k, ci, co, a, b in GENERATIVE_CONVS],
+)
+def test_generative_shapes(dev, K, cin, cout, n_in, n_out):
+    in_idx, _ = _matching(dev, K, n_in, n_out)
+    g = torch.Generator(device=dev).manual_seed(2)
+    x = torch.randn(n_in, cin, device=dev, generator=g)
+    go = torch.randn(n_out, cout, device=dev, generator=g)
+    _check(x, go, in_idx)
+    assert conv_dw.last_plan.body == ("simt" if cin <= 4 else "mma")
+    if cin > 4:
+        assert conv_dw.last_plan.vec == 4  # Cin and Cout multiples of 4
+
+
+def test_generative_map(dev):
+    """A k = 2 generative map: each output row has one paired slot of 8."""
+    n_in = 20000
+    o = torch.arange(8 * n_in)
+    idx = torch.where(o[None, :] % 8 == torch.arange(8)[:, None], o // 8, -1).int().to(dev)
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(n_in, 32, device=dev, generator=g)
+    go = torch.randn(8 * n_in, 16, device=dev, generator=g)
+    _check(x, go, idx)
+
+
+def test_two_million_rows_at_stride_one(dev):
+    """A stride-1 weight gradient summed over 2.1M rows per offset."""
+    n = 2_100_000
+    in_idx, _ = _matching(dev, 27, n, n)
+    g = torch.Generator(device=dev).manual_seed(4)
+    x = torch.randn(n, 16, device=dev, generator=g)
+    go = torch.randn(n, 16, device=dev, generator=g)
+    _check(x, go, in_idx)

@@ -176,3 +176,57 @@ def test_rejects_what_it_does_not_take(dev):
     assert gather_gemm.launches == before + 2
     want = gather_gemm_reference(go, w.transpose(1, 2).contiguous(), out_idx_t)
     assert ((xg.grad - want).abs().max() / want.abs().max()).item() <= 1e-5
+
+
+# CompletionNet's and the VAE's new shapes: the Cin = 1 stems at stride 1
+# and 2, the k = 4 generative conv (K = 64, 1024 -> 512), Cout = 16
+GENERATIVE_CONVS = [
+    (27, 1, 16, 60000, 60000), (27, 1, 16, 80000, 21000), (64, 1024, 512, 60, 2000),
+    (27, 16, 16, 50000, 50000), (27, 32, 16, 9000, 9000),
+]
+GENERATIVE_IDS = [f"k{k}-{ci}to{co}-{a}to{b}" for k, ci, co, a, b in GENERATIVE_CONVS]
+
+
+@pytest.mark.parametrize("K,cin,cout,n_in,n_out", GENERATIVE_CONVS, ids=GENERATIVE_IDS)
+def test_generative_shapes_forward_and_input_gradient(dev, K, cin, cout, n_in, n_out):
+    in_idx, out_idx_t = _matching(dev, K, n_in, n_out)
+    g = torch.Generator(device=dev).manual_seed(2)
+    x = torch.randn(n_in, cin, device=dev, generator=g)
+    w = torch.randn(K, cin, cout, device=dev, generator=g) / (K * cin) ** 0.5
+    go = torch.randn(n_out, cout, device=dev, generator=g)
+    assert _rel(gather_gemm(x, w, in_idx), gather_gemm_reference(x, w, in_idx)) <= 1e-5
+    assert gather_gemm.last_plan.body == ("simt" if cin <= 4 else "mma")
+    wt = w.transpose(1, 2).contiguous()
+    assert _rel(gather_gemm(go, wt, out_idx_t), gather_gemm_reference(go, wt, out_idx_t)) <= 1e-5
+
+
+def generative_map(dev, n_in, k_vol=8):
+    """A k = 2 generative map: every input row has 8 children, each output
+    row exactly one paired slot of 8."""
+    o = torch.arange(k_vol * n_in)
+    idx = torch.where(o[None, :] % k_vol == torch.arange(k_vol)[:, None], o // k_vol, -1)
+    return idx.int().to(dev)
+
+
+def test_generative_map_forward_and_input_gradient(dev):
+    in_idx = generative_map(dev, 20000)
+    out_idx_t = _invert_matching(in_idx, 20000)
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(20000, 32, device=dev, generator=g)
+    w = torch.randn(8, 32, 16, device=dev, generator=g)
+    go = torch.randn(160000, 16, device=dev, generator=g)
+    assert _rel(gather_gemm(x, w, in_idx), gather_gemm_reference(x, w, in_idx)) <= 1e-5
+    wt = w.transpose(1, 2).contiguous()
+    assert _rel(gather_gemm(go, wt, out_idx_t), gather_gemm_reference(go, wt, out_idx_t)) <= 1e-5
+
+
+def test_two_million_rows_at_stride_one(dev):
+    """A stride-1 conv over 2.1M rows: no 32-bit index product overflows."""
+    n = 2_100_000
+    in_idx, out_idx_t = _matching(dev, 27, n, n)
+    g = torch.Generator(device=dev).manual_seed(4)
+    x = torch.randn(n, 16, device=dev, generator=g)
+    w = torch.randn(27, 16, 16, device=dev, generator=g) / (27 * 16) ** 0.5
+    assert _rel(gather_gemm(x, w, in_idx), gather_gemm_reference(x, w, in_idx)) <= 1e-5
+    wt = w.transpose(1, 2).contiguous()
+    assert _rel(gather_gemm(x, wt, out_idx_t), gather_gemm_reference(x, wt, out_idx_t)) <= 1e-5

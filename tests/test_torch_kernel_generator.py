@@ -19,7 +19,7 @@ from minkowskiengine_tpu_torch.types import RegionType
 @pytest.mark.parametrize("is_transpose", [False, True])
 @pytest.mark.parametrize("stride", [1, 2])
 @pytest.mark.parametrize("D", [2, 3, 4])
-@pytest.mark.parametrize("k", [1, 2, 3, 5])
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 5])
 def test_cube_offsets_match_jax(k, D, stride, is_transpose):
     for ts in (stride, 2 * stride, 4 * stride):
         tensor_stride = (ts,) * D
@@ -31,6 +31,18 @@ def test_cube_offsets_match_jax(k, D, stride, is_transpose):
         assert tr.offsets.dtype == np.int32
         np.testing.assert_array_equal(tr.offsets, jr.offsets)
         assert int(tr.region_type) == int(jr.region_type)
+
+
+def test_k4_transposed_region_at_stride_64_matches_jax():
+    """CompletionNet's first generative conv: k = 4, stride 2, from tensor
+    stride 64; its 64 offsets are 0..3 times the output stride 32, dim 0
+    fastest."""
+    j = jkg.KernelGenerator(kernel_size=4, stride=2, is_transpose=True, dimension=3)
+    t = tkg.KernelGenerator(kernel_size=4, stride=2, is_transpose=True, dimension=3)
+    tr, jr = t.get_kernel((64,) * 3, True), j.get_kernel((64,) * 3, True)
+    np.testing.assert_array_equal(tr.offsets, jr.offsets)
+    assert tr.volume == 64 and tr.offsets[:5, 0].tolist() == [0, 32, 64, 96, 0]
+    assert sorted(set(tr.offsets.ravel().tolist())) == [0, 32, 64, 96]
 
 
 def test_even_kernel_is_one_sided_and_dim0_fastest():
@@ -72,7 +84,7 @@ def test_region_offsets_for_scales_by_tensor_stride(k, D):
         assert np.all(t % ts == 0)
 
 
-@pytest.mark.parametrize("k", [1, 2, 3, 5])
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 5])
 def test_kernel_volume_matches_jax(k):
     for rt in (RegionType.HYPER_CUBE, RegionType.HYPER_CROSS):
         if rt == RegionType.HYPER_CROSS and k % 2 == 0:

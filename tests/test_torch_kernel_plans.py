@@ -6,7 +6,8 @@ and splits the output rows across blocks.  Both sum their splits in order
 in a second pass, through a workspace kept within its cap.  These tests
 check the plans at every distinct sparse conv of a MinkUNet34 training step
 on a batch of two room scans (51,028 / 12,533 / 2,817 / 618 / 125 rows at
-strides 1-16), for an H100's 132 SMs.  Nothing here needs a card.
+strides 1-16), of MinkowskiFCNN, and of CompletionNet and the VAE, for an
+H100's 132 SMs.  Nothing here needs a card.
 """
 
 import pytest
@@ -56,7 +57,25 @@ CLASSIFICATION_CONVS = [
     (1, 128, 256, 1142, 262),
     (1, 256, 512, 262, 246),
 ]
-CONVS = STEP_CONVS + CLASSIFICATION_CONVS
+# CompletionNet's and the VAE's distinct convs on one stand-in batch of 16
+# shapes at 128^3 (chip_smoke.py phase 15), and the stride-1 level of a
+# CompletionNet training step (4,716,408 rows): Cin = 1 stems, Cout = 16,
+# the k = 4 generative conv (K = 64) and the k = 2 ones (K = 8, 8x rows out)
+GENERATIVE_CONVS = [
+    (27, 1, 16, 342916, 342916), (8, 16, 32, 342916, 88409), (27, 32, 32, 88409, 88409),
+    (8, 32, 64, 88409, 22324), (27, 64, 64, 22324, 22324), (8, 64, 128, 22324, 5524),
+    (27, 128, 128, 5524, 5524), (8, 128, 256, 5524, 1352), (27, 256, 256, 1352, 1352),
+    (8, 256, 512, 1352, 294), (27, 512, 512, 294, 294), (8, 512, 1024, 294, 58),
+    (27, 1024, 1024, 58, 58), (64, 1024, 512, 122, 3384), (27, 512, 512, 3384, 3384),
+    (8, 512, 256, 624, 4992), (27, 256, 256, 4992, 4992), (8, 256, 128, 2872, 22976),
+    (27, 128, 128, 22976, 22976), (8, 128, 64, 11771, 94168), (27, 64, 64, 94168, 94168),
+    (8, 64, 32, 47608, 380864), (27, 32, 32, 380864, 380864), (8, 32, 16, 188884, 1511072),
+    (27, 16, 16, 1511072, 1511072), (27, 16, 16, 4716408, 4716408),
+    (27, 1, 16, 734353, 188884), (27, 16, 16, 188884, 188884), (27, 16, 32, 188884, 47608),
+    (27, 64, 128, 11771, 2872), (27, 512, 1024, 122, 16), (27, 1024, 1024, 16, 16),
+    (8, 1024, 512, 16, 128), (27, 512, 512, 128, 128),
+]
+CONVS = STEP_CONVS + CLASSIFICATION_CONVS + GENERATIVE_CONVS
 IDS = [f"k{k}-{ci}to{co}-{n_in}to{n_out}" for k, ci, co, n_in, n_out in CONVS]
 
 
@@ -135,3 +154,18 @@ def test_workspace_cap_bounds_the_split():
     # a huge output with few tiles: the offset split stops at the cap
     p = gg.plan(20000, 27, 64, 64, 10_000)
     assert p.splits == 3 and p.workspace_bytes(20000, 64) <= gg.WORKSPACE_CAP
+
+
+def test_generative_plans():
+    """The new cases of the generative slice: the k = 4 conv (K = 64, 1024 ->
+    512) on 122 rows in, 3,384 out, and its input gradient on 122 rows; Cout
+    = 16, a multiple of 4, keeps K2's 16-byte copies inside a 32-wide tile."""
+    fwd = gg.plan(3384, 64, 1024, 512, SMS)
+    assert fwd.splits == 1 and fwd.body == "mma" and fwd.vec == 4
+    dx = gg.plan(122, 64, 512, 1024, SMS)
+    assert dx.splits == 8 and dx.offsets_per_split == 8
+    assert dx.workspace_bytes(122, 1024) <= gg.WORKSPACE_CAP
+    p = dw.plan(27, 16, 16, 4716408, SMS)
+    assert (p.body, p.cin_tile, p.cout_tile, p.vec) == ("mma", 32, 32, 4)
+    assert dw.plan(27, 1, 16, 342916, SMS).body == "simt"
+    assert gg.plan(342916, 27, 16, 1, SMS).vec == 1  # phase 15 checks the stem's dX too: Cout 1

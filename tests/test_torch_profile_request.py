@@ -43,3 +43,26 @@ def test_exits_nonzero_without_cuda():
     )
     assert proc.returncode != 0
     assert "voxels" not in proc.stdout
+
+
+def test_host_clock_times_the_coordinate_calls_and_keep_any_syncs():
+    """On a narrow CompletionNet on the CPU: one timed ``keep.any()`` per
+    decoder level, time inside the manager's calls, and the patched methods
+    restored afterwards."""
+    import minkowskiengine_tpu_torch as MT
+    from minkowskiengine_tpu_torch.models import CompletionNet
+    from minkowskiengine_tpu_torch.utils.datasets import completion_batch
+
+    tool = _load()
+    partial, feats, full = completion_batch(2, 16, seed=0, n_points=2000)
+    net = CompletionNet(resolution=16, enc_channels=(4, 8, 8), dec_channels=(4, 8, 8), device="cpu")
+    saved = MT.CoordinateManager.kernel_map, torch.Tensor.__bool__
+    with tool.HostClock() as clock:
+        mgr = MT.CoordinateManager(D=3, device="cpu")
+        x = MT.SparseTensor(torch.from_numpy(feats), torch.from_numpy(partial), coordinate_manager=mgr)
+        target, _ = mgr.insert_and_map(torch.from_numpy(full), 1)
+        out_cls, _, _ = net(x, target)
+        assert bool(torch.tensor(True))  # a sync outside the level loop is not counted
+    assert clock.keep_any_n == len(out_cls) == 2
+    assert clock.coordinate_s > 0 and clock.keep_any_s >= 0
+    assert (MT.CoordinateManager.kernel_map, torch.Tensor.__bool__) == saved

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of one MinkUNet34 inference request and training step,
-and of one MinkowskiFCNN classification batch and training step, goes on
-one CUDA card.
+of one MinkowskiFCNN classification batch and training step, and of one
+CompletionNet training step goes on one CUDA card.
 
 Run from the root of a checkout, with one CUDA card visible:
 
@@ -43,7 +43,15 @@ seed 0 (32 synthetic shapes x 2048 points, a TensorField):
    batch with ``CoordinateTransformation``): five steps, then one profiled
    step, as in 6;
 
-and, last, one JSON line with the numbers of all four.
+Then ``chip_smoke.py``'s CompletionNet (the reference widths, 16 stand-in
+shapes at 128³, batch of seed 0) in train mode with SGD as in its phase 18:
+
+9. four steps (after one warm-up) with the host's time inside the
+   coordinate manager's calls (maps, kernel maps, merge, union, prune; the
+   outermost call only) and inside the per-level ``keep.any()`` syncs of the
+   decoder, then one profiled step, as in 6;
+
+and, last, one JSON line with the numbers of all five.
 """
 
 from __future__ import annotations
@@ -62,10 +70,12 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import minkowskiengine_tpu_torch as MT  # noqa: E402
 from chip_smoke import (  # noqa: E402
-    CLASSES, FCNN_LR, FCNN_MOMENTUM, FCNN_WD, FCNN_WIDTHS,
-    answer, classify, collate, fcnn_step, labels_for, scan, shapes, train_step,
+    CLASSES, FCNN_LR, FCNN_MOMENTUM, FCNN_WD, FCNN_WIDTHS, GEN_WIDTHS,
+    answer, bce, classify, collate, completion_input, fcnn_step, gen_batch, gen_sgd,
+    labels_for, scan, shapes, train_step,
 )
-from minkowskiengine_tpu_torch.models import MinkowskiFCNN, MinkUNet34  # noqa: E402
+from minkowskiengine_tpu_torch.coords.manager import CoordinateManager  # noqa: E402
+from minkowskiengine_tpu_torch.models import CompletionNet, MinkowskiFCNN, MinkUNet34  # noqa: E402
 from minkowskiengine_tpu_torch.utils.datasets import CoordinateTransformation  # noqa: E402
 
 K1_NAME = "gather_gemm_"  # gather_gemm_mma_kernel, gather_gemm_stem_kernel
@@ -204,6 +214,98 @@ def profile_classification(dev):
     )
 
 
+COORDINATE_CALLS = (
+    "insert_and_map", "stride", "stride_region", "kernel_map", "merge", "union_map", "prune",
+)
+
+
+class HostClock:
+    """Host time inside the coordinate manager's calls (the outermost one of
+    nested calls) and inside ``Tensor.__bool__`` when the decoder's level
+    loop calls it (``bool(keep.any())``, one host sync per level)."""
+
+    def __init__(self):
+        self.coordinate_s = self.keep_any_s = 0.0
+        self.keep_any_n = 0
+        self._depth = 0
+
+    def __enter__(self):
+        self._saved = {n: getattr(CoordinateManager, n) for n in COORDINATE_CALLS}
+        for name, fn in self._saved.items():
+            setattr(CoordinateManager, name, self._timed(fn))
+        self._bool = torch.Tensor.__bool__
+        clock, original = self, torch.Tensor.__bool__
+
+        def timed_bool(t):
+            if sys._getframe(1).f_code.co_name != "generative_levels":
+                return original(t)
+            t0 = time.perf_counter()
+            try:
+                return original(t)
+            finally:
+                clock.keep_any_s += time.perf_counter() - t0
+                clock.keep_any_n += 1
+
+        torch.Tensor.__bool__ = timed_bool
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._saved.items():
+            setattr(CoordinateManager, name, fn)
+        torch.Tensor.__bool__ = self._bool
+
+    def _timed(self, fn):
+        def call(*args, **kw):
+            self._depth += 1
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                self._depth -= 1
+                if self._depth == 0:
+                    self.coordinate_s += time.perf_counter() - t0
+        return call
+
+
+def profile_completion(dev):
+    """CompletionNet training steps with the host clocks, then a profiled one."""
+    batch = gen_batch(SEED)
+    model = CompletionNet(generator=torch.Generator().manual_seed(0), device=dev, **GEN_WIDTHS)
+    opt = gen_sgd(model.train())
+
+    def step():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt.zero_grad()
+        out_cls, targets, _ = model(*completion_input(batch, dev))
+        bce(out_cls, targets).backward()
+        opt.step()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, [c.size for c in out_cls]
+
+    step()  # warm-up
+    steps, coordinate, keep_any, levels = [], [], [], None
+    for _ in range(REPEATS - 1):
+        with HostClock() as clock:
+            secs, levels = step()
+        steps.append(secs * 1e3)
+        coordinate.append(clock.coordinate_s * 1e3)
+        keep_any.append(clock.keep_any_s * 1e3)
+    print(
+        f"[9 completion training steps] {len(batch[0])} voxels in, rows per decoder level "
+        f"{levels}; ms: {', '.join(f'{t:.2f}' for t in steps)}; host in coordinate-manager "
+        f"calls: {', '.join(f'{t:.2f}' for t in coordinate)} ms; host in the {clock.keep_any_n} "
+        f"keep.any() syncs: {', '.join(f'{t:.2f}' for t in keep_any)} ms"
+    )
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        secs, _ = step()
+    split = device_split(prof, secs)
+    report("9 profiled completion step", split, prof)
+    return {"voxels": len(batch[0]), "rows_per_level": levels, "step_ms": steps,
+            "coordinate_host_ms": coordinate, "keep_any_host_ms": keep_any,
+            **{f"profiled_{k}": v for k, v in split.items()}}
+
+
 def profile_request(dev):
     coords, feats = scan(SEED)
     model = MinkUNet34(3, 20, D=3, generator=torch.Generator().manual_seed(0), device=dev).eval()
@@ -255,9 +357,11 @@ def main() -> int:
     request = profile_request(dev)
     train = profile_train(dev)
     fcnn_batch, fcnn_train = profile_classification(dev)
+    completion = profile_completion(dev)
     print(json.dumps({
         "request": request, "train_step": train,
         "fcnn_batch": fcnn_batch, "fcnn_train_step": fcnn_train,
+        "completion_train_step": completion,
     }))
     return 0
 
