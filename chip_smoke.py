@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port once on one NVIDIA GPU: MinkUNet34 inference
 and training, point-cloud classification with MinkowskiFCNN and a ResNet18
-classifier, then shape completion with CompletionNet and a sparse VAE.
+classifier, shape completion with CompletionNet and a sparse VAE, then
+classification with MinkowskiSplatFCNN and an SE-ResNet18.
 
 Run from the root of a checkout, with one CUDA card visible:
 
@@ -108,6 +109,31 @@ Phases, in order; any failure raises and the script exits non-zero:
    those rows, printed with their margin (``ForcedPruning``), so every
    level is compared on one map.
 
+21. kernels on the splat maps: ``MinkowskiSplatFCNN(3, 40)`` at phase 11's
+   widths (weights from torch.Generator seed 0; train mode, dropout off)
+   takes one training step on phase 13's first batch; its 7 conv calls,
+   captured with hooks, forward, input gradient and weight gradient
+   against their plain versions, per call (with the -1 share) and summed,
+   with the bound.  The splat map's rows at stride 1 are printed beside
+   the ``sparse()`` rows of the same batch.
+22. SplatFCNN inference: phase 11's 3 batches in eval mode, each in a fresh
+   coordinate manager; wall time, points/s; ``gather_gemm`` >= 7 launches
+   per batch, ``conv_dw`` none.
+23. SplatFCNN training: 4 SGD steps as phase 13 on its batches; wall time
+   per step, points/s, peak memory; per step ``gather_gemm`` >= 14 and
+   ``conv_dw`` exactly 7.
+24. SplatFCNN parity: (a) phase 22's batch-0 logits against the CPU plain
+   path; (b) phase 21's step (loss, every parameter gradient) against CPU
+   runs in float32 and float64, as phase 14b; (c) the splatted features of
+   batch 0, and ``SparseTensor.interpolate`` of the card's conv1 output at
+   the field's points, on the card against the CPU.
+25. SE-ResNet18 (``ResNet18``'s widths with ``SEBasicBlock``, weights from
+   torch.Generator seed 0): batch-0 logits (``TensorField.sparse()``) on the
+   card against the CPU, as phase 14c, with ``gather_gemm`` launches equal
+   to its sparse-conv count; then 4 SGD steps on phase 13's batches, dropout
+   seeded: step 0 warms up, steps 1-3 are timed, each with ``conv_dw``
+   launches equal to the sparse-conv count.
+
 Bound of a kernel call: the larger of its useful operations (2 · pairs ·
 Cin · Cout) over the H100's 495 TFLOP/s dense TF32 tensor peak and its
 bytes (each input read once, the output written once) over 3.35 TB/s.  The
@@ -132,7 +158,10 @@ from minkowskiengine_tpu_torch.coords.kernel_map import _invert_matching
 from minkowskiengine_tpu_torch.kernels import build
 from minkowskiengine_tpu_torch.kernels.conv_dw import conv_dw, conv_dw_reference
 from minkowskiengine_tpu_torch.kernels.gather_gemm import gather_gemm, gather_gemm_reference
-from minkowskiengine_tpu_torch.models import VAE, CompletionNet, MinkowskiFCNN, MinkUNet34, ResNet18
+from minkowskiengine_tpu_torch.models import (
+    VAE, CompletionNet, MinkowskiFCNN, MinkowskiSplatFCNN, MinkUNet34, ResNet18, ResNetBase,
+)
+from minkowskiengine_tpu_torch.modules import SEBasicBlock
 from minkowskiengine_tpu_torch.nn.conv import MinkowskiConvolutionBase, _conv_out_key
 from minkowskiengine_tpu_torch.nn.nonlinearity import MinkowskiDropout
 from minkowskiengine_tpu_torch.nn.norm import MinkowskiBatchNorm
@@ -192,6 +221,9 @@ COMPLETION_CONVS = 25  # enc_first, 6 x 2 encoder and 6 x 2 decoder convs
 VAE_CONVS = 26  # 7 x 2 encoder and 6 x 2 decoder convs
 # phase 20's batch: small enough for the CPU's plain path at full width
 PARITY_SEED, PARITY_SHAPES, PARITY_RES = 0, 2, 64
+# splatting and interpolation on the card against the CPU: sums of at most
+# a few dozen weighted rows, whose order CUDA's index_add atomics change
+SPLAT_RTOL = 1e-6
 KERNELS = {
     "gather_gemm": ("minkowskiengine_tpu_torch/csrc/gather_gemm.cu",
                     "minkowskiengine_tpu/ops/pallas/conv_kernel.py:1105"),
@@ -1285,6 +1317,194 @@ def generative(dev, launches):
     return gen_rows, completion_bwd, vae_bwd
 
 
+class SEResNet18(ResNetBase):
+    """ResNet18 with squeeze-and-excitation basic blocks."""
+
+    BLOCK = SEBasicBlock
+    LAYERS = (2, 2, 2, 2)
+
+
+def splat_fcnn(device, generator=None):
+    return MinkowskiSplatFCNN(3, CLASSES, generator=generator, device=device, **FCNN_WIDTHS)
+
+
+def splat_and_se(dev, launches):
+    """Phases 21-25: MinkowskiSplatFCNN inference, training and parity, and
+    an SE-ResNet18 classifier.  Adds the main-path launches to ``launches``;
+    returns the kernel rows of phase 21."""
+    shape_batch = shapes(0, CoordinateTransformation())
+    batches = [shapes(s) for s in (0, 1, 2)]
+
+    # 21. kernels on the real maps of one SplatFCNN training step, dropout off
+    net = splat_fcnn(dev, torch.Generator().manual_seed(0)).train()
+    init = {k: v.detach().cpu().clone() for k, v in net.state_dict().items()}
+    convs = sparse_convs(net)
+    if len(convs) != FCNN_CONVS:
+        raise AssertionError(f"MinkowskiSplatFCNN has {len(convs)} sparse convs")
+    set_dropout(net, False)
+    calls, grads, (loss, _) = capture_step(convs, lambda: fcnn_step(net, *shape_batch, dev))
+    if len(calls) != FCNN_CONVS or len(grads) != FCNN_CONVS:
+        raise AssertionError(f"captured {len(calls)} calls and {len(grads)} output gradients")
+    loss0 = loss.item()
+    grads0 = {k: p.grad.detach().cpu().clone() for k, p in net.named_parameters()}
+    stats0 = {k: v.cpu().clone() for k, v in net.state_dict().items() if "running" in k}
+    tf = field(*shape_batch[:2], dev)
+    splat_rows, sparse_rows = tf.splat().size, tf.sparse().size
+    print(f"[21 kernels, SplatFCNN training-step maps] {len(calls)} conv calls; "
+          f"{len(shape_batch[0])} points: {splat_rows} splat rows at stride 1 against "
+          f"{sparse_rows} sparse() rows ({splat_rows / sparse_rows:.2f}x)")
+    splat_bwd = check_calls(calls, grads, "splat")
+    del calls, grads, loss, net, tf
+
+    # 22. SplatFCNN inference: three batches, counted
+    net = splat_fcnn(dev).eval()
+    net.load_state_dict(init)
+    classify(net, *batches[0][:2], dev)  # warm-up
+    logits22 = []
+    for seed, (coords, feats, _) in enumerate(batches):
+        (logits, secs), n = counted(launches, lambda: classify(net, coords, feats, dev))
+        logits22.append(logits)
+        print(f"[22 SplatFCNN classify] batch seed {seed}: {len(coords)} points, {secs * 1e3:.2f} ms, "
+              f"{len(coords) / secs:.0f} points/s, {n['gather_gemm']} gather_gemm launches")
+        if n["gather_gemm"] < FCNN_CONVS or n["conv_dw"]:
+            raise AssertionError(f"SplatFCNN batch {seed}: {n} launches")
+        if logits.shape != (SHAPES, CLASSES) or not torch.isfinite(logits).all():
+            raise AssertionError(f"bad logits: shape {tuple(logits.shape)}")
+    del net
+
+    # 23. SplatFCNN training: four SGD steps on phase 13's batches, counted
+    net = splat_fcnn(dev, torch.Generator().manual_seed(0)).train()
+    for m in net.modules():
+        if isinstance(m, MinkowskiDropout):
+            m.generator = torch.Generator(device=dev).manual_seed(0)
+    opt = torch.optim.SGD(net.parameters(), lr=FCNN_LR, momentum=FCNN_MOMENTUM, weight_decay=FCNN_WD)
+    torch.cuda.reset_peak_memory_stats()
+    for step, s in enumerate((0, 1, 2, 3)):
+        coords, feats, lab = shape_batch if s == 0 else shapes(s, CoordinateTransformation())
+
+        def one_step():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            opt.zero_grad()
+            loss, logits = fcnn_step(net, coords, feats, lab, dev)
+            opt.step()
+            torch.cuda.synchronize()
+            return loss.item(), logits.shape, time.perf_counter() - t0
+
+        (loss, shape, secs), n = counted(launches, one_step)
+        print(f"[23 train SplatFCNN] step {step}: {len(coords)} points, {secs * 1e3:.2f} ms, "
+              f"{len(coords) / secs:.0f} points/s, loss {loss:.6f}, {n['gather_gemm']} gather_gemm "
+              f"and {n['conv_dw']} conv_dw launches")
+        if n["gather_gemm"] < 2 * FCNN_CONVS or n["conv_dw"] != FCNN_CONVS:
+            raise AssertionError(f"step {step}: {n} launches")
+        if shape != (SHAPES, CLASSES) or not np.isfinite(loss):
+            raise AssertionError(f"step {step}: logits {tuple(shape)}, loss {loss}")
+    print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del net, opt
+
+    # 24. parity with the CPU plain path
+    # (a) batch 0's logits in eval mode
+    cpu_net = splat_fcnn("cpu").eval()
+    cpu_net.load_state_dict(init)
+    with torch.no_grad():
+        ref = cpu_net(field(*batches[0][:2], "cpu"))
+    rel = rel_diff(logits22[0], ref)
+    print(f"[24a parity] SplatFCNN logits, CUDA vs CPU plain path: max|d|/max|ref| = {rel:.2e}")
+    if not rel <= LOGIT_RTOL:
+        raise AssertionError(f"SplatFCNN logits disagree: {rel:.3e} > {LOGIT_RTOL}")
+
+    # (b) phase 21's step, dropout off, in float32 and float64 on the CPU
+    def cpu_splat_step(dtype):
+        net = splat_fcnn("cpu").train()
+        net.load_state_dict(init)
+        net.to(dtype)
+        set_dropout(net, False)
+        coords, feats, lab = shape_batch
+        loss, _ = fcnn_step(net, coords, torch.from_numpy(feats).to(dtype), lab, "cpu")
+        return loss, net, len(coords)
+
+    judge_step("24b parity", loss0, grads0, stats0, cpu_steps(cpu_splat_step, "24b parity", "points"))
+
+    # (c) the splat of batch 0's mlp1 output, and interpolation of the card's
+    # conv1 output at the field's points, each on the card and on the CPU
+    # from the same inputs
+    coords, feats, _ = batches[0]
+    net = splat_fcnn(dev).eval()
+    net.load_state_dict(init)
+    with torch.no_grad():
+        x = net.mlp1(field(coords, feats, dev))
+        card, host = x.splat(), field(coords, x.F.cpu(), "cpu").splat()
+        if not torch.equal(card.C.cpu(), host.C):
+            raise AssertionError("splat coordinates differ between the card and the CPU")
+        splat_rel = rel_diff(card.F.cpu(), host.F)
+        y = net.conv1(card)
+        host_y = MT.SparseTensor(y.F.cpu(), coordinate_map_key=host.coordinate_map_key,
+                                 coordinate_manager=host.coordinate_manager)
+        interp_rel = rel_diff(y.interpolate(x).cpu(), host_y.interpolate(field(coords, x.F.cpu(), "cpu")))
+    print(f"[24c parity] splat of batch 0: {card.size} rows, coordinates equal, features card vs "
+          f"CPU {splat_rel:.2e}; interpolation of conv1's output at {len(coords)} points {interp_rel:.2e}")
+    if not (splat_rel <= SPLAT_RTOL and interp_rel <= SPLAT_RTOL):
+        raise AssertionError(f"splat {splat_rel:.3e} or interpolation {interp_rel:.3e} > {SPLAT_RTOL}")
+    del net, x, y, card, host, host_y
+
+    # 25. SE-ResNet18 on batch 0: logits against the CPU, then a training step
+    rn = SEResNet18(3, CLASSES, D=3, generator=torch.Generator().manual_seed(0), device=dev).eval()
+    rn_convs = len(sparse_convs(rn))
+    rn_init = {k: v.cpu().clone() for k, v in rn.state_dict().items()}
+    with torch.no_grad():
+        rn_logits, n = counted(launches, lambda: rn(field(coords, feats, dev).sparse()).F.cpu())
+    if n["gather_gemm"] != rn_convs or n["conv_dw"]:
+        raise AssertionError(f"SE-ResNet18: {n} launches for {rn_convs} sparse convs")
+    if rn_logits.shape != (SHAPES, CLASSES) or not torch.isfinite(rn_logits).all():
+        raise AssertionError(f"SE-ResNet18: bad logits, shape {tuple(rn_logits.shape)}")
+    rn_cpu = {}
+    for dtype in (torch.float32, torch.float64):
+        cpu_rn = SEResNet18(3, CLASSES, D=3, device="cpu").eval()
+        cpu_rn.load_state_dict(rn_init)
+        cpu_rn.to(dtype)
+        with torch.no_grad():
+            rn_cpu[dtype] = cpu_rn(field(coords, torch.from_numpy(feats).to(dtype), "cpu").sparse()).F
+    rel = rel_diff(rn_logits.double(), rn_cpu[torch.float32].double())
+    card64 = rel_diff(rn_logits.double(), rn_cpu[torch.float64])
+    cpu64 = rel_diff(rn_cpu[torch.float32].double(), rn_cpu[torch.float64])
+    print(f"[25 SE-ResNet18] {rn_convs} sparse convs, {n['gather_gemm']} gather_gemm launches; "
+          f"logits CUDA vs CPU float32 {rel:.2e}; against float64: card {card64:.2e}, CPU float32 "
+          f"{cpu64:.2e}")
+    if not (rel <= LOGIT_RTOL or card64 <= GRAD_FACTOR * cpu64):
+        raise AssertionError(f"SE-ResNet18 logits disagree: {rel:.3e} > {LOGIT_RTOL}")
+    rn.train()
+    for m in rn.modules():
+        if isinstance(m, MinkowskiDropout):
+            m.generator = torch.Generator(device=dev).manual_seed(0)
+    opt = torch.optim.SGD(rn.parameters(), lr=FCNN_LR, momentum=FCNN_MOMENTUM, weight_decay=FCNN_WD)
+    step_secs = []
+    for step, s in enumerate((0, 1, 2, 3)):  # step 0 warms up; steps 1-3 are timed
+        coords, feats, lab = shape_batch if s == 0 else shapes(s, CoordinateTransformation())
+
+        def rn_step():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            opt.zero_grad()
+            out = rn(field(coords, feats, dev).sparse()).F
+            loss = torch.nn.functional.cross_entropy(out, torch.as_tensor(lab).long().to(dev))
+            loss.backward()
+            opt.step()
+            torch.cuda.synchronize()
+            return loss.item(), time.perf_counter() - t0
+
+        (loss, secs), n = counted(launches, rn_step)
+        if step:
+            step_secs.append(secs)
+        print(f"  training step {step}{' (warm-up)' if step == 0 else ''}: {len(coords)} points, "
+              f"{secs * 1e3:.2f} ms, loss {loss:.6f}, {n['gather_gemm']} gather_gemm and "
+              f"{n['conv_dw']} conv_dw launches")
+        if n["gather_gemm"] < 2 * rn_convs - 1 or n["conv_dw"] != rn_convs or not np.isfinite(loss):
+            raise AssertionError(f"SE-ResNet18 step {step}: {n} launches, loss {loss}")
+    print(f"  steps 1-3: mean {np.mean(step_secs) * 1e3:.2f} ms, "
+          f"{len(shape_batch[0]) / np.mean(step_secs):.0f} points/s")
+    return splat_bwd
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -1316,16 +1536,17 @@ def main() -> int:
     launches = {"gather_gemm": 0, "conv_dw": 0}
     rows, real, synth_bwd, real_bwd, fcnn_bwd = segmentation_and_classification(dev, launches)
     gen_rows, completion_bwd, vae_bwd = generative(dev, launches)
+    splat_bwd = splat_and_se(dev, launches)
 
-    bwd = synth_bwd + real_bwd + fcnn_bwd + gen_rows + completion_bwd + vae_bwd
+    bwd = synth_bwd + real_bwd + fcnn_bwd + gen_rows + completion_bwd + vae_bwd + splat_bwd
     errors = {
         "gather_gemm": [r["max_abs_err"] for r in rows + real]
         + [r[p]["max_abs_err"] for r in bwd for p in ("fwd", "dx") if p in r],
         "conv_dw": [r["dw"]["max_abs_err"] for r in bwd],
     }
-    # per training step of MinkUNet34, MinkowskiFCNN, CompletionNet and the
-    # VAE, on their real maps
-    sums = step_sums(real_bwd + fcnn_bwd + completion_bwd + vae_bwd)
+    # per training step of MinkUNet34, MinkowskiFCNN, CompletionNet, the VAE
+    # and MinkowskiSplatFCNN, on their real maps
+    sums = step_sums(real_bwd + fcnn_bwd + completion_bwd + vae_bwd + splat_bwd)
     timing = {
         "gather_gemm": [a + b for a, b in zip(sums["fwd"], sums["dx"])],
         "conv_dw": sums["dw"],

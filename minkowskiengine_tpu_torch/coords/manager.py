@@ -91,6 +91,27 @@ def _quantize_field(field_coords: torch.Tensor, tensor_stride) -> torch.Tensor:
     return torch.cat([field_coords[:, :1].to(torch.int32), spatial], dim=1)
 
 
+def _interp_corner_coords(samples: torch.Tensor, tensor_stride):
+    """(2^D, N, D+1) int32 lattice corners of float samples and their (2^D,
+    N) multilinear weights, corners in ``itertools.product((0, 1),
+    repeat=D)`` order.  The same float32 operations in the same order as
+    the JAX package's ``_interp_corner_coords``: ``p = x / stride``,
+    ``floor``, ``frac = p - floor``, corner ``(floor + bit) * stride``
+    truncated to int32; the batch column is truncated too."""
+    D = samples.shape[1] - 1
+    dev = samples.device
+    ts = torch.tensor(tensor_stride, dtype=torch.float32, device=dev)
+    corners = torch.tensor(list(itertools.product((0, 1), repeat=D)), dtype=torch.float32, device=dev)
+    p = samples[:, 1:] / ts
+    base = torch.floor(p)
+    frac = p - base
+    corner_pos = base[None, :, :] + corners[:, None, :]
+    batch = samples[:, :1].to(torch.int32).expand(len(corners), -1, -1)
+    coords = torch.cat([batch, (corner_pos * ts).to(torch.int32)], dim=-1)
+    w = torch.where(corners[:, None, :] == 1, frac[None, :, :], 1.0 - frac[None, :, :])
+    return coords, w.prod(dim=-1)
+
+
 def _origin_coords(coords: torch.Tensor) -> torch.Tensor:
     """(b, 0, ..., 0) for every row."""
     out = torch.zeros_like(coords)
@@ -394,6 +415,25 @@ class CoordinateManager:
             qcoords = _quantize_field(self._get_field_map(field_key).coordinates, smap.tensor_stride)
             self._field_to_sparse[ck] = self._find_rows_in(sparse_key, qcoords)
         return self._field_to_sparse[ck]
+
+    # ------------------------------------------------------------------
+    # interpolation
+    # ------------------------------------------------------------------
+    def interpolation_map_weight(
+        self, key: CoordinateMapKey, samples
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Multilinear neighbour rows and weights of float samples (N, D+1),
+        batch first, in the map at ``key``: (rows (N, 2^D) int32, -1 for a
+        corner absent from the map; weights (N, 2^D) float32, 0 there).
+        Built without autograd: gradients reach features only (reference:
+        interpolation_map_weight, src/coordinate_map_cpu.hpp:138-273)."""
+        cmap = self._get_map(key)
+        samples = torch.as_tensor(samples, device=self.device).to(torch.float32)
+        with torch.no_grad():
+            coords, w = _interp_corner_coords(samples, cmap.tensor_stride)
+            rows = self._find_rows_in(key, coords)
+            w = torch.where(rows >= 0, w, 0.0)
+        return rows.T.contiguous(), w.T.contiguous()
 
     # ------------------------------------------------------------------
     # kernel maps

@@ -1,7 +1,7 @@
 """Model zoo: the MinkUNet family, the classification ResNets, the
 point-cloud classifiers and the generative models (CompletionNet, VAE)."""
 
-from .classification import GlobalMaxAvgPool, MinkowskiFCNN, MinkowskiPointNet
+from .classification import GlobalMaxAvgPool, MinkowskiFCNN, MinkowskiPointNet, MinkowskiSplatFCNN
 from .completion import CompletionNet
 
 from .minkunet import (
@@ -33,6 +33,7 @@ __all__ = [
     "GlobalMaxAvgPool",
     "MinkowskiFCNN",
     "MinkowskiPointNet",
+    "MinkowskiSplatFCNN",
     "ResNetBase",
     "ResNet14",
     "ResNet18",

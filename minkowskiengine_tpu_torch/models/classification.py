@@ -1,12 +1,12 @@
 """Point-cloud classification models (the ModelNet40 family).
 
 Counterpart of ``minkowskiengine_tpu/models/classification.py`` (reference:
-examples/classification_modelnet40.py:68-230): ``MinkowskiFCNN``,
-``MinkowskiPointNet`` and ``GlobalMaxAvgPool``, with the reference's channel
-schedules, pooling layout and field↔sparse hops, and its state-dict names
-(``mlp1.0.linear.weight``, ``conv5.0.0.kernel``, ``final.3.linear.bias``).
-Both models take a TensorField and return (batch size, classes) logits.
-``MinkowskiSplatFCNN`` waits for TensorField.splat (ROADMAP queue 1 item 9).
+examples/classification_modelnet40.py:68-258): ``MinkowskiFCNN``,
+``MinkowskiSplatFCNN``, ``MinkowskiPointNet`` and ``GlobalMaxAvgPool``, with
+the reference's channel schedules, pooling layout and field↔sparse hops,
+and its state-dict names (``mlp1.0.linear.weight``, ``conv5.0.0.kernel``,
+``final.3.linear.bias``).  The models take a TensorField and return (batch
+size, classes) logits.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ import torch
 from torch import nn
 
 from ..nn.conv import MinkowskiConvolution
+from ..nn.network import MinkowskiNetwork
 from ..nn.nonlinearity import MinkowskiDropout, MinkowskiLeakyReLU
 from ..nn.norm import MinkowskiBatchNorm
 from ..nn.ops import MinkowskiLinear, cat
@@ -34,7 +35,7 @@ def _mlp_block(cin, cout, generator, device):
     )
 
 
-class MinkowskiFCNN(nn.Module):
+class MinkowskiFCNN(MinkowskiNetwork):
     """Fully convolutional classifier over a TensorField.  Weights are drawn
     with ``generator`` on the CPU, then placed on ``device`` (default: the
     CUDA card)."""
@@ -49,9 +50,8 @@ class MinkowskiFCNN(nn.Module):
         generator: Optional[torch.Generator] = None,
         device=None,
     ):
-        super().__init__()
+        super().__init__(D)
         device = resolve_device(device)
-        self.D = int(D)
         self.channels = tuple(channels)
         self.embedding_channel = int(embedding_channel)
 
@@ -88,9 +88,12 @@ class MinkowskiFCNN(nn.Module):
             MinkowskiLinear(512, out_channel, bias=True, generator=generator, device=device),
         )
 
+    def _voxelize(self, x: TensorField):
+        return x.sparse()
+
     def forward(self, x: TensorField) -> torch.Tensor:
         x = self.mlp1(x)
-        y = x.sparse()
+        y = self._voxelize(x)
 
         y = self.conv1(y)
         y1 = self.pool(y)
@@ -107,6 +110,16 @@ class MinkowskiFCNN(nn.Module):
         return self.final(cat(self.global_max_pool(y), self.global_avg_pool(y))).F
 
 
+class MinkowskiSplatFCNN(MinkowskiFCNN):
+    """``MinkowskiFCNN`` that voxelizes by multilinear splatting
+    (``TensorField.splat``) instead of averaging (reference:
+    classification_modelnet40.py:231-258); the same modules and state-dict
+    names."""
+
+    def _voxelize(self, x: TensorField):
+        return x.splat()
+
+
 class GlobalMaxAvgPool(nn.Module):
     """Global max and average pooling, concatenated."""
 
@@ -119,7 +132,7 @@ class GlobalMaxAvgPool(nn.Module):
         return cat(self.global_max_pool(tensor), self.global_avg_pool(tensor))
 
 
-class MinkowskiPointNet(nn.Module):
+class MinkowskiPointNet(MinkowskiNetwork):
     """PointNet-style per-point MLP, global max pooling and an MLP head over a
     TensorField (the reference example's "minkpointnet")."""
 
@@ -132,9 +145,8 @@ class MinkowskiPointNet(nn.Module):
         generator: Optional[torch.Generator] = None,
         device=None,
     ):
-        super().__init__()
+        super().__init__(dimension)
         device = resolve_device(device)
-        self.D = int(dimension)
 
         def block(cin, cout):
             return _mlp_block(cin, cout, generator, device)

@@ -1,28 +1,53 @@
 """Elementwise nonlinearities on sparse-tensor and tensor-field features.
 
-Counterpart of ``minkowskiengine_tpu/nn/nonlinearity.py``: ReLU, LeakyReLU,
-ELU, GELU and Dropout, the ones the MinkUNet, ResNet, classification and
-generative models use.  Each applies to ``input.F`` and keeps the coordinates.
+Counterpart of ``minkowskiengine_tpu/nn/nonlinearity.py``: the one-line
+family that wraps a torch function (``_make``), LeakyReLU, GELU and
+Dropout.  Each applies to ``input.F`` and keeps the coordinates.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 from torch import nn
+from torch.nn import functional as TF
 
 
 class MinkowskiNonlinearityBase(nn.Module):
-    """Apply the subclass's ``_fn`` to the features, keep the coordinates."""
+    """Apply the subclass's ``_fn`` to the features, keep the coordinates.
+    Keyword arguments go to the wrapped function (``MinkowskiCELU(alpha=2.0)``)."""
+
+    def __init__(self, **kwargs):
+        super().__init__()
+        self._kwargs = kwargs
 
     def forward(self, input):
         return input._wrap(self._fn(input.F))
 
 
-class MinkowskiReLU(MinkowskiNonlinearityBase):
+def _make(name: str, fn: Callable, doc: str):
+    """A nonlinearity class that applies ``fn(features, **kwargs)``."""
+
     def _fn(self, x):
-        return torch.relu(x)
+        return fn(x, **self._kwargs)
+
+    return type(name, (MinkowskiNonlinearityBase,), {"_fn": _fn, "__doc__": doc, "__module__": __name__})
+
+
+MinkowskiReLU = _make("MinkowskiReLU", TF.relu, "max(x, 0).")
+MinkowskiReLU6 = _make("MinkowskiReLU6", TF.relu6, "min(max(x, 0), 6).")
+MinkowskiELU = _make("MinkowskiELU", TF.elu, "ELU, alpha 1 by default as ``jax.nn.elu``.")
+MinkowskiSELU = _make("MinkowskiSELU", TF.selu, "Scaled ELU.")
+MinkowskiCELU = _make("MinkowskiCELU", TF.celu, "Continuously differentiable ELU.")
+MinkowskiSiLU = _make("MinkowskiSiLU", TF.silu, "x * sigmoid(x).")
+MinkowskiTanh = _make("MinkowskiTanh", torch.tanh, "tanh(x).")
+MinkowskiSigmoid = _make("MinkowskiSigmoid", torch.sigmoid, "1 / (1 + exp(-x)).")
+MinkowskiLogSigmoid = _make("MinkowskiLogSigmoid", TF.logsigmoid, "log(sigmoid(x)).")
+MinkowskiSoftplus = _make("MinkowskiSoftplus", TF.softplus, "log(1 + exp(x)).")
+MinkowskiSoftsign = _make("MinkowskiSoftsign", TF.softsign, "x / (1 + |x|).")
+MinkowskiHardsigmoid = _make("MinkowskiHardsigmoid", TF.hardsigmoid, "relu6(x + 3) / 6.")
+MinkowskiHardswish = _make("MinkowskiHardswish", TF.hardswish, "x * relu6(x + 3) / 6.")
 
 
 class MinkowskiLeakyReLU(MinkowskiNonlinearityBase):
@@ -31,14 +56,7 @@ class MinkowskiLeakyReLU(MinkowskiNonlinearityBase):
         self.negative_slope = float(negative_slope)
 
     def _fn(self, x):
-        return torch.nn.functional.leaky_relu(x, self.negative_slope)
-
-
-class MinkowskiELU(MinkowskiNonlinearityBase):
-    """ELU with alpha = 1, as ``jax.nn.elu``: x above 0, expm1(x) below."""
-
-    def _fn(self, x):
-        return torch.nn.functional.elu(x)
+        return TF.leaky_relu(x, self.negative_slope)
 
 
 class MinkowskiGELU(MinkowskiNonlinearityBase):
@@ -48,7 +66,7 @@ class MinkowskiGELU(MinkowskiNonlinearityBase):
     (ROADMAP queue 3)."""
 
     def _fn(self, x):
-        return torch.nn.functional.gelu(x, approximate="tanh")
+        return TF.gelu(x, approximate="tanh")
 
 
 class MinkowskiDropout(MinkowskiNonlinearityBase):

@@ -1,11 +1,12 @@
 """Feature-phase primitives: row gathers, segment reductions, pooling,
-pruning, union and the sparse convolution.
+pruning, union, broadcast, interpolation, splatting and the sparse
+convolution.
 
 Counterpart of ``minkowskiengine_tpu/ops/functional.py``.  Rows are
 exact-size; index -1 means "no pair" and gathers a zero row.  The segment
-reductions and pooling are XLA ops in the JAX package and plain torch
-here (``index_add``, ``scatter_reduce``); only the sparse convolution runs
-on hand-written kernels.
+reductions, pooling, broadcast, interpolation and splatting are XLA ops in
+the JAX package and plain torch here (``index_add``, ``scatter_reduce``);
+only the sparse convolution runs on hand-written kernels.
 """
 
 from __future__ import annotations
@@ -147,6 +148,43 @@ def union_features(feats_list, out_from_in_list) -> torch.Tensor:
         g = take_rows(feats, idx)
         acc = g if acc is None else acc + g
     return acc
+
+
+# ---------------------------------------------------------------------------
+# broadcast, and interpolation and splatting over (N, 2^D) neighbour rows
+# ---------------------------------------------------------------------------
+
+
+def broadcast(feats: torch.Tensor, glob: torch.Tensor, origin_rows: torch.Tensor, op: str):
+    """Combine each row with its batch item's global row (``glob`` at the
+    row's origin row): ``op`` is ``"add"`` or ``"mul"``; a row whose origin
+    row is < 0 gives 0 (reference: src/broadcast_cpu.cpp:43-150; autograd
+    gives the backward)."""
+    g = take_rows(glob, origin_rows)
+    if op == "add":
+        out = feats + g
+    elif op == "mul":
+        out = feats * g
+    else:
+        raise ValueError(f"unknown op {op}")
+    return torch.where((origin_rows >= 0)[:, None], out, 0.0)
+
+
+def interpolate_features(feats: torch.Tensor, neighbor_rows: torch.Tensor, weights: torch.Tensor):
+    """Multilinear interpolation ``Σ_c w_c · feats[row_c]``; a row -1 (weight
+    0) adds nothing (reference: src/interpolation_kernel.hpp:40-124)."""
+    n, c = neighbor_rows.shape
+    g = take_rows(feats, neighbor_rows.reshape(-1)).reshape(n, c, feats.shape[1])
+    return torch.einsum("nc,ncf->nf", weights.to(g.dtype), g)
+
+
+def splat_features(field_feats: torch.Tensor, neighbor_rows: torch.Tensor, weights: torch.Tensor,
+                   num_rows: int) -> torch.Tensor:
+    """The transpose of interpolation: each point adds its features, times
+    each corner's weight, to the corner's row (TensorField.splat,
+    MinkowskiTensorField.py:381-406)."""
+    contrib = field_feats[:, None, :] * weights.to(field_feats.dtype)[:, :, None]
+    return segment_sum(contrib.reshape(-1, field_feats.shape[1]), neighbor_rows.reshape(-1), num_rows)
 
 
 class _SparseConv(torch.autograd.Function):

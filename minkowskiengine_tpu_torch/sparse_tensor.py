@@ -3,12 +3,14 @@
 Counterpart of ``minkowskiengine_tpu/sparse_tensor.py`` (reference:
 MinkowskiEngine/MinkowskiSparseTensor.py).  Feature rows are exact-size
 and follow the map's canonical batch-major key order.  ``slice`` and
-``cat_slice`` carry features back to the TensorField they came from.
+``cat_slice`` carry features back to the TensorField they came from;
+``interpolate`` and ``features_at_coordinates`` sample them at float
+points; ``dense`` and ``sparse`` export them.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -21,11 +23,6 @@ from .tensor import (
     sparse_tensor_operation_mode,
 )
 from .types import SparseTensorOperationMode, SparseTensorQuantizationMode, resolve_device
-
-_SPLAT_PENDING = (
-    "SPLAT_LINEAR_INTERPOLATION (TensorField.splat) waits for the "
-    "interpolation slice, ROADMAP queue 1 item 9"
-)
 
 
 def as_features(features, device=None) -> torch.Tensor:
@@ -68,8 +65,6 @@ def quantize_features(features, inverse_map, n_out: int, mode, unique_map=None) 
         return F.segment_sum(features, inverse_map, n_out)
     if mode == Q.MAX_POOL:
         return F.segment_max(features, inverse_map, n_out)
-    if mode == Q.SPLAT_LINEAR_INTERPOLATION:
-        raise NotImplementedError(_SPLAT_PENDING)
     raise ValueError(f"Unsupported quantization mode {mode!r}")
 
 
@@ -82,7 +77,9 @@ class SparseTensor:
       (unique + inverse); the rows of a duplicate coordinate are reduced
       by ``quantization_mode``: the first row (RANDOM_SUBSAMPLE,
       NO_QUANTIZATION), their mean (UNWEIGHTED_AVERAGE), sum
-      (UNWEIGHTED_SUM) or max (MAX_POOL).
+      (UNWEIGHTED_SUM) or max (MAX_POOL).  SPLAT_LINEAR_INTERPOLATION takes
+      float coordinates and splats them onto the unit lattice
+      (``TensorField.splat``).
     * ``SparseTensor(features, coordinate_map_key=key,
       coordinate_manager=mgr)`` attaches features to an existing map, in
       the map's row order.
@@ -114,12 +111,22 @@ class SparseTensor:
         features = as_features(features, device)
         if features.ndim != 2:
             raise ValueError(f"features must be rank-2, got {tuple(features.shape)}")
+        self.quantization_mode = quantization_mode
         self.unique_index = None
         self.inverse_mapping = None
 
-        if coordinates is not None:
-            if quantization_mode == SparseTensorQuantizationMode.SPLAT_LINEAR_INTERPOLATION:
-                raise NotImplementedError(_SPLAT_PENDING)
+        if coordinates is not None and (
+            quantization_mode == SparseTensorQuantizationMode.SPLAT_LINEAR_INTERPOLATION
+        ):
+            # float coordinates splatted onto the unit lattice, as JAX does
+            from .tensor_field import TensorField
+
+            st = TensorField(
+                features, torch.as_tensor(coordinates).to(torch.float32),
+                coordinate_manager=coordinate_manager, quantization_mode=quantization_mode,
+            ).splat()
+            features, coordinate_map_key, coordinate_manager = st._F, st.coordinate_map_key, st._manager
+        elif coordinates is not None:
             coordinates = torch.as_tensor(coordinates)
             if coordinates.ndim != 2:
                 raise ValueError(
@@ -183,6 +190,141 @@ class SparseTensor:
     @property
     def device(self):
         return self._F.device
+
+    @property
+    def dimension(self) -> int:
+        return self.D
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return tuple(self._F.shape)
+
+    @property
+    def dtype(self):
+        return self._F.dtype
+
+    def __len__(self):
+        return self.size
+
+    @property
+    def requires_grad(self) -> bool:
+        return self._F.requires_grad
+
+    def detach(self) -> "SparseTensor":
+        return self._wrap(self._F.detach())
+
+    # ------------------------------------------------------------------
+    # batch decomposition (reference: MinkowskiTensor.py:277-423); rows
+    # are batch-major, so each batch item is one run of rows
+    # ------------------------------------------------------------------
+    def _batch_runs(self) -> List[int]:
+        _, counts = torch.unique_consecutive(self.C[:, 0], return_counts=True)
+        return counts.tolist()
+
+    @property
+    def decomposed_coordinates(self) -> List[torch.Tensor]:
+        """Per batch item present, in batch order, its (n_b, D) coordinates."""
+        return list(torch.split(self.C[:, 1:], self._batch_runs()))
+
+    @property
+    def decomposed_features(self) -> List[torch.Tensor]:
+        return list(torch.split(self._F, self._batch_runs()))
+
+    @property
+    def decomposed_coordinates_and_features(self):
+        return self.decomposed_coordinates, self.decomposed_features
+
+    def coordinates_at(self, batch_index: int) -> torch.Tensor:
+        C = self.C
+        return C[C[:, 0] == batch_index, 1:]
+
+    def features_at(self, batch_index: int) -> torch.Tensor:
+        return self._F[(self.C[:, 0] == batch_index).to(self._F.device)]
+
+    # ------------------------------------------------------------------
+    # conversion (reference: MinkowskiSparseTensor.py:348-457)
+    # ------------------------------------------------------------------
+    def dense(self, shape=None, min_coordinate=None, contract_stride: bool = True):
+        """Densify to (B, ch, *spatial), channels first as in the reference,
+        on the features' device.  Returns (dense, min_coordinate (D,) int32,
+        tensor_stride).  ``shape`` (B, ch, *spatial) fixes the size;
+        ``min_coordinate`` the corner, which must not exceed any coordinate."""
+        dev = self._F.device
+        coords = self.C.to(dev)
+        n = coords.shape[0]
+        if min_coordinate is None:
+            min_coordinate = (
+                coords[:, 1:].amin(0) if n else torch.zeros(self.D, dtype=torch.int32, device=dev)
+            )
+        else:
+            min_coordinate = torch.as_tensor(min_coordinate, device=dev).to(torch.int32)
+            if (coords[:, 1:] < min_coordinate).any():
+                raise ValueError("min_coordinate is larger than some coordinates")
+        spatial = coords[:, 1:] - min_coordinate
+        if contract_stride:
+            ts = torch.tensor(self.tensor_stride, dtype=torch.int32, device=dev)
+            spatial = torch.div(spatial, ts, rounding_mode="floor")
+        batch = coords[:, 0].long()
+        B = int(batch.max()) + 1 if n else 1
+        if shape is not None:
+            if len(shape) != self.D + 2:
+                raise ValueError(f"shape must have {self.D + 2} entries (B, ch, *spatial)")
+            B = max(B, int(shape[0]))
+            sp_shape = tuple(int(s) for s in shape[2:])
+        else:
+            sp_shape = tuple(int(s) + 1 for s in spatial.amax(0)) if n else (1,) * self.D
+        dense = self._F.new_zeros((B, self._F.shape[1]) + sp_shape)
+        spatial = spatial.long()
+        dense[(batch, slice(None)) + tuple(spatial[:, d] for d in range(self.D))] = self._F
+        return dense, min_coordinate, self.tensor_stride
+
+    def sparse(self, min_coords=None, max_coords=None, contract_coords: bool = True):
+        """Export as ``(torch.sparse_coo_tensor, min_coords, tensor_stride)``,
+        a hybrid COO tensor of shape (B, *spatial, ch), the reference's
+        format.  ``min_coords`` and ``max_coords`` (inclusive) fix the window
+        and must be divisible by the tensor stride; ``contract_coords``
+        divides the coordinates by it."""
+        dev = self._F.device
+        coords = self.C.to(dev).long()
+        ts = torch.tensor(self.tensor_stride, dtype=torch.int64, device=dev)
+        spatial = coords[:, 1:]
+
+        def window(value, name):
+            c = torch.as_tensor(value, device=dev).to(torch.int64).reshape(-1)
+            if c.numel() != self.D:
+                raise ValueError(f"{name} must have {self.D} elements, got {c.numel()}")
+            if (c % ts).any():
+                kind = "minimum" if name == "min_coords" else "maximum"
+                raise ValueError(f"The {kind} coordinates must be divisible by the tensor stride.")
+            return c
+
+        if min_coords is not None:
+            min_c = window(min_coords, "min_coords")
+        elif coords.shape[0]:
+            min_c = spatial.amin(0)
+        else:
+            min_c = torch.zeros(self.D, dtype=torch.int64, device=dev)
+        max_c = None if max_coords is None else window(max_coords, "max_coords")
+
+        spatial = spatial - min_c
+        if contract_coords:
+            spatial = torch.div(spatial, ts, rounding_mode="floor")
+            if max_c is not None:
+                max_c = torch.div(max_c, ts, rounding_mode="floor")
+            min_c = torch.div(min_c, ts, rounding_mode="floor")
+
+        B = int(coords[:, 0].max()) + 1 if coords.shape[0] else 1
+        if max_c is not None:
+            sp_shape = tuple(int(s) for s in (max_c - min_c + 1))
+        elif coords.shape[0]:
+            sp_shape = tuple(int(s) + 1 for s in spatial.amax(0))
+        else:
+            sp_shape = (1,) * self.D
+        indices = torch.cat([coords[:, :1], spatial], dim=1).T
+        out = torch.sparse_coo_tensor(
+            indices, self._F, (B,) + sp_shape + (self._F.shape[1],), check_invariants=True
+        ).coalesce()
+        return out, min_c.to(torch.int32), self.tensor_stride
 
     # ------------------------------------------------------------------
     # helpers
@@ -268,6 +410,23 @@ class SparseTensor:
             raise TypeError("cat_slice requires a TensorField input")
         sliced = take_rows(self._F, X.inverse_mapping(self.coordinate_map_key))
         return X._wrap(torch.cat([X.F, sliced], dim=1))
+
+    def features_at_coordinates(self, query_coordinates) -> torch.Tensor:
+        """(N, ch) features interpolated multilinearly at float query
+        coordinates (N, D+1), batch first; a lattice corner absent from the
+        map adds 0 (reference: MinkowskiSparseTensor.py:690-718)."""
+        rows, weights = self._manager.interpolation_map_weight(
+            self.coordinate_map_key, query_coordinates
+        )
+        return F.interpolate_features(self._F, rows, weights)
+
+    def interpolate(self, X) -> torch.Tensor:
+        """This tensor's features interpolated at a TensorField's points."""
+        from .tensor_field import TensorField
+
+        if not isinstance(X, TensorField):
+            raise TypeError("interpolate requires a TensorField input")
+        return self.features_at_coordinates(X.C)
 
     def __repr__(self):
         return (

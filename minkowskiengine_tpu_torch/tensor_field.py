@@ -4,8 +4,9 @@ Counterpart of ``minkowskiengine_tpu/tensor_field.py`` (reference:
 MinkowskiEngine/MinkowskiTensorField.py).  A TensorField holds raw,
 unquantized points; ``.sparse()`` voxelizes it onto a SparseTensor, and the
 manager keeps the field-to-sparse row map so that ``SparseTensor.slice``
-can carry voxel features back to the points.  Multilinear splatting
-(``splat``, SPLAT_LINEAR_INTERPOLATION) waits for the interpolation slice.
+can carry voxel features back to the points.  ``.splat()`` (and
+``sparse()`` in SPLAT_LINEAR_INTERPOLATION mode) spreads each point's
+features over the 2^D lattice corners around it with multilinear weights.
 """
 
 from __future__ import annotations
@@ -14,15 +15,10 @@ from typing import Optional
 
 import torch
 
-from .coords.manager import CoordinateManager, CoordinateMapKey
-from .sparse_tensor import (
-    _SPLAT_PENDING,
-    SparseTensor,
-    as_features,
-    default_manager,
-    quantize_features,
-)
-from .types import SparseTensorQuantizationMode
+from .coords.manager import CoordinateManager, CoordinateMapKey, _interp_corner_coords
+from .ops import functional as F
+from .sparse_tensor import SparseTensor, as_features, default_manager, quantize_features
+from .types import SparseTensorQuantizationMode, as_tuple
 
 
 class TensorField:
@@ -131,11 +127,18 @@ class TensorField:
         ``quantization_mode`` (default: the field's).  Without a
         ``coordinate_map_key`` the voxels form a new map at
         ``tensor_stride``; a second call on the same field gets a new key
-        (``map-N``), as in the JAX package."""
+        (``map-N``), as in the JAX package.  SPLAT_LINEAR_INTERPOLATION is
+        ``splat()``, on the unit lattice only (the reference asserts here
+        and asks for ``.splat()``; JAX, and so the port, wire it through)."""
         if quantization_mode is None:
             quantization_mode = self.quantization_mode
         if quantization_mode == SparseTensorQuantizationMode.SPLAT_LINEAR_INTERPOLATION:
-            raise NotImplementedError(_SPLAT_PENDING)
+            ts = tensor_stride if coordinate_map_key is None else coordinate_map_key.get_tensor_stride()
+            if as_tuple(ts, self.D) != (1,) * self.D:
+                raise ValueError(
+                    "SPLAT_LINEAR_INTERPOLATION voxelizes onto the unit lattice (tensor_stride 1)"
+                )
+            return self.splat()
         if quantization_mode == SparseTensorQuantizationMode.NO_QUANTIZATION:
             raise ValueError("a TensorField quantizes: NO_QUANTIZATION does not apply")
         unique_map = None
@@ -152,7 +155,18 @@ class TensorField:
         )
 
     def splat(self) -> SparseTensor:
-        raise NotImplementedError(_SPLAT_PENDING)
+        """Scatter the features onto the lattice corners around each point
+        with multilinear weights (reference: MinkowskiTensorField.py:381-406).
+        The corner set, the 2^D corners of every point, is built on the
+        field's device; then the manager is called in the JAX package's order
+        (``insert_and_map``, ``interpolation_map_weight``), so the new map's
+        key is JAX's: ``(1, ..., 1)`` with id ``""``, or ``map-N`` when taken."""
+        coords, D = self.C, self.D
+        corners, _ = _interp_corner_coords(coords, (1,) * D)
+        key, _ = self._manager.insert_and_map(corners.reshape(-1, D + 1), (1,) * D)
+        rows, weights = self._manager.interpolation_map_weight(key, coords)
+        feats = F.splat_features(self._F, rows, weights, self._manager.size(key))
+        return SparseTensor(feats, coordinate_map_key=key, coordinate_manager=self._manager)
 
     def inverse_mapping(self, sparse_tensor_map_key: CoordinateMapKey) -> torch.Tensor:
         """(N,) sparse row of each point, for a sparse map quantized from

@@ -1,7 +1,7 @@
 """Core enums and helpers of the PyTorch port.
 
 Counterpart of ``minkowskiengine_tpu/types.py``; only the enums that the
-sparse-convolution and pooling paths read are carried over.  Also the
+sparse-convolution, pooling and broadcast paths read are carried over.  Also the
 port's device rule: state goes on the card unless the caller asks for the
 CPU.
 """
@@ -47,6 +47,14 @@ class PoolingMode(enum.IntEnum):
     GLOBAL_SUM_POOLING_PYTORCH_INDEX = 9
     GLOBAL_AVG_POOLING_PYTORCH_INDEX = 10
     GLOBAL_MAX_POOLING_PYTORCH_INDEX = 11
+
+
+class BroadcastMode(enum.IntEnum):
+    """Broadcast binary ops (reference: src/types.hpp:157-162; the reference
+    spells ADDITON so)."""
+
+    ELEMENTWISE_ADDITON = 0
+    ELEMENTWISE_MULTIPLICATION = 1
 
 
 class SparseTensorOperationMode(enum.IntEnum):

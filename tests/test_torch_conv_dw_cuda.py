@@ -265,3 +265,14 @@ def test_two_million_rows_at_stride_one(dev):
     x = torch.randn(n, 16, device=dev, generator=g)
     go = torch.randn(n, 16, device=dev, generator=g)
     _check(x, go, in_idx)
+
+
+def test_splat_map(dev):
+    """K = 27, 32 -> 48 on MinkowskiSplatFCNN's conv1 map of a splat."""
+    from test_torch_gather_gemm_cuda import splat_conv1_map
+
+    n, kmap = splat_conv1_map(dev)
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(n, 32, device=dev, generator=g)
+    go = torch.randn(n, 48, device=dev, generator=g)
+    _check(x, go, kmap.in_idx)

@@ -230,3 +230,27 @@ def test_two_million_rows_at_stride_one(dev):
     assert _rel(gather_gemm(x, w, in_idx), gather_gemm_reference(x, w, in_idx)) <= 1e-5
     wt = w.transpose(1, 2).contiguous()
     assert _rel(gather_gemm(x, wt, out_idx_t), gather_gemm_reference(x, wt, out_idx_t)) <= 1e-5
+
+
+def splat_conv1_map(dev):
+    """MinkowskiSplatFCNN's conv1 map (k = 3, stride 1) on a splat: 8
+    synthetic shapes x 2048 points at 2.5 cm, each point's 2x2x2 corners."""
+    import minkowskiengine_tpu_torch as MT
+    from minkowskiengine_tpu_torch.utils.datasets import modelnet_batch
+
+    coords, feats, _ = modelnet_batch(8, n_points=2048, seed=0, voxel_size=0.025)
+    st = MT.TensorField(torch.from_numpy(feats).to(dev), torch.from_numpy(coords).to(dev), device=dev).splat()
+    key = st.coordinate_map_key
+    return st.size, st.coordinate_manager.kernel_map(key, key, kernel_size=3)
+
+
+def test_splat_map_forward_and_input_gradient(dev):
+    """K = 27, 32 -> 48 on the splat map: dense little blocks of corners."""
+    n, kmap = splat_conv1_map(dev)
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(n, 32, device=dev, generator=g)
+    w = torch.randn(27, 32, 48, device=dev, generator=g) / (27 * 32) ** 0.5
+    go = torch.randn(n, 48, device=dev, generator=g)
+    assert _rel(gather_gemm(x, w, kmap.in_idx), gather_gemm_reference(x, w, kmap.in_idx)) <= 1e-5
+    wt = w.transpose(1, 2).contiguous()
+    assert _rel(gather_gemm(go, wt, kmap.out_idx_t), gather_gemm_reference(go, wt, kmap.out_idx_t)) <= 1e-5

@@ -135,7 +135,8 @@ def test_strict_load_rejects(setup, fault):
 def test_port_does_not_import_jax():
     code = (
         "import sys, minkowskiengine_tpu_torch, minkowskiengine_tpu_torch.models, "
-        "minkowskiengine_tpu_torch.utils.torch_import; "
+        "minkowskiengine_tpu_torch.utils.torch_import, minkowskiengine_tpu_torch.nn.interpolation, "
+        "minkowskiengine_tpu_torch.nn.broadcast, minkowskiengine_tpu_torch.modules.senet_block; "
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'minkowskiengine_tpu')]; "
         "assert not bad, bad"

@@ -145,10 +145,3 @@ def test_field_arithmetic_and_cat_keep_the_field():
     torch.testing.assert_close(both.F, torch.cat([ttf.F + 1.0, ttf.F * ttf.F], 1))
     assert ttf.shape == (50, 3) and ttf.C.dtype == torch.float32 and ttf.D == 3
 
-
-def test_splat_waits_for_the_interpolation_slice():
-    coords, feats = _points(seed=7, n=20)
-    _, ttf = _fields(coords, feats)
-    for call in (ttf.splat, lambda: ttf.sparse(quantization_mode=Q.SPLAT_LINEAR_INTERPOLATION)):
-        with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-            call()

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where the time of one MinkUNet34 inference request and training step,
-of one MinkowskiFCNN classification batch and training step, and of one
-CompletionNet training step goes on one CUDA card.
+of one MinkowskiFCNN classification batch and training step, of one
+CompletionNet training step and of one MinkowskiSplatFCNN training step
+goes on one CUDA card.
 
 Run from the root of a checkout, with one CUDA card visible:
 
@@ -51,7 +52,15 @@ shapes at 128³, batch of seed 0) in train mode with SGD as in its phase 18:
    outermost call only) and inside the per-level ``keep.any()`` syncs of the
    decoder, then one profiled step, as in 6;
 
-and, last, one JSON line with the numbers of all five.
+Then ``chip_smoke.py``'s ``MinkowskiSplatFCNN`` (the FCNN's widths, voxelized
+by splatting) in train mode as in its phase 23, on the batch of step 8:
+
+10. five steps, one profiled step as in 6, then the splat (corner set,
+    map, weights, the weighted scatter) and an interpolation (of conv1's
+    output at the field's points) alone on that batch, each forward and
+    backward under the profiler: their busy device time beside the step's;
+
+and, last, one JSON line with the numbers of all six.
 """
 
 from __future__ import annotations
@@ -71,8 +80,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import minkowskiengine_tpu_torch as MT  # noqa: E402
 from chip_smoke import (  # noqa: E402
     CLASSES, FCNN_LR, FCNN_MOMENTUM, FCNN_WD, FCNN_WIDTHS, GEN_WIDTHS,
-    answer, bce, classify, collate, completion_input, fcnn_step, gen_batch, gen_sgd,
-    labels_for, scan, shapes, train_step,
+    answer, bce, classify, collate, completion_input, fcnn_step, field, gen_batch, gen_sgd,
+    labels_for, scan, shapes, splat_fcnn, train_step,
 )
 from minkowskiengine_tpu_torch.coords.manager import CoordinateManager  # noqa: E402
 from minkowskiengine_tpu_torch.models import CompletionNet, MinkowskiFCNN, MinkUNet34  # noqa: E402
@@ -186,7 +195,17 @@ def profile_classification(dev):
     infer = device_split(prof, secs)
     report("7 profiled FCNN batch", infer, prof)
 
-    model.train()
+    steps, train = profile_fcnn_steps(model.train(), "8", "FCNN", dev)
+    return (
+        {"points": len(coords), "batch_ms": batch, **{f"profiled_{k}": v for k, v in infer.items()}},
+        {"points": len(coords), "step_ms": steps, **{f"profiled_{k}": v for k, v in train.items()}},
+    )
+
+
+def profile_fcnn_steps(model, tag, name, dev):
+    """Five SGD steps (momentum, as chip_smoke.py's phase 13) on the batch of
+    seed 0 with ``CoordinateTransformation``, after a warm-up, then one
+    profiled step.  Returns (step times in ms, the profiled split)."""
     opt = torch.optim.SGD(
         model.parameters(), lr=FCNN_LR, momentum=FCNN_MOMENTUM, weight_decay=FCNN_WD
     )
@@ -203,15 +222,57 @@ def profile_classification(dev):
 
     step()  # warm-up
     steps = [step() * 1e3 for _ in range(REPEATS)]
-    print(f"[8 FCNN training steps] ms: {', '.join(f'{t:.2f}' for t in steps)}")
+    print(f"[{tag} {name} training steps] ms: {', '.join(f'{t:.2f}' for t in steps)}")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         secs = step()
-    train = device_split(prof, secs)
-    report("8 profiled FCNN step", train, prof)
-    return (
-        {"points": len(coords), "batch_ms": batch, **{f"profiled_{k}": v for k, v in infer.items()}},
-        {"points": len(coords), "step_ms": steps, **{f"profiled_{k}": v for k, v in train.items()}},
+    split = device_split(prof, secs)
+    report(f"{tag} profiled {name} step", split, prof)
+    return steps, split
+
+
+def profiled_busy_ms(fn):
+    """Busy device time of one run of ``fn`` under the profiler."""
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    return device_split(prof, secs)["device_busy_ms"]
+
+
+def profile_splat(dev):
+    """A MinkowskiSplatFCNN training step, then the splat and an
+    interpolation alone on its batch."""
+    model = splat_fcnn(dev, torch.Generator().manual_seed(0)).train()
+    steps, split = profile_fcnn_steps(model, "10", "SplatFCNN", dev)
+    coords, feats, _ = shapes(SEED, CoordinateTransformation())
+    with torch.no_grad():
+        x = model.mlp1(field(coords, feats, dev))
+        y = model.conv1(x.splat())
+
+    def splat():
+        st = x._wrap(x.F.detach().requires_grad_()).splat()
+        st.F.sum().backward()
+        return st.size
+
+    def interpolate():
+        f = y.F.detach().requires_grad_()
+        MT.SparseTensor(f, coordinate_map_key=y.coordinate_map_key,
+                        coordinate_manager=y.coordinate_manager).interpolate(x).sum().backward()
+
+    rows = splat()  # warm-up
+    interpolate()
+    splat_ms, interp_ms = profiled_busy_ms(splat), profiled_busy_ms(interpolate)
+    busy = split["device_busy_ms"]
+    print(
+        f"[10 splat and interpolation alone] {len(coords)} points, {rows} splat rows; splat "
+        f"forward + backward {splat_ms:.3f} ms of device time ({100 * splat_ms / busy:.1f}% of the "
+        f"step's {busy:.3f} ms); interpolation of conv1's output forward + backward "
+        f"{interp_ms:.3f} ms ({100 * interp_ms / busy:.1f}%)"
     )
+    return {"points": len(coords), "splat_rows": rows, "step_ms": steps,
+            "splat_device_ms": splat_ms, "interpolation_device_ms": interp_ms,
+            **{f"profiled_{k}": v for k, v in split.items()}}
 
 
 COORDINATE_CALLS = (
@@ -358,10 +419,11 @@ def main() -> int:
     train = profile_train(dev)
     fcnn_batch, fcnn_train = profile_classification(dev)
     completion = profile_completion(dev)
+    splat = profile_splat(dev)
     print(json.dumps({
         "request": request, "train_step": train,
         "fcnn_batch": fcnn_batch, "fcnn_train_step": fcnn_train,
-        "completion_train_step": completion,
+        "completion_train_step": completion, "splat_fcnn_train_step": splat,
     }))
     return 0
 
