@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port once on one NVIDIA GPU: MinkUNet34 inference
 and training, point-cloud classification with MinkowskiFCNN and a ResNet18
-classifier, shape completion with CompletionNet and a sparse VAE, then
-classification with MinkowskiSplatFCNN and an SE-ResNet18.
+classifier, shape completion with CompletionNet and a sparse VAE,
+classification with MinkowskiSplatFCNN and an SE-ResNet18, then the data
+loader's path from raw room-scan points and the layer extras.
 
 Run from the root of a checkout, with one CUDA card visible:
 
@@ -11,7 +12,9 @@ Run from the root of a checkout, with one CUDA card visible:
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
-   versions; TF32 off, so every comparison below is full float32.
+   versions, the loaded CUDA runtime's version and the card's free memory
+   (the port's ``cudart_version``/``get_gpu_memory_info``); TF32 off, so
+   every comparison below is full float32.
 2. build: compile the CUDA kernels (``minkowskiengine_tpu_torch/csrc``) with
    nvcc for sm_90a and load them; print each instance's ptxas report
    (registers, shared memory, spills).
@@ -134,6 +137,32 @@ Phases, in order; any failure raises and the script exits non-zero:
    seeded: step 0 warms up, steps 1-3 are timed, each with ``conv_dw``
    launches equal to the sparse-conv count.
 
+26. the data loader's path, as reference users write it: two room scans of
+   400,000 raw float points (``make_room_scan`` seeds 0 and 1, the room of
+   phase 5's scans), colors a function of the point, labels
+   ``floor(z / 0.125) mod 20``, voxelized by ``MT.utils.sparse_quantize``
+   at 5 cm with ``ignore_label=-100`` on the native host engine (host time
+   per scan, voxels, share of voxels labelled -100; maps and labels
+   bit-equal to the numpy version), collated and put on the card;
+   ``MinkUNet34(3, 20, D=3)`` (weights from torch.Generator seed 0) takes 4
+   SGD steps (lr 0.01, cross-entropy with ``ignore_index=-100``, labels in
+   the manager's row order), each in a fresh coordinate manager: wall time,
+   voxels/s and points/s, and per step ``gather_gemm`` >= 109 and
+   ``conv_dw`` exactly 55 launches.  Then in eval mode
+   ``MinkowskiFunctional.softmax`` of the batch's logits and a class for
+   each of the 800,000 points through the inverse maps; scan 0's logits
+   against the CPU plain path, as phase 6.
+27. the layer extras on phase 26's batch: (a) ``MinkowskiConvolutionFunction``
+   on the stem's map (k = 5, 3 -> 32) and
+   ``MinkowskiConvolutionTransposeFunction`` on the k = 2, s = 2 map of
+   ``convtr7p2s2``, each bit-equal to the module's output and gradients on
+   the same map and weights, 1 + 1 ``gather_gemm`` and 1 ``conv_dw`` launch
+   each; both maps' kernels against their plain versions; (b)
+   ``MinkowskiChannelwiseConvolution(32, 3, D=3)`` at stride 1 and 2 on the
+   stem's output: forward, input gradient and weight gradient on the card
+   against the CPU, ms per call; (c) ``spmm`` and ``spmm_average`` over the
+   stride-1 -> stride-2 stride map as COO, card against CPU.
+
 Bound of a kernel call: the larger of its useful operations (2 · pairs ·
 Cin · Cout) over the H100's 495 TFLOP/s dense TF32 tensor peak and its
 bytes (each input read once, the output written once) over 3.35 TB/s.  The
@@ -165,11 +194,14 @@ from minkowskiengine_tpu_torch.modules import SEBasicBlock
 from minkowskiengine_tpu_torch.nn.conv import MinkowskiConvolutionBase, _conv_out_key
 from minkowskiengine_tpu_torch.nn.nonlinearity import MinkowskiDropout
 from minkowskiengine_tpu_torch.nn.norm import MinkowskiBatchNorm
+from minkowskiengine_tpu_torch.utils import hostengine
 from minkowskiengine_tpu_torch.utils.collation import sparse_collate
+from minkowskiengine_tpu_torch.utils.quantization import quantize_label_reference
 from minkowskiengine_tpu_torch.utils.datasets import (
     COMPLETION_POINTS,
     CoordinateTransformation,
     completion_batch,
+    make_room_scan,
     modelnet_batch,
     room_scan_voxels,
 )
@@ -224,6 +256,14 @@ PARITY_SEED, PARITY_SHAPES, PARITY_RES = 0, 2, 64
 # splatting and interpolation on the card against the CPU: sums of at most
 # a few dozen weighted rows, whose order CUDA's index_add atomics change
 SPLAT_RTOL = 1e-6
+# phase 26: raw room scans as a data loader gets them, voxelized at 5 cm
+ROOM_POINTS, ROOM_VOXEL, IGNORE = 400_000, 0.05, -100
+# phase 27: channelwise conv and SPMM, card against CPU: sums of at most 27
+# products per row forward; the input gradient's and SPMM's sums run
+# through CUDA's index_add atomics (at most 27 and 8 terms per row, summed
+# in any order, ~1e-7 of max|ref| of rounding each); the weight gradient
+# sums ~51k rows in another order (~1e-7 relative for a pairwise sum)
+EXTRA_RTOL = 1e-6
 KERNELS = {
     "gather_gemm": ("minkowskiengine_tpu_torch/csrc/gather_gemm.cu",
                     "minkowskiengine_tpu/ops/pallas/conv_kernel.py:1105"),
@@ -1505,6 +1545,242 @@ def splat_and_se(dev, launches):
     return splat_bwd
 
 
+def room_points(seed):
+    """A raw room scan: (400,000 x 3 float32 points, colors, labels).  The
+    room of ``scan``; colors a function of the point, as
+    examples/indoor.py makes them (height, sines of x and y, centred at 0);
+    labels the height band ``floor(z / 0.125) mod 20``, so voxels across a
+    band edge get points of two labels."""
+    pts = make_room_scan(n_points=ROOM_POINTS, extent=(2.0, 2.0, 2.2), n_objects=4, seed=seed)
+    colors = np.stack(
+        [pts[:, 2] / 2.5, 0.5 + 0.5 * np.sin(pts[:, 0] * 2.1), 0.5 + 0.5 * np.cos(pts[:, 1] * 1.7)],
+        axis=1,
+    ).astype(np.float32) - 0.5
+    labels = np.floor(pts[:, 2] / 0.125).astype(np.int64) % 20
+    return pts, colors, labels
+
+
+def shim_rows(conv, shim, x, tag, launches):
+    """Phase 27a: ``shim.apply`` against ``conv`` on the same input map and
+    weights, forward and both gradients bit-equal, both runs counted into
+    ``launches``; returns the kernels' rows on that map."""
+    gen = torch.Generator(device=x.device).manual_seed(1)
+    feats = x.F.detach().clone().requires_grad_()
+    conv.kernel.grad = None
+
+    def module_run():
+        y = conv(MT.SparseTensor(feats, coordinate_map_key=x.coordinate_map_key,
+                                 coordinate_manager=x.coordinate_manager))
+        g = torch.randn(y.F.shape, device=x.device, generator=gen)
+        y.F.backward(g)
+        return y, g
+
+    (y, g), n_module = counted(launches, module_run)
+    want = (y.F.detach(), feats.grad.clone(), conv.kernel.grad.clone())
+    feats.grad = None
+    conv.kernel.grad = None
+
+    def shim_run():
+        out = shim.apply(feats, conv.kernel, conv.kernel_generator, MT.ConvolutionMode.DEFAULT,
+                         x.coordinate_map_key, y.coordinate_map_key, x.coordinate_manager)
+        out.backward(g)
+        return out.detach()
+
+    out, n_shim = counted(launches, shim_run)
+    got = (out, feats.grad, conv.kernel.grad)
+    equal = all(torch.equal(a, b) for a, b in zip(got, want))
+    print(f"  {tag}: {shim.__name__} on {x.size} -> {y.size} rows, output, input and weight "
+          f"gradients bit-equal to the module: {equal}; launches module {n_module}, shim {n_shim}")
+    if not equal or n_shim != n_module or n_shim != {"gather_gemm": 2, "conv_dw": 1}:
+        raise AssertionError(f"{tag}: the shim differs from the module")
+    kmap = conv._kernel_map(x, y.coordinate_map_key)
+    row = backward_rows(x.F.detach(), conv.kernel.detach(), g, kmap.in_idx, kmap.out_idx_t, tag)
+    conv.kernel.grad = None
+    return row
+
+
+def card_vs_cpu(tag, fn, card_args, cpu_args):
+    """Phase 27b-c: ``fn`` on the card and on the CPU; each output and
+    gradient within EXTRA_RTOL of max|ref|, and the card's ms per call."""
+    got, want = fn(*card_args), fn(*cpu_args)
+    rels = {k: rel_diff(got[k].cpu(), want[k]) for k in want}
+    with torch.no_grad():
+        ms = cuda_ms(lambda: fn(*card_args, grads=False))
+    print(f"  {tag}: " + ", ".join(f"{k} {v:.2e}" for k, v in rels.items())
+          + f" of max|ref|; {ms:.4f} ms per call on the card")
+    if not all(v <= EXTRA_RTOL for v in rels.values()):
+        raise AssertionError(f"{tag}: the card and the CPU disagree beyond {EXTRA_RTOL}")
+    return ms
+
+
+def data_loader_path(dev, launches):
+    """Phases 26-27: raw room-scan points through ``sparse_quantize`` into
+    MinkUNet34 training and inference, then the layer extras.  Adds the
+    main-path launches to ``launches``; returns the kernel rows of phase
+    27a."""
+    # 26. the data loader's path
+    start = time.perf_counter()
+    if hostengine.load() is None:
+        raise AssertionError("the native host engine did not build or load")
+    print(f"[26 data loader] host engine {hostengine.library_path().name}, built and loaded in "
+          f"{time.perf_counter() - start:.1f} s")
+    scans, quantized = [room_points(s) for s in (0, 1)], []
+    for seed, (pts, colors, labels) in enumerate(scans):
+        t0 = time.perf_counter()
+        q = MT.utils.sparse_quantize(
+            pts, colors, labels, quantization_size=ROOM_VOXEL, ignore_label=IGNORE,
+            return_index=True, return_inverse=True,
+        )
+        secs = time.perf_counter() - t0
+        coords, feats, labs, idx, inv = q
+        t0 = time.perf_counter()
+        discrete = np.floor(pts / np.full(3, ROOM_VOXEL)).astype(np.int32)
+        ref = quantize_label_reference(discrete, labels, IGNORE)
+        ref_secs = time.perf_counter() - t0
+        same = all(np.array_equal(a, b) for a, b in zip((idx, inv, labs), ref))
+        print(f"  scan {seed}: {len(pts)} points -> {len(coords)} voxels in {secs * 1e3:.2f} ms on "
+              f"the host engine (numpy version {ref_secs * 1e3:.2f} ms); {np.mean(labs == IGNORE):.2%} "
+              f"of the voxels labelled {IGNORE}; maps and labels bit-equal to numpy: {same}")
+        if not (same and np.array_equal(coords, discrete[idx]) and np.array_equal(coords[inv], discrete)):
+            raise AssertionError(f"scan {seed}: the host engine's quantization differs from numpy's")
+        quantized.append(q)
+    n_points = sum(len(p) for p, _, _ in scans)
+
+    def batch():
+        """The two scans collated and on the card, in a fresh manager; the
+        labels in the manager's row order."""
+        coords, feats, labels = sparse_collate(
+            [q[0] for q in quantized], [q[1] for q in quantized], [q[2] for q in quantized],
+            device=dev,
+        )
+        x = MT.SparseTensor(feats, coords)
+        return x, labels.long()[x.unique_index]
+
+    net = MinkUNet34(3, 20, D=3, generator=torch.Generator().manual_seed(0), device=dev).train()
+    opt = torch.optim.SGD(net.parameters(), lr=LR)
+    for step in range(TRAIN_STEPS):
+        def one_step():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            x, labels = batch()
+            opt.zero_grad()
+            out = net(x)
+            loss = torch.nn.functional.cross_entropy(out.F, labels, ignore_index=IGNORE)
+            loss.backward()
+            opt.step()
+            torch.cuda.synchronize()
+            return loss.item(), tuple(out.F.shape), x.size, time.perf_counter() - t0
+
+        (loss, shape, n_vox, secs), n = counted(launches, one_step)
+        print(f"[26 train] step {step}: {n_vox} voxels of {n_points} points, {secs * 1e3:.2f} ms, "
+              f"{n_vox / secs:.0f} voxels/s, {n_points / secs:.0f} points/s, loss {loss:.6f}, "
+              f"{n['gather_gemm']} gather_gemm and {n['conv_dw']} conv_dw launches")
+        if n["gather_gemm"] < MIN_LAUNCHES + MIN_DX_LAUNCHES or n["conv_dw"] != MIN_LAUNCHES:
+            raise AssertionError(f"step {step}: {n} launches")
+        if shape != (n_vox, 20) or not np.isfinite(loss):
+            raise AssertionError(f"step {step}: logits {shape}, loss {loss}")
+
+    # the answer: per-voxel class probabilities, then a class per point
+    net.eval()
+
+    def answer_points():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x, _ = batch()
+        with torch.no_grad():
+            probs = MT.MinkowskiFunctional.softmax(net(x), dim=1)
+            voxel_class = probs.F.argmax(1)
+            offset, classes = 0, []
+            for q in quantized:
+                rows = x.inverse_mapping[offset + torch.from_numpy(q[4]).to(dev)]
+                classes.append(voxel_class[rows].cpu())
+                offset += len(q[0])
+        return probs.F, classes, time.perf_counter() - t0
+
+    (probs, classes, secs), n = counted(launches, answer_points)
+    print(f"[26 answer] eval: {len(probs)} voxels, softmax and a class per point for "
+          f"{[len(c) for c in classes]} points in {secs * 1e3:.2f} ms, {n['gather_gemm']} gather_gemm "
+          f"launches; class counts of scan 0: {torch.bincount(classes[0], minlength=20).tolist()}")
+    if [len(c) for c in classes] != [len(p) for p, _, _ in scans] or n["gather_gemm"] < MIN_LAUNCHES:
+        raise AssertionError(f"the answer covers {[len(c) for c in classes]} points, {n} launches")
+    if not (torch.isfinite(probs).all() and (probs.sum(1) - 1).abs().max() < 1e-5):
+        raise AssertionError("the class probabilities are not finite rows that sum to 1")
+    coords0, feats0, _ = sparse_collate([quantized[0][0]], [quantized[0][1]], [quantized[0][2]])
+    with torch.no_grad():
+        card = net(MT.SparseTensor(feats0.to(dev), coords0.to(dev))).F.cpu()
+        cpu_net = MinkUNet34(3, 20, D=3, device="cpu").eval()
+        cpu_net.load_state_dict({k: v.cpu() for k, v in net.state_dict().items()})
+        ref = cpu_net(MT.SparseTensor(feats0, coords0)).F
+    rel = rel_diff(card, ref)
+    print(f"[26 parity] scan 0 eval logits after training, CUDA vs CPU plain path: {rel:.2e}")
+    if not rel <= LOGIT_RTOL:
+        raise AssertionError(f"scan 0 logits disagree: {rel:.3e} > {LOGIT_RTOL}")
+    del cpu_net, card, ref, probs
+
+    # 27. the layer extras on the same batch
+    x, _ = batch()
+    stem = net.conv0p1s1
+    print("[27a Function shims]")
+    stem_row = shim_rows(stem, MT.MinkowskiConvolutionFunction, x, "stem", launches)
+    up = net.convtr7p2s2
+    key2 = x.coordinate_manager.stride(x.coordinate_map_key, 2)
+    n2 = x.coordinate_manager.size(key2)
+    x2 = MT.SparseTensor(
+        torch.randn(n2, up.in_channels, device=dev, generator=torch.Generator(device=dev).manual_seed(2)),
+        coordinate_map_key=key2, coordinate_manager=x.coordinate_manager,
+    )
+    up_row = shim_rows(up, MT.MinkowskiConvolutionTransposeFunction, x2, "convtr7p2s2", launches)
+    with torch.no_grad():
+        y = stem(x)
+    y_cpu = MT.SparseTensor(y.F.cpu(), y.C.cpu(), device="cpu")
+    if not torch.equal(y_cpu.C, y.C.cpu()):
+        raise AssertionError("the CPU manager ordered the stem's rows otherwise")
+
+    print(f"[27b channelwise conv] on the stem's output, {y.size} rows x {y.F.shape[1]}")
+    for stride in (1, 2):
+        cw = MT.MinkowskiChannelwiseConvolution(32, kernel_size=3, stride=stride, bias=True, dimension=3,
+                                                generator=torch.Generator().manual_seed(stride),
+                                                device=dev)
+        cw_cpu = MT.MinkowskiChannelwiseConvolution(32, kernel_size=3, stride=stride, bias=True,
+                                                    dimension=3, device="cpu")
+        cw_cpu.load_state_dict({k: v.cpu() for k, v in cw.state_dict().items()})
+
+        def channelwise(module, t, g, grads=True):
+            feats = t.F.detach().clone().requires_grad_(grads)
+            out = module(MT.SparseTensor(feats, coordinate_map_key=t.coordinate_map_key,
+                                         coordinate_manager=t.coordinate_manager))
+            if not grads:
+                return out.F
+            module.zero_grad(set_to_none=True)
+            out.F.backward(g[: out.F.shape[0]])
+            return {"forward": out.F.detach(), "input gradient": feats.grad,
+                    "weight gradient": module.kernel.grad, "bias gradient": module.bias.grad}
+
+        g = torch.randn(y.size, 32, generator=torch.Generator().manual_seed(3))
+        card_vs_cpu(f"stride {stride}", channelwise, (cw, y, g.to(dev)), (cw_cpu, y_cpu, g))
+
+    print("[27c spmm] the stride-1 -> stride-2 stride map as COO")
+    mgr = x.coordinate_manager
+    key2 = mgr.stride(y.coordinate_map_key, 2)
+    rows = mgr.stride_map(y.coordinate_map_key, key2)
+    size = (mgr.size(key2), y.size)
+    vals = torch.rand(y.size, generator=torch.Generator().manual_seed(4))
+
+    def products(r, v, mat, grads=True):
+        cols = torch.arange(len(r), device=r.device)
+        out = MT.spmm(r, cols, v, size, mat)
+        if not grads:
+            return out
+        avg, count = MT.spmm_average(r, cols, size, mat)
+        if not torch.equal(count.cpu(), torch.bincount(r.long().cpu(), minlength=size[0])):
+            raise AssertionError("spmm_average's row counts are not the stride map's")
+        return {"spmm": out, "spmm_average": avg}
+
+    card_vs_cpu(f"{size[1]} -> {size[0]} rows", products, (rows, vals.to(dev), y.F), (rows.cpu(), vals, y_cpu.F))
+    print(f"[26-27] {time.perf_counter() - start:.1f} s")
+    return [stem_row, up_row]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -1521,6 +1797,11 @@ def main() -> int:
         f"[1 device] {torch.cuda.get_device_name(0)}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, capability {torch.cuda.get_device_capability(0)}"
     )
+    cudart = MT.cudart_version()
+    free, total = MT.get_gpu_memory_info()
+    if not (cudart > 0 and 0 < free <= total):
+        raise AssertionError(f"diagnostics: cudart_version {cudart}, memory free {free} of {total}")
+    print(f"[1 device] cudart {cudart}, memory free {free:,} of {total:,} bytes")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -1537,8 +1818,9 @@ def main() -> int:
     rows, real, synth_bwd, real_bwd, fcnn_bwd = segmentation_and_classification(dev, launches)
     gen_rows, completion_bwd, vae_bwd = generative(dev, launches)
     splat_bwd = splat_and_se(dev, launches)
+    shim_bwd = data_loader_path(dev, launches)
 
-    bwd = synth_bwd + real_bwd + fcnn_bwd + gen_rows + completion_bwd + vae_bwd + splat_bwd
+    bwd = synth_bwd + real_bwd + fcnn_bwd + gen_rows + completion_bwd + vae_bwd + splat_bwd + shim_bwd
     errors = {
         "gather_gemm": [r["max_abs_err"] for r in rows + real]
         + [r[p]["max_abs_err"] for r in bwd for p in ("fwd", "dx") if p in r],

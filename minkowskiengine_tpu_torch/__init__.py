@@ -1,21 +1,32 @@
 """minkowskiengine_tpu_torch: the PyTorch/CUDA port of minkowskiengine_tpu.
 
-Sparse tensors, tensor fields, the coordinate engine, batch collation,
-pooling, pruning, union, broadcast, interpolation and splatting, and the
-MinkUNet, ResNet, point-cloud classification and generative (CompletionNet,
-VAE) models on PyTorch, for inference and training.  The sparse
-convolution runs on two hand-written Hopper kernels: the gather-GEMM for the forward and the input
-gradient (``kernels/gather_gemm.py``, ``csrc/gather_gemm.cu``) and the
-weight gradient (``kernels/conv_dw.py``, ``csrc/conv_dw.cu``).  State goes
-on the CUDA card unless the caller passes ``device="cpu"``.  Imports torch
-and numpy only.
+Sparse tensors, tensor fields, the coordinate engine, the data loader's
+quantization (a native host engine, ``csrc/hostengine.cpp``) and batch
+collation; convolution (with channelwise convolution and the Function
+shims), pooling, normalization, the nonlinearities and
+``MinkowskiFunctional``, pruning, union, broadcast, interpolation and
+splatting, SPMM; the MinkUNet, ResNet, point-cloud classification and
+generative (CompletionNet, VAE) models, for inference and training.  The
+sparse convolution runs on two hand-written Hopper kernels: the gather-GEMM
+for the forward and the input gradient (``kernels/gather_gemm.py``,
+``csrc/gather_gemm.cu``) and the weight gradient (``kernels/conv_dw.py``,
+``csrc/conv_dw.cu``).  State goes on the CUDA card unless the caller passes
+``device="cpu"``.  Imports torch and numpy only.
 """
 
 from .coords.kernel_map import KernelMap
-from .coords.manager import CoordinateManager, CoordinateMapKey
-from .kernel_generator import KernelGenerator, KernelRegion
+from .coords.manager import (
+    CoordinateManager,
+    CoordinateMapKey,
+    set_coordinate_map_type,
+    set_gpu_allocator,
+    set_memory_manager_backend,
+)
+from .coords.map import CoordinateMap
+from .kernel_generator import KernelGenerator, KernelRegion, convert_region_type, get_kernel_volume
 from . import nn
 from .nn import *  # noqa: F401,F403 (the reference exports every layer at the top level)
+from .nn import functional as MinkowskiFunctional
 from .nn.ops import _sum
 from .nn.ops import _sum as sum  # noqa: A001 (the reference's name)
 from .sparse_tensor import SparseTensor
@@ -30,20 +41,52 @@ from .tensor import (
 from .types import (
     BroadcastMode,
     ConvolutionMode,
+    CoordinateMapType,
+    CUDAKernelMapMode,
+    GPUMemoryAllocatorType,
+    MinkowskiAlgorithm,
     PoolingMode,
     RegionType,
     SparseTensorOperationMode,
     SparseTensorQuantizationMode,
+    convert_to_int_list,
+    convert_to_int_tensor,
 )
+from .sparse_matrix_functions import (
+    MinkowskiSPMMAverageFunction,
+    MinkowskiSPMMFunction,
+    spmm,
+    spmm_average,
+)
+from .diagnostics import (
+    cuda_version,
+    cudart_version,
+    get_gpu_memory_info,
+    is_cuda_available,
+    print_diagnostics,
+)
+from . import utils
+from . import models
+
+CoordsManager = CoordinateManager  # the reference keeps the v0.4 name
 
 __all__ = nn.__all__ + [
     "BroadcastMode",
+    "CUDAKernelMapMode",
     "ConvolutionMode",
     "CoordinateManager",
+    "CoordinateMap",
     "CoordinateMapKey",
+    "CoordinateMapType",
+    "CoordsManager",
+    "GPUMemoryAllocatorType",
     "KernelGenerator",
     "KernelMap",
     "KernelRegion",
+    "MinkowskiAlgorithm",
+    "MinkowskiFunctional",
+    "MinkowskiSPMMAverageFunction",
+    "MinkowskiSPMMFunction",
     "PoolingMode",
     "RegionType",
     "SparseTensor",
@@ -52,9 +95,25 @@ __all__ = nn.__all__ + [
     "TensorField",
     "_sum",
     "clear_global_coordinate_manager",
+    "convert_region_type",
+    "convert_to_int_list",
+    "convert_to_int_tensor",
+    "cuda_version",
+    "cudart_version",
+    "get_gpu_memory_info",
+    "get_kernel_volume",
     "global_coordinate_manager",
+    "is_cuda_available",
+    "models",
+    "print_diagnostics",
+    "set_coordinate_map_type",
     "set_global_coordinate_manager",
+    "set_gpu_allocator",
+    "set_memory_manager_backend",
     "set_sparse_tensor_operation_mode",
     "sparse_tensor_operation_mode",
+    "spmm",
+    "spmm_average",
     "sum",
+    "utils",
 ]

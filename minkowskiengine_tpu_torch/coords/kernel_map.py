@@ -47,6 +47,17 @@ class KernelMap:
         """The transposed map (out↔in roles flipped)."""
         return KernelMap(self.out_idx_t, self.in_idx, self.n_out, self.n_in)
 
+    def to_pair_lists(self):
+        """``{k: (in_rows, out_rows)}`` int64 numpy on the host, for each
+        offset k with at least one pair (reference ``kernel_map_th``)."""
+        in_idx = self.in_idx.cpu().numpy()
+        out = {}
+        for k in range(in_idx.shape[0]):
+            o = np.nonzero(in_idx[k] >= 0)[0]
+            if o.size:
+                out[k] = (in_idx[k][o].astype(np.int64), o.astype(np.int64))
+        return out
+
 
 def _build_queries(out_coords: torch.Tensor, offsets: torch.Tensor):
     """Probe keys (K, N_out) and their overflow mask."""

@@ -36,9 +36,11 @@ class CoordinateMapKey:
 
     def __init__(self, tensor_stride_or_dim, string_id: str = ""):
         if isinstance(tensor_stride_or_dim, int):
+            self._dimension = tensor_stride_or_dim
             self._key = None
         else:
             self.set_key(tensor_stride_or_dim, string_id)
+            self._dimension = len(self._key[0])
 
     def is_key_set(self) -> bool:
         return self._key is not None
@@ -50,6 +52,10 @@ class CoordinateMapKey:
         if self._key is None:
             raise RuntimeError("CoordinateMapKey is not set")
         return self._key
+
+    def get_coordinate_size(self) -> int:
+        """Columns of the map's coordinates: the batch index and D."""
+        return self._dimension + 1
 
     def get_tensor_stride(self) -> Tuple[int, ...]:
         return self.get_key()[0]
@@ -66,6 +72,20 @@ class CoordinateMapKey:
 
     def __repr__(self):
         return f"CoordinateMapKey({self._key})"
+
+
+def set_gpu_allocator(backend) -> None:
+    """API-parity no-op (reference: MinkowskiCoordinateManager.py:46-72):
+    PyTorch's caching allocator holds every tensor of the port."""
+
+
+def set_memory_manager_backend(backend) -> None:
+    """API-parity no-op (alias of ``set_gpu_allocator``)."""
+
+
+def set_coordinate_map_type(map_type) -> None:
+    """API-parity no-op (reference: MinkowskiCoordinateManager.py:75-97): one
+    coordinate engine serves the CPU and the card."""
 
 
 def region_offsets_for(
@@ -166,8 +186,28 @@ class CoordinateManager:
             raise KeyError(f"Coordinate field map {k} not found in manager")
         return self._field_maps[k]
 
+    def exists(self, key: CoordinateMapKey) -> bool:
+        return key.is_key_set() and key.get_key() in self._maps
+
     def size(self, key: CoordinateMapKey) -> int:
         return self._get_map(key).size
+
+    def get_coordinate_map(self, key: CoordinateMapKey) -> CoordinateMap:
+        return self._get_map(key)
+
+    def get_keys(self):
+        """The ``(tensor_stride, string_id)`` of every coordinate map, in
+        insertion order."""
+        return list(self._maps.keys())
+
+    def clear(self):
+        """Drop every map, kernel map and row map this manager holds."""
+        self._maps.clear()
+        self._field_maps.clear()
+        self._kernel_maps.clear()
+        self._stride_maps.clear()
+        self._origin_keys.clear()
+        self._field_to_sparse.clear()
 
     def get_coordinates(self, key: CoordinateMapKey) -> torch.Tensor:
         return self._get_map(key).coordinates
@@ -458,6 +498,65 @@ class CoordinateManager:
             bool(is_pool),
             off_key,
         )
+
+    def has_kernel_map(
+        self,
+        in_key: CoordinateMapKey,
+        out_key: CoordinateMapKey,
+        stride=1,
+        kernel_size=3,
+        dilation=1,
+        region_type: RegionType = RegionType.HYPER_CUBE,
+        region_offsets: Optional[np.ndarray] = None,
+        is_transpose: bool = False,
+        is_pool: bool = False,
+    ) -> bool:
+        """Whether this kernel map is cached (nothing is built)."""
+        return self.peek_kernel_map(
+            in_key, out_key, stride, kernel_size, dilation,
+            region_type, region_offsets, is_transpose, is_pool,
+        ) is not None
+
+    def peek_kernel_map(
+        self,
+        in_key: CoordinateMapKey,
+        out_key: CoordinateMapKey,
+        stride=1,
+        kernel_size=3,
+        dilation=1,
+        region_type: RegionType = RegionType.HYPER_CUBE,
+        region_offsets: Optional[np.ndarray] = None,
+        is_transpose: bool = False,
+        is_pool: bool = False,
+    ) -> Optional[KernelMap]:
+        """The cached kernel map, or None (never builds)."""
+        return self._kernel_maps.get(self._kernel_map_cache_key(
+            in_key, out_key, stride, kernel_size, dilation,
+            region_type, region_offsets, is_transpose, is_pool,
+        ))
+
+    def kernel_map_dict(
+        self,
+        in_key: CoordinateMapKey,
+        out_key: CoordinateMapKey,
+        stride=1,
+        kernel_size=3,
+        dilation=1,
+        region_type: RegionType = RegionType.HYPER_CUBE,
+        region_offsets: Optional[np.ndarray] = None,
+        is_transpose: bool = False,
+        is_pool: bool = False,
+    ):
+        """The kernel map as ``{offset: (in_rows, out_rows)}`` (int64 numpy;
+        offsets without a pair are left out), the reference's
+        ``kernel_map_th`` format (src/coordinate_map_manager.cpp:1358).
+        Always keyed by kernel offsets: a pooling request is built as the
+        per-offset map, not as the stride-map fast path, whose rows are
+        collision slots."""
+        return self.kernel_map(
+            in_key, out_key, stride, kernel_size, dilation,
+            region_type, region_offsets, is_transpose, is_pool=False,
+        ).to_pair_lists()
 
     def kernel_map(
         self,

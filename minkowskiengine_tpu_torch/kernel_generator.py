@@ -138,6 +138,45 @@ def get_kernel_volume(region_type, kernel_size, region_offset, axis_types, dimen
     raise NotImplementedError(f"region_type {region_type}")
 
 
+def convert_region_type(
+    region_type,
+    tensor_stride,
+    kernel_size,
+    up_stride,
+    dilation,
+    region_offset,
+    axis_types,
+    dimension,
+    center: bool = True,
+):
+    """Resolve a region spec to ``(region_type, offsets, volume)``
+    (reference: MinkowskiKernelGenerator.py:105-242).  HYBRID specs expand
+    to CUSTOM offsets scaled by ``dilation * tensor_stride / up_stride``;
+    CUSTOM passes its offsets through; the others return their volume and
+    the given offsets (empty when none).  Offsets are (volume, D) int32 numpy."""
+    region_type = RegionType(region_type)
+    tensor_stride = as_tuple(tensor_stride, dimension)
+    kernel_size = as_tuple(kernel_size, dimension)
+    up_stride = as_tuple(up_stride, dimension)
+    dilation = as_tuple(dilation, dimension)
+    scale_stride = tuple(ts // us for ts, us in zip(tensor_stride, up_stride))
+
+    if region_type == RegionType.HYBRID or axis_types is not None:
+        if region_offset is not None and np.size(region_offset) > 0:
+            raise ValueError("Region offset must be empty for HYBRID")
+        offsets = hybrid_offsets(kernel_size, dilation, scale_stride, tuple(axis_types))
+        return RegionType.CUSTOM, offsets, int(offsets.shape[0])
+    if region_type == RegionType.CUSTOM:
+        ro = np.asarray(region_offset, dtype=np.int32)
+        if ro.size == 0:
+            raise ValueError("region_offset must be non-empty for CUSTOM")
+        return RegionType.CUSTOM, ro, int(ro.shape[0])
+    volume = get_kernel_volume(region_type, kernel_size, None, None, dimension)
+    if region_offset is None or np.size(region_offset) == 0:
+        region_offset = np.zeros((0, dimension), dtype=np.int32)
+    return region_type, np.asarray(region_offset, np.int32), volume
+
+
 class KernelRegion:
     """A fully resolved kernel region for one tensor stride."""
 

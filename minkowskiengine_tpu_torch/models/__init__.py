@@ -25,11 +25,15 @@ from .minkunet import (
 from .resnet import ResNet14, ResNet18, ResNet34, ResNet50, ResNet101, ResNetBase
 from .vae import VAE, Decoder, Encoder
 
+VAEDecoder, VAEEncoder = Decoder, Encoder  # the JAX package's names
+
 __all__ = [
     "CompletionNet",
     "Decoder",
     "Encoder",
     "VAE",
+    "VAEDecoder",
+    "VAEEncoder",
     "GlobalMaxAvgPool",
     "MinkowskiFCNN",
     "MinkowskiPointNet",

@@ -1,10 +1,13 @@
 """Convolution modules.
 
 Counterpart of ``minkowskiengine_tpu/nn/conv.py`` (reference:
-MinkowskiEngine/MinkowskiConvolution.py:204-634).  The coordinate work
-(output map, kernel map) runs in the cached manager; the feature work is
-``ops.functional.sparse_conv_kmap``, or a plain product for stride-1
-volume-1 kernels.  The JAX package's dense-grid dispatch is TPU-only and
+MinkowskiEngine/MinkowskiConvolution.py:204-634 and
+MinkowskiChannelwiseConvolution.py).  The coordinate work (output map,
+kernel map) runs in the cached manager; the feature work is
+``ops.functional.sparse_conv_kmap``, a plain product for stride-1 volume-1
+kernels, or ``ops.functional.channelwise_conv`` for the depthwise conv.
+The ``.apply`` shims of the reference's autograd Functions build the same
+kernel map as the modules and run the same ``sparse_conv_kmap``.  The JAX package's dense-grid dispatch is TPU-only and
 is not carried over.
 """
 
@@ -71,6 +74,18 @@ def _conv_out_key(
     region = kernel_generator.get_kernel(in_ts, True)
     return manager.stride_region(
         in_key, region, out_ts, expand_coordinates=expand_coordinates, is_transpose=True
+    )
+
+
+def _kernel_map_between(kernel_generator, in_key, out_key, manager, is_transpose):
+    """The kernel map a conv module builds between the two maps."""
+    kg = kernel_generator
+    region = kg.get_kernel(in_key.get_tensor_stride(), is_transpose)
+    custom = region.offsets if region.region_type == RegionType.CUSTOM else None
+    return manager.kernel_map(
+        in_key, out_key, stride=kg.kernel_stride, kernel_size=kg.kernel_size,
+        dilation=kg.kernel_dilation, region_type=region.region_type,
+        region_offsets=custom, is_transpose=is_transpose, is_pool=False,
     )
 
 
@@ -142,19 +157,9 @@ class MinkowskiConvolutionBase(nn.Module):
         self.bias = uniform((1, self.out_channels)) if bias else None
 
     def _kernel_map(self, input: SparseTensor, out_key: CoordinateMapKey):
-        kg = self.kernel_generator
-        region = kg.get_kernel(input.coordinate_map_key.get_tensor_stride(), self.is_transpose)
-        custom = region.offsets if region.region_type == RegionType.CUSTOM else None
-        return input.coordinate_manager.kernel_map(
-            input.coordinate_map_key,
-            out_key,
-            stride=kg.kernel_stride,
-            kernel_size=kg.kernel_size,
-            dilation=kg.kernel_dilation,
-            region_type=region.region_type,
-            region_offsets=custom,
-            is_transpose=self.is_transpose,
-            is_pool=False,
+        return _kernel_map_between(
+            self.kernel_generator, input.coordinate_map_key, out_key,
+            input.coordinate_manager, self.is_transpose,
         )
 
     def forward(
@@ -282,4 +287,106 @@ class MinkowskiGenerativeConvolutionTranspose(MinkowskiConvolutionBase):
             in_channels, out_channels, kernel_size, stride, dilation, bias,
             kernel_generator, is_transpose=True, expand_coordinates=True,
             dimension=dimension, generator=generator, device=device,
+        )
+
+
+class MinkowskiConvolutionFunction:
+    """The reference's autograd Function (MinkowskiConvolution.py:42-121)
+    for code that calls ``.apply`` directly: ``apply(input_features,
+    kernel_weights (K, Cin, Cout), kernel_generator, convolution_mode,
+    in_coordinate_map_key, out_coordinate_map_key, coordinate_manager)``
+    returns the output features.  ``convolution_mode`` selects nothing."""
+
+    _is_transpose = False
+
+    @classmethod
+    def apply(
+        cls,
+        input_features,
+        kernel_weights,
+        kernel_generator: KernelGenerator,
+        convolution_mode,
+        in_coordinate_map_key: CoordinateMapKey,
+        out_coordinate_map_key: CoordinateMapKey,
+        coordinate_manager: CoordinateManager,
+    ):
+        kmap = _kernel_map_between(
+            kernel_generator, in_coordinate_map_key, out_coordinate_map_key,
+            coordinate_manager, is_transpose=cls._is_transpose,
+        )
+        return F.sparse_conv_kmap(input_features.contiguous(), kernel_weights.contiguous(), kmap)
+
+
+class MinkowskiConvolutionTransposeFunction(MinkowskiConvolutionFunction):
+    """Transposed counterpart (reference: MinkowskiConvolution.py:124-201)."""
+
+    _is_transpose = True
+
+
+class MinkowskiChannelwiseConvolution(nn.Module):
+    """Depthwise sparse convolution: each channel has its own (K,) filter
+    (reference: MinkowskiChannelwiseConvolution.py:47-215).
+
+    Parameters: ``kernel`` (K, C) and an optional ``bias`` (1, C), drawn
+    from U(±1/√(C·K)) with ``generator`` on the CPU, kernel first, then
+    moved to ``device`` (default: the CUDA card).  The output map is the
+    input's strided map, or the given ``coordinates``, as for the conv."""
+
+    def __init__(
+        self,
+        in_channels: int,
+        kernel_size=-1,
+        stride=1,
+        dilation=1,
+        bias: bool = False,
+        kernel_generator: Optional[KernelGenerator] = None,
+        dimension: int = -1,
+        generator: Optional[torch.Generator] = None,
+        device=None,
+    ):
+        super().__init__()
+        if dimension <= 0:
+            raise ValueError(f"Invalid dimension {dimension}")
+        if kernel_generator is None:
+            kernel_generator = KernelGenerator(
+                kernel_size=kernel_size, stride=stride, dilation=dilation, dimension=dimension,
+            )
+        self.in_channels = self.out_channels = int(in_channels)
+        self.kernel_generator = kernel_generator
+        self.dimension = int(dimension)
+        stdv = 1.0 / math.sqrt(self.in_channels * kernel_generator.kernel_volume)
+        dev = resolve_device(device)
+
+        def uniform(shape):
+            t = torch.empty(shape, dtype=torch.float32)
+            return nn.Parameter(t.uniform_(-stdv, stdv, generator=generator).to(dev))
+
+        self.kernel = uniform((kernel_generator.kernel_volume, self.in_channels))
+        self.bias = uniform((1, self.in_channels)) if bias else None
+
+    def forward(
+        self,
+        input: SparseTensor,
+        coordinates: Union[None, torch.Tensor, CoordinateMapKey, SparseTensor] = None,
+    ) -> SparseTensor:
+        if input.F.shape[1] != self.in_channels:
+            raise ValueError(f"input channels {input.F.shape[1]} != {self.in_channels}")
+        kg = self.kernel_generator
+        manager = input.coordinate_manager
+        out_key = _resolve_out_key(
+            input, coordinates, _expected_out_ts(input.coordinate_map_key, kg, False)
+        )
+        if out_key is None:
+            out_key = manager.stride(input.coordinate_map_key, kg.kernel_stride)
+        kmap = _kernel_map_between(kg, input.coordinate_map_key, out_key, manager, is_transpose=False)
+        outfeat = F.channelwise_conv(input.F, self.kernel, kmap.in_idx)
+        if self.bias is not None:
+            outfeat = outfeat + self.bias
+        return SparseTensor(outfeat, coordinate_map_key=out_key, coordinate_manager=manager)
+
+    def extra_repr(self):
+        kg = self.kernel_generator
+        return (
+            f"in={self.in_channels}, kernel_size={kg.kernel_size}, "
+            f"stride={kg.kernel_stride}, dilation={kg.kernel_dilation}"
         )

@@ -14,6 +14,10 @@ SparseTensor or a TensorField.
 biased variance over the item's rows (its origin-map segment), then
 ``weight`` and ``bias`` of shape (1, C) under the reference's names
 (MinkowskiNormalization.py:361-399).
+
+``MinkowskiInstanceNormFunction``: the reference's autograd Function
+(MinkowskiNormalization.py:194-310) as an ``.apply`` shim, the same global
+pooling and broadcast written in torch ops; autograd gives its backward.
 """
 
 from __future__ import annotations
@@ -49,6 +53,29 @@ class MinkowskiBatchNorm(nn.Module):
         return input._wrap(self.bn(input.F))
 
 
+def _instance_normalize(feats, origin_rows, num, eps):
+    mean = F.segment_mean(feats, origin_rows, num)
+    centered = feats - F.take_rows(mean, origin_rows)
+    var = F.segment_mean(centered * centered, origin_rows, num)
+    return centered * F.take_rows(torch.rsqrt(var + eps), origin_rows)
+
+
+class MinkowskiInstanceNormFunction:
+    """``apply(in_feat, in_coords_key, glob_coords_key=None,
+    coords_manager=None, gpooling_mode=None)``: each batch item's rows
+    centred on their mean and scaled by 1/√(biased variance + 1e-8), as
+    JAX's shim computes it; an unset ``glob_coords_key`` is set to the
+    origin map's key."""
+
+    @staticmethod
+    def apply(in_feat, in_coords_key, glob_coords_key=None, coords_manager=None, gpooling_mode=None):
+        origin_key, origin_rows = coords_manager.origin_map(in_coords_key)
+        if glob_coords_key is not None and not glob_coords_key.is_key_set():
+            glob_coords_key.set_key(*origin_key.get_key())
+        out = _instance_normalize(in_feat, origin_rows, coords_manager.size(origin_key), 1e-8)
+        return torch.where((origin_rows >= 0)[:, None], out, 0.0)
+
+
 class MinkowskiInstanceNorm(nn.Module):
     def __init__(self, num_features: int, device=None):
         super().__init__()
@@ -61,12 +88,7 @@ class MinkowskiInstanceNorm(nn.Module):
     def forward(self, input):
         manager = input.coordinate_manager
         origin_key, origin_rows = manager.origin_map(input.coordinate_map_key)
-        num = manager.size(origin_key)
-        feats = input.F
-        mean = F.segment_mean(feats, origin_rows, num)
-        centered = feats - F.take_rows(mean, origin_rows)
-        var = F.segment_mean(centered * centered, origin_rows, num)
-        out = centered * F.take_rows(torch.rsqrt(var + self.eps), origin_rows)
+        out = _instance_normalize(input.F, origin_rows, manager.size(origin_key), self.eps)
         return input._wrap(out * self.weight + self.bias)
 
     def extra_repr(self):

@@ -1,11 +1,11 @@
 """Feature-phase primitives: row gathers, segment reductions, pooling,
-pruning, union, broadcast, interpolation, splatting and the sparse
-convolution.
+pruning, union, broadcast, interpolation, splatting, the channelwise and the
+sparse convolution.
 
 Counterpart of ``minkowskiengine_tpu/ops/functional.py``.  Rows are
 exact-size; index -1 means "no pair" and gathers a zero row.  The segment
-reductions, pooling, broadcast, interpolation and splatting are XLA ops in
-the JAX package and plain torch here (``index_add``, ``scatter_reduce``);
+reductions, pooling, broadcast, interpolation, splatting and the channelwise
+convolution are XLA ops in the JAX package and plain torch here (``index_add``, ``scatter_reduce``);
 only the sparse convolution runs on hand-written kernels.
 """
 
@@ -64,6 +64,22 @@ def segment_max(feats: torch.Tensor, seg_ids: torch.Tensor, num_segments: int) -
     out = feats.new_full((num_segments + 1,) + tuple(feats.shape[1:]), -torch.inf)
     out = out.scatter_reduce(0, ids, feats, "amax", include_self=False)[:num_segments]
     return torch.where(torch.isneginf(out), 0.0, out)
+
+
+def channelwise_conv(feats: torch.Tensor, kernel: torch.Tensor, in_idx: torch.Tensor) -> torch.Tensor:
+    """Depthwise convolution ``out[o] = Σ_k feats[in_idx[k, o]] * kernel[k]``;
+    kernel (K, ch), a slot -1 adds nothing (reference:
+    MinkowskiChannelwiseConvolution.py:142-191).  One gather and one
+    multiply-add per offset into an (N_out, ch) sum, as JAX's scan runs it;
+    the zero row and the safe indices are made once for all offsets, so an
+    offset costs two launches.  Autograd gives the backward."""
+    n = feats.shape[0]
+    padded = torch.cat([feats, feats.new_zeros((1, feats.shape[1]))])
+    safe = torch.where((in_idx >= 0) & (in_idx < n), in_idx, n).long()
+    acc = feats.new_zeros((in_idx.shape[1], feats.shape[1]))
+    for idx_k, w_k in zip(safe, kernel):
+        acc = acc.addcmul_(padded.index_select(0, idx_k), w_k[None, :])
+    return acc
 
 
 # ---------------------------------------------------------------------------

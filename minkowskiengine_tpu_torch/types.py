@@ -1,9 +1,11 @@
 """Core enums and helpers of the PyTorch port.
 
-Counterpart of ``minkowskiengine_tpu/types.py``; only the enums that the
-sparse-convolution, pooling and broadcast paths read are carried over.  Also the
-port's device rule: state goes on the card unless the caller asks for the
-CPU.
+Counterpart of ``minkowskiengine_tpu/types.py``.  The reference's memory and
+backend enums (``MinkowskiAlgorithm``, ``GPUMemoryAllocatorType``,
+``CUDAKernelMapMode``, ``CoordinateMapType``) are kept for API parity and
+select nothing: the port has one coordinate engine, which runs on the
+tensors' device.  Also the port's device rule: state goes on the card unless
+the caller asks for the CPU.
 """
 
 from __future__ import annotations
@@ -21,6 +23,14 @@ class RegionType(enum.IntEnum):
     HYPER_CROSS = 1
     CUSTOM = 2
     HYBRID = 3  # Python-level only; expanded to CUSTOM at region build time
+
+
+class MinkowskiAlgorithm(enum.IntEnum):
+    """Strategy hint (reference: src/types.hpp:124-130); no effect here."""
+
+    DEFAULT = 0
+    MEMORY_EFFICIENT = 1
+    SPEED_OPTIMIZED = 2
 
 
 class ConvolutionMode(enum.IntEnum):
@@ -57,6 +67,29 @@ class BroadcastMode(enum.IntEnum):
     ELEMENTWISE_MULTIPLICATION = 1
 
 
+class GPUMemoryAllocatorType(enum.IntEnum):
+    """Allocator selector (reference: src/types.hpp:116-119); PyTorch's
+    caching allocator serves every tensor here."""
+
+    PYTORCH = 0
+    CUDA = 1
+
+
+class CUDAKernelMapMode(enum.IntEnum):
+    """Kernel-map memory mode (reference: src/types.hpp:121-123); the port's
+    kernel maps are always the dense per-offset matchings."""
+
+    MEMORY_EFFICIENT = 0
+    SPEED_OPTIMIZED = 1
+
+
+class CoordinateMapType(enum.IntEnum):
+    """Backend selector (reference: CPU/CUDA); one engine serves both."""
+
+    CPU = 0
+    CUDA = 1
+
+
 class SparseTensorOperationMode(enum.IntEnum):
     """Coordinate-manager sharing modes (reference: MinkowskiTensor.py:33-70)."""
 
@@ -76,6 +109,18 @@ class SparseTensorQuantizationMode(enum.IntEnum):
 
 
 StrideLike = Union[int, Sequence[int]]
+
+
+def convert_to_int_list(value: StrideLike, dimension: int):
+    """Int-or-sequence → length-D list of ints (reference:
+    MinkowskiCommon.py:39-55)."""
+    return list(as_tuple(value, dimension))
+
+
+def convert_to_int_tensor(value: StrideLike, dimension: int) -> torch.Tensor:
+    """Int-or-sequence → length-D ``torch.IntTensor`` (reference:
+    MinkowskiCommon.py:57-74; the JAX package returns numpy)."""
+    return torch.tensor(as_tuple(value, dimension), dtype=torch.int32)
 
 
 def as_tuple(value: StrideLike, dimension: int) -> Tuple[int, ...]:

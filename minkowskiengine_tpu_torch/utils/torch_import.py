@@ -10,12 +10,20 @@ exports its weights.  ``MinkowskiLinear`` wraps ``torch.nn.Linear``, so
 ``linear.weight`` is (out, in) on both sides; an instance norm's
 ``weight`` and ``bias`` are (1, C) on both.  The one layout that differs is
 a convolution bias (CompletionNet's and the VAE's classifier heads): the
-reference stores (C,), the port (1, C); this module converts it.
+reference stores (C,), the port (1, C); this module converts it.  The
+layers added later name theirs as the JAX package does: a channelwise
+convolution's ``kernel`` (K, C) and ``bias`` (1, C), PReLU's ``weight``,
+Sinusoidal's ``kernel`` (in, out), and the adaptive log-softmax's
+``head.weight`` and ``tail.{i}.{0,1}.weight`` as ``torch.nn``'s.
+
+``reference_named_params``, ``export_reference_state_dict`` and
+``load_reference_state_dict`` carry the JAX package's names;
+``load_state_dict_from_reference`` is the strict load alone.
 """
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Dict, Mapping
 
 import numpy as np
 import torch
@@ -23,37 +31,68 @@ from torch import nn
 
 from ..nn.conv import MinkowskiConvolutionBase
 
-__all__ = ["load_state_dict_from_reference"]
+__all__ = [
+    "export_reference_state_dict",
+    "load_reference_state_dict",
+    "load_state_dict_from_reference",
+    "reference_named_params",
+]
 
 
-def load_state_dict_from_reference(model: nn.Module, state_dict: Mapping) -> None:
-    """Copy a reference-format state dict (numpy arrays or tensors) into
-    ``model`` in place.
-
-    Strict: raises KeyError on unknown or missing keys and ValueError on a
-    shape that does not match.
-    """
-    own = model.state_dict()
-    unknown = sorted(k for k in state_dict if k not in own)
-    if unknown:
-        raise KeyError(f"{len(unknown)} keys match no parameter in the model: {unknown[:5]}")
-    missing = sorted(k for k in own if k not in state_dict)
-    if missing:
-        raise KeyError(f"checkpoint missing {len(missing)} keys: {missing[:5]}")
-    conv_biases = {
-        f"{name}.bias"
+def _conv_biases(model: nn.Module):
+    return {
+        f"{name}.bias" if name else "bias"
         for name, m in model.named_modules()
         if isinstance(m, MinkowskiConvolutionBase) and m.bias is not None
     }
+
+
+def reference_named_params(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """Every parameter and buffer of ``model`` under its reference name, in
+    the reference's layout: the state dict, with each convolution bias
+    viewed as (C,)."""
+    biases = _conv_biases(model)
+    return {
+        k: v.reshape(-1) if k in biases else v
+        for k, v in model.state_dict(keep_vars=True).items()
+    }
+
+
+def export_reference_state_dict(model: nn.Module) -> Dict[str, np.ndarray]:
+    """The model's parameters and buffers as a reference-format state dict
+    of numpy arrays."""
+    return {k: v.detach().cpu().numpy().copy() for k, v in reference_named_params(model).items()}
+
+
+def load_reference_state_dict(model: nn.Module, state_dict: Mapping, *, strict: bool = True):
+    """Copy a reference-format state dict (numpy arrays or tensors) into
+    ``model`` in place; returns ``{"loaded", "skipped", "missing"}`` lists
+    of keys.  ``strict``: a KeyError on an unknown or a missing key; a
+    shape that does not match is always a ValueError."""
+    own = model.state_dict()
+    unknown = sorted(k for k in state_dict if k not in own)
+    if strict and unknown:
+        raise KeyError(f"{len(unknown)} keys match no parameter in the model: {unknown[:5]}")
+    missing = sorted(k for k in own if k not in state_dict)
+    if strict and missing:
+        raise KeyError(f"checkpoint missing {len(missing)} keys: {missing[:5]}")
+    biases = _conv_biases(model)
     converted = {}
     for key, value in state_dict.items():
+        if key not in own:
+            continue
         target = own[key]
-        t = torch.tensor(np.asarray(value))
-        if key in conv_biases and tuple(t.shape) == tuple(target.shape[1:]):
+        t = value.detach().cpu() if isinstance(value, torch.Tensor) else torch.tensor(np.asarray(value))
+        if key in biases and tuple(t.shape) == tuple(target.shape[1:]):
             t = t.reshape(target.shape)  # reference (C,) → port (1, C)
         if tuple(t.shape) != tuple(target.shape):
-            raise ValueError(
-                f"{key}: shape {tuple(t.shape)} != model {tuple(target.shape)}"
-            )
+            raise ValueError(f"{key}: shape {tuple(t.shape)} != model {tuple(target.shape)}")
         converted[key] = t.to(dtype=target.dtype)
-    model.load_state_dict(converted, strict=True)
+    model.load_state_dict(converted, strict=strict)
+    return {"loaded": list(converted), "skipped": unknown, "missing": missing}
+
+
+def load_state_dict_from_reference(model: nn.Module, state_dict: Mapping) -> None:
+    """Strict ``load_reference_state_dict``: raises KeyError on unknown or
+    missing keys and ValueError on a shape that does not match."""
+    load_reference_state_dict(model, state_dict, strict=True)
