@@ -2,8 +2,10 @@
 """Drive the PyTorch/CUDA port once on one NVIDIA GPU: MinkUNet34 inference
 and training, point-cloud classification with MinkowskiFCNN and a ResNet18
 classifier, shape completion with CompletionNet and a sparse VAE,
-classification with MinkowskiSplatFCNN and an SE-ResNet18, then the data
-loader's path from raw room-scan points and the layer extras.
+classification with MinkowskiSplatFCNN and an SE-ResNet18, the data
+loader's path from raw room-scan points and the layer extras, then the bf16
+compute path (MinkUNet34 and MinkowskiFCNN training in bf16) and
+MinkowskiSyncBatchNorm on a one-rank NCCL group.
 
 Run from the root of a checkout, with one CUDA card visible:
 
@@ -163,11 +165,42 @@ Phases, in order; any failure raises and the script exits non-zero:
    against the CPU, ms per call; (c) ``spmm`` and ``spmm_average`` over the
    stride-1 -> stride-2 stride map as COO, card against CPU.
 
+28. the bf16 compute path (``MT.set_compute_dtype(torch.bfloat16)``; bf16
+   reduced-precision reductions off): the bf16 instances of ``gather_gemm``
+   and ``conv_dw`` on the real maps of one MinkUNet34 training step (55
+   conv calls, phase 9's batch 0) and one MinkowskiFCNN step (7 calls,
+   phase 13's first batch), each against its bf16 plain version (K1 within
+   one bf16 ulp, 2^-7 of max|ref|; K2 within DW_RTOL), with the float32
+   instances' time on the same maps and the bf16 bound (below).
+29. bf16 inference of MinkUNet34 on request 0: latency, bf16 launches only;
+   the bf16 logits against the CPU plain path in bf16 and the card's
+   float32 answer, each within twice the CPU's bf16-to-float32 distance
+   (at least 2^-7), the bf16 path's own rounding cost.
+30. bf16 training: a warm-up step on phase 9's batch 0, three timed steps on
+   its batches 1-3 (SGD lr 0.01, logits cast to float32 before the
+   cross-entropy); exactly 109 + 55 launches per step, all bf16 instances;
+   peak memory beside phase 9's; step 0's loss, gradients and running
+   statistics against the CPU plain path's bf16 step, each held to the
+   float64 run of phase 10 within GRAD_FACTOR times the CPU bf16 run's
+   distance from it.
+31. a MinkowskiFCNN bf16 training step (dropout off) on phase 13's first
+   batch: global max and average pooling and the final linear give bf16;
+   14 + 7 bf16 launches; judged as phase 30 against phase 14b's float64 run.
+32. ``MinkowskiSyncBatchNorm``: MinkUNet34 through
+   ``convert_sync_batchnorm`` takes one bf16 step on batch 0 outside any
+   process group, then inside a one-rank NCCL group (``file://`` store in
+   a temporary directory, destroyed before the phase ends): loss,
+   gradients and running statistics bit-equal, 2 NCCL all-reduces per
+   batch norm counted; then against the plain batch norm's step, both held
+   to the float64 run as phase 30.
+
 Bound of a kernel call: the larger of its useful operations (2 · pairs ·
 Cin · Cout) over the H100's 495 TFLOP/s dense TF32 tensor peak and its
 bytes (each input read once, the output written once) over 3.35 TB/s.  The
 kernels keep float32 accuracy with 3xTF32 (three tensor passes), so they
-cannot pass a third of that peak.
+cannot pass a third of that peak.  The bf16 instances' bound takes the
+989 TFLOP/s dense bf16 peak and 2 bytes per feature and weight element,
+4 per index and per float32 dW element.
 
 Then a JSON line describing each kernel and, last, the device line.
 """
@@ -175,8 +208,10 @@ Then a JSON line describing each kernel and, last, the device line.
 from __future__ import annotations
 
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -193,7 +228,7 @@ from minkowskiengine_tpu_torch.models import (
 from minkowskiengine_tpu_torch.modules import SEBasicBlock
 from minkowskiengine_tpu_torch.nn.conv import MinkowskiConvolutionBase, _conv_out_key
 from minkowskiengine_tpu_torch.nn.nonlinearity import MinkowskiDropout
-from minkowskiengine_tpu_torch.nn.norm import MinkowskiBatchNorm
+from minkowskiengine_tpu_torch.nn.norm import MinkowskiBatchNorm, MinkowskiSyncBatchNorm
 from minkowskiengine_tpu_torch.utils import hostengine
 from minkowskiengine_tpu_torch.utils.collation import sparse_collate
 from minkowskiengine_tpu_torch.utils.quantization import quantize_label_reference
@@ -264,11 +299,23 @@ ROOM_POINTS, ROOM_VOXEL, IGNORE = 400_000, 0.05, -100
 # in any order, ~1e-7 of max|ref| of rounding each); the weight gradient
 # sums ~51k rows in another order (~1e-7 relative for a pairwise sum)
 EXTRA_RTOL = 1e-6
+# bf16 (phases 28-32): K1's bf16 instance and its plain version both sum
+# exact bf16 x bf16 products in float32, in another order, and round once,
+# so a sum next to a rounding boundary may land one bf16 ulp apart: 2^-7 of
+# the output's largest value at most.  K2's bf16 instance sums the same
+# float32 products as its plain version, in another order: DW_RTOL.
+K1_BF16_RTOL = 2.0**-7
+BF16_PEAK = 989e12  # the H100 SXM's published dense bf16 tensor rate
 KERNELS = {
     "gather_gemm": ("minkowskiengine_tpu_torch/csrc/gather_gemm.cu",
                     "minkowskiengine_tpu/ops/pallas/conv_kernel.py:1105"),
     "conv_dw": ("minkowskiengine_tpu_torch/csrc/conv_dw.cu",
                 "minkowskiengine_tpu/ops/pallas/conv_kernel.py:1391"),
+    # the same Pallas kernels on bf16 features (phases 28-32)
+    "gather_gemm_bf16": ("minkowskiengine_tpu_torch/csrc/gather_gemm.cu",
+                         "minkowskiengine_tpu/ops/pallas/conv_kernel.py:1105"),
+    "conv_dw_bf16": ("minkowskiengine_tpu_torch/csrc/conv_dw.cu",
+                     "minkowskiengine_tpu/ops/pallas/conv_kernel.py:1391"),
 }
 
 # (name, K, Cin, Cout, tensor stride of the input rows, of the output rows)
@@ -324,8 +371,8 @@ def cuda_ms(fn, warmup=2, iters=10):
 def check(kernel, plain, args, rtol, label):
     """A kernel against its plain version on the same CUDA inputs: error
     and both times."""
-    got = kernel(*args)
-    want = plain(*args)
+    got = kernel(*args).float()
+    want = plain(*args).float()
     torch.cuda.synchronize()
     abs_err = (got - want).abs().max().item() if want.numel() else 0.0
     scale = want.abs().max().item() if want.numel() else 0.0
@@ -380,7 +427,7 @@ def train_step(model, opt, coords, feats, labels, device):
     """One SGD step on a fresh coordinate manager; returns (loss, output)."""
     x = MT.SparseTensor(feats.to(device), coords.to(device))
     out = model(x)
-    loss = torch.nn.functional.cross_entropy(out.F, labels.to(device))
+    loss = torch.nn.functional.cross_entropy(out.F.float(), labels.to(device))
     if opt is not None:
         opt.zero_grad()
     loss.backward()
@@ -412,7 +459,9 @@ def classify(model, coords, feats, device):
 def fcnn_step(model, coords, feats, labels, device):
     """Forward, cross-entropy and backward of one classification batch."""
     logits = model(field(coords, feats, device))
-    loss = torch.nn.functional.cross_entropy(logits, torch.as_tensor(labels).long().to(device))
+    loss = torch.nn.functional.cross_entropy(
+        logits.float(), torch.as_tensor(labels).long().to(device)
+    )
     loss.backward()
     return loss, logits
 
@@ -545,10 +594,18 @@ def rel_diff(got, want):
     return (got - want).abs().max().item() / scale if scale > 0 else (got - want).abs().max().item()
 
 
+def zero_counts():
+    """Every kernel instance's launch count to 0, just before a main-path
+    phase."""
+    gather_gemm.launches = gather_gemm.bf16_launches = 0
+    conv_dw.launches = conv_dw.bf16_launches = 0
+
+
 def take_launches(total):
     """Read the launch counts after a main-path phase (they were set to 0
     just before it), add them to ``total`` and return them."""
-    got = {"gather_gemm": gather_gemm.launches, "conv_dw": conv_dw.launches}
+    got = {"gather_gemm": gather_gemm.launches, "conv_dw": conv_dw.launches,
+           "gather_gemm_bf16": gather_gemm.bf16_launches, "conv_dw_bf16": conv_dw.bf16_launches}
     for k, v in got.items():
         total[k] += v
     return got
@@ -654,7 +711,7 @@ def segmentation_and_classification(dev, launches):
     # 5. the inference slice: three requests, counted
     requests = [(s, *scan(s)) for s in (0, 1, 2)]
     answers = []
-    gather_gemm.launches = conv_dw.launches = 0
+    zero_counts()
     for seed, coords, feats in requests:
         before = gather_gemm.launches
         logits, secs = answer(model, coords, feats, dev)
@@ -740,7 +797,7 @@ def segmentation_and_classification(dev, launches):
     init = {k: v.detach().cpu().clone() for k, v in net.state_dict().items()}
     opt = torch.optim.SGD(net.parameters(), lr=LR)
     torch.cuda.reset_peak_memory_stats()
-    gather_gemm.launches = conv_dw.launches = 0
+    zero_counts()
     for step, (scans, lab) in enumerate(zip(raw, labels)):
         fwd_dx, dw = gather_gemm.launches, conv_dw.launches
         torch.cuda.synchronize()
@@ -767,7 +824,8 @@ def segmentation_and_classification(dev, launches):
             stats0 = {k: v.cpu().clone() for k, v in net.state_dict().items() if "running" in k}
         del loss, out
     take_launches(launches)
-    print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    unet_peak = torch.cuda.max_memory_allocated()
+    print(f"  peak device memory {unet_peak / 2**30:.2f} GiB")
 
     # 10. gradient parity with the CPU plain path: step 0 again in float32,
     # and in float64 as the yardstick of float32 rounding
@@ -779,7 +837,8 @@ def segmentation_and_classification(dev, launches):
         loss, _ = train_step(cpu_net, None, coords, feats.to(dtype), labels[0], "cpu")
         return loss, cpu_net, len(coords)
 
-    judge_step("10 parity", loss0, grads0, stats0, cpu_steps(cpu_unet_step, "10 parity", "voxels"))
+    unet_cpu = cpu_steps(cpu_unet_step, "10 parity", "voxels")
+    judge_step("10 parity", loss0, grads0, stats0, unet_cpu)
 
     # 11. classification inference: three batches of 32 shapes, counted
     fcnn = MinkowskiFCNN(
@@ -792,7 +851,7 @@ def segmentation_and_classification(dev, launches):
     batches11 = [shapes(s) for s in (0, 1, 2)]
     classify(fcnn, *batches11[0][:2], dev)  # warm-up: allocator, cuBLAS
     logits11 = []
-    gather_gemm.launches = conv_dw.launches = 0
+    zero_counts()
     for seed, (coords, feats, _) in enumerate(batches11):
         before = gather_gemm.launches
         logits, secs = classify(fcnn, coords, feats, dev)
@@ -845,7 +904,7 @@ def segmentation_and_classification(dev, launches):
     )
     batches13 = [shape_batch] + [shapes(s, CoordinateTransformation()) for s in (1, 2, 3)]
     torch.cuda.reset_peak_memory_stats()
-    gather_gemm.launches = conv_dw.launches = 0
+    zero_counts()
     for step, (coords, feats, lab) in enumerate(batches13):
         fwd_dx, dw = gather_gemm.launches, conv_dw.launches
         torch.cuda.synchronize()
@@ -892,16 +951,14 @@ def segmentation_and_classification(dev, launches):
         loss, _ = fcnn_step(cpu_net, coords, torch.from_numpy(feats).to(dtype), lab, "cpu")
         return loss, cpu_net, len(coords)
 
-    judge_step(
-        "14b parity", fcnn_loss0, fcnn_grads0, fcnn_stats0,
-        cpu_steps(cpu_fcnn_step, "14b parity", "points"),
-    )
+    fcnn_cpu = cpu_steps(cpu_fcnn_step, "14b parity", "points")
+    judge_step("14b parity", fcnn_loss0, fcnn_grads0, fcnn_stats0, fcnn_cpu)
 
     # (c) ResNet18 on batch 0, voxelized by the TensorField
     rn = ResNet18(3, CLASSES, D=3, generator=torch.Generator().manual_seed(0), device=dev).eval()
     rn_convs = len(sparse_convs(rn))
     coords, feats, _ = batches11[0]
-    gather_gemm.launches = conv_dw.launches = 0
+    zero_counts()
     with torch.no_grad():
         rn_logits = rn(field(coords, feats, dev).sparse())
     rn_launched = take_launches(launches)
@@ -933,7 +990,12 @@ def segmentation_and_classification(dev, launches):
     # as in phase 10, to GRAD_FACTOR times the CPU float32 run's error
     if not (rel <= LOGIT_RTOL or card64 <= GRAD_FACTOR * cpu64):
         raise AssertionError(f"ResNet18 logits disagree: {rel:.3e} > {LOGIT_RTOL}")
-    return rows, real, synth_bwd, real_bwd, fcnn_bwd
+    # what the bf16 phases (28-32) reuse: the same weights, batches and labels,
+    # and the CPU float32 and float64 runs of the same steps
+    reuse = dict(unet_init=init, raw=raw, labels=labels, unet_cpu=unet_cpu, unet_peak=unet_peak,
+                 fcnn_init=fcnn_init, shape_batch=shape_batch, fcnn_cpu=fcnn_cpu,
+                 request=(coords0, feats0))
+    return rows, real, synth_bwd, real_bwd, fcnn_bwd, reuse
 
 def gen_batch(seed, shapes=GEN_SHAPES, res=GEN_RES):
     """A stand-in completion batch: (partial coordinates, their ones
@@ -977,7 +1039,7 @@ def vae_loss(out_cls, targets, mean, log_var):
 def counted(launches, fn):
     """Run one main-path piece with the launch counts set to 0 just before
     it; add them to ``launches`` and return (result, this piece's counts)."""
-    gather_gemm.launches = conv_dw.launches = 0
+    zero_counts()
     result = fn()
     return result, take_launches(launches)
 
@@ -1591,7 +1653,8 @@ def shim_rows(conv, shim, x, tag, launches):
     equal = all(torch.equal(a, b) for a, b in zip(got, want))
     print(f"  {tag}: {shim.__name__} on {x.size} -> {y.size} rows, output, input and weight "
           f"gradients bit-equal to the module: {equal}; launches module {n_module}, shim {n_shim}")
-    if not equal or n_shim != n_module or n_shim != {"gather_gemm": 2, "conv_dw": 1}:
+    if not equal or n_shim != n_module or n_shim != {"gather_gemm": 2, "conv_dw": 1,
+                                                     "gather_gemm_bf16": 0, "conv_dw_bf16": 0}:
         raise AssertionError(f"{tag}: the shim differs from the module")
     kmap = conv._kernel_map(x, y.coordinate_map_key)
     row = backward_rows(x.F.detach(), conv.kernel.detach(), g, kmap.in_idx, kmap.out_idx_t, tag)
@@ -1781,6 +1844,315 @@ def data_loader_path(dev, launches):
     return [stem_row, up_row]
 
 
+def bf16_rows(x, w, g, in_idx, out_idx_t, label, with_dx=True):
+    """Phase 28: one conv call's bf16 instances against their bf16 plain
+    versions (forward, input gradient, weight gradient), with the float32
+    instances' time on the same map and the bf16 bound: 2 * pairs * Cin *
+    Cout over the dense bf16 rate, or 2 bytes per feature and weight
+    element, 4 per index and per float32 dW element, over HBM_RATE."""
+    K, cin, cout = w.shape
+    n_in, n_out = x.shape[0], g.shape[0]
+    xb, wb, gb = x.bfloat16(), w.bfloat16(), g.bfloat16()
+    x, g = x.float(), g.float()
+    row = dict(label=label, K=K, cin=cin, cout=cout, n_in=n_in, n_out=n_out)
+    flop = 2 * pairs(in_idx, n_in) * cin * cout
+    nbytes = {
+        "fwd": 2 * (n_in * cin + K * cin * cout + n_out * cout) + 4 * K * n_out,
+        "dx": 2 * (n_out * cout + K * cin * cout + n_in * cin) + 4 * K * n_in,
+        "dw": 2 * (n_in * cin + n_out * cout) + 4 * K * n_out + 4 * K * cin * cout,
+    }
+    row["fwd"] = check(gather_gemm, gather_gemm_reference, (xb, wb, in_idx), K1_BF16_RTOL, label)
+    row["fwd"]["f32_ms"] = cuda_ms(lambda: gather_gemm(x, w, in_idx))
+    if with_dx:
+        wt, wt32 = wb.transpose(1, 2).contiguous(), w.transpose(1, 2).contiguous()
+        row["dx"] = check(gather_gemm, gather_gemm_reference, (gb, wt, out_idx_t), K1_BF16_RTOL,
+                          label + " dX")
+        row["dx"]["f32_ms"] = cuda_ms(lambda: gather_gemm(g, wt32, out_idx_t))
+        row["dx"]["flop"] = 2 * pairs(out_idx_t, n_out) * cin * cout
+    row["dw"] = check(conv_dw, conv_dw_reference, (xb, gb, in_idx), DW_RTOL, label + " dW")
+    row["dw"]["f32_ms"] = cuda_ms(lambda: conv_dw(x, g, in_idx))
+    for p in ("fwd", "dx", "dw"):
+        if p in row:
+            f = row[p].setdefault("flop", flop)
+            ops_ms, bytes_ms = f / BF16_PEAK * 1e3, nbytes[p] / HBM_RATE * 1e3
+            row[p]["bound_ms"], row[p]["bound_by"] = (
+                (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes"))
+    parts = "  ".join(
+        f"{p} {row[p]['ms']:.4f}/{row[p]['plain_ms']:.4f}/{row[p]['f32_ms']:.4f} ms "
+        f"({row[p]['max_rel_err']:.1e}, bound {row[p]['bound_ms']:.4f} by {row[p]['bound_by']})"
+        for p in ("fwd", "dx", "dw") if p in row
+    )
+    print(f"  {label:>9} K={K:<3} {cin:>3}->{cout:<3} rows {n_in:>5}->{n_out:<5}  "
+          f"bf16/plain/f32 {parts}")
+    return row
+
+
+def bf16_sums(rows, tag):
+    """Phase 28's per-part sums over one step: bf16 kernel, plain, float32
+    kernel and bound ms."""
+    for p, name in (("fwd", "K1 forward"), ("dx", "K1 input gradient"), ("dw", "K2 weight gradient")):
+        parts = [r[p] for r in rows if p in r]
+        print(f"  {tag}, sum over one step, {name}: bf16 {sum(q['ms'] for q in parts):.3f} ms, "
+              f"plain {sum(q['plain_ms'] for q in parts):.3f} ms, float32 instance "
+              f"{sum(q['f32_ms'] for q in parts):.3f} ms, bf16 bound "
+              f"{sum(q['bound_ms'] for q in parts):.4f} ms")
+
+
+def bf16_step_record(loss, net):
+    """(loss, float64 gradients, float64 running statistics) of a step, on the host."""
+    return (
+        loss.item(),
+        {k: p.grad.detach().double().cpu() for k, p in net.named_parameters()},
+        {k: v.double().cpu() for k, v in net.state_dict().items() if "running" in k},
+    )
+
+
+def judge_bf16(tag, card, cpu16, cpu64):
+    """A bf16 step on the card against the float64 run of the same step,
+    held to GRAD_FACTOR times what bf16 costs the CPU plain path's bf16 run
+    of it (per tensor, or the median tensor where that one rounds better);
+    the loss to GRAD_FACTOR times the CPU bf16 loss's distance, or 1e-4."""
+    def rels(a, b):
+        return {k: rel_diff(a[k], b[k]) for k in b}
+
+    loss_ref = abs(cpu64[0])
+    card_loss, cpu_loss = abs(card[0] - cpu64[0]) / loss_ref, abs(cpu16[0] - cpu64[0]) / loss_ref
+    ok = card_loss <= GRAD_FACTOR * max(cpu_loss, 1e-4)
+    print(f"  loss {card[0]:.6f} (card bf16) vs {cpu16[0]:.6f} (CPU bf16), {cpu64[0]:.6f} "
+          f"(CPU float64): rel {card_loss:.2e} (card), {cpu_loss:.2e} (CPU bf16)")
+    for what, i in (("gradients", 1), ("running stats", 2)):
+        card_err, cpu_err = rels(card[i], cpu64[i]), rels(cpu16[i], cpu64[i])
+        vs_cpu = rels(card[i], cpu16[i])
+        med = median(cpu_err)
+        tight = max(card_err, key=lambda k: card_err[k] / max(cpu_err[k], med))
+        bnd = GRAD_FACTOR * max(cpu_err[tight], med)
+        print(f"  {len(card_err)} {what} against float64: card median {median(card_err):.2e}, "
+              f"CPU bf16 median {med:.2e}; card vs CPU bf16 median {median(vs_cpu):.2e}; closest "
+              f"to its bound: {tight} card {card_err[tight]:.2e}, bound {bnd:.2e}")
+        ok = ok and card_err[tight] <= bnd
+    if not ok:
+        raise AssertionError(f"{tag}: the bf16 step disagrees with the CPU plain path")
+
+
+def bf16_path(dev, launches, reuse):
+    """Phases 28-32: the bf16 compute path (``set_compute_dtype``): the bf16
+    instances of K1 and K2 on the real maps of a MinkUNet34 and a
+    MinkowskiFCNN training step, MinkUNet34 inference and training, an FCNN
+    training step, and ``MinkowskiSyncBatchNorm`` on a one-rank NCCL group.
+    Returns phase 28's rows."""
+    start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    MT.set_compute_dtype(torch.bfloat16)
+    init, raw, labels = reuse["unet_init"], reuse["raw"], reuse["labels"]
+
+    def unet(device, train=True):
+        net = MinkUNet34(3, 20, D=3, device=device)
+        net.load_state_dict(init)
+        return net.train(train)
+
+    # 28. the bf16 instances on the real maps of one training step of each net
+    model = unet(dev)
+    coords, feats = collate(raw[0])
+    calls, grads, _ = capture_step(
+        sparse_convs(model), lambda: train_step(model, None, coords, feats, labels[0], dev)
+    )
+    if len(calls) != MIN_LAUNCHES or len(grads) != MIN_LAUNCHES:
+        raise AssertionError(f"captured {len(calls)} calls and {len(grads)} output gradients")
+    print(f"[28 bf16 kernels, MinkUNet34 training-step maps] {len(calls)} conv calls; "
+          f"bf16 / plain / float32-instance ms, bound max(2 * pairs * Cin * Cout / "
+          f"{BF16_PEAK / 1e12:.0f} TFLOP/s bf16, bytes / {HBM_RATE / 1e12:.2f} TB/s)")
+    unet_rows = []
+    for i, (m, inp, out) in enumerate(calls):
+        kmap = m._kernel_map(inp, out.coordinate_map_key)
+        unet_rows.append(bf16_rows(inp.F.detach(), m.kernel.detach(), grads[i].contiguous(),
+                                   kmap.in_idx, kmap.out_idx_t, f"call{i}",
+                                   with_dx=inp.F.requires_grad))
+    del calls, grads, model
+    bf16_sums(unet_rows, "MinkUNet34")
+    fcnn = MinkowskiFCNN(3, CLASSES, device=dev, **FCNN_WIDTHS).train()
+    fcnn.load_state_dict(reuse["fcnn_init"])
+    set_dropout(fcnn, False)
+    calls, grads, _ = capture_step(
+        sparse_convs(fcnn), lambda: fcnn_step(fcnn, *reuse["shape_batch"], dev)
+    )
+    if len(calls) != FCNN_CONVS or len(grads) != FCNN_CONVS:
+        raise AssertionError(f"captured {len(calls)} calls and {len(grads)} output gradients")
+    print(f"[28 bf16 kernels, MinkowskiFCNN training-step maps] {len(calls)} conv calls")
+    fcnn_rows = []
+    for i, (m, inp, out) in enumerate(calls):
+        kmap = m._kernel_map(inp, out.coordinate_map_key)
+        fcnn_rows.append(bf16_rows(inp.F.detach(), m.kernel.detach(), grads[i].contiguous(),
+                                   kmap.in_idx, kmap.out_idx_t, f"fcnn{i}",
+                                   with_dx=inp.F.requires_grad))
+    del calls, grads, fcnn
+    bf16_sums(fcnn_rows, "MinkowskiFCNN")
+
+    # 29. inference on one scan in bf16, against the CPU plain path in bf16
+    # and the card's float32 answer
+    coords0, feats0 = reuse["request"]
+    net = unet(dev, train=False)
+    answer(net, coords0, feats0, dev)  # warm-up
+    (logits, secs), n = counted(launches, lambda: answer(net, coords0, feats0, dev))
+    if (logits.dtype != torch.bfloat16 or logits.shape != (len(coords0), 20)
+            or not torch.isfinite(logits).all()):
+        raise AssertionError(f"bf16 logits: {logits.dtype}, {tuple(logits.shape)}")
+    if n["gather_gemm_bf16"] < MIN_LAUNCHES or n["gather_gemm"] or n["conv_dw"] or n["conv_dw_bf16"]:
+        raise AssertionError(f"bf16 inference launched {n}")
+    MT.set_compute_dtype(None)
+    card32, _ = answer(net, coords0, feats0, dev)
+    cpu_net = unet("cpu", train=False)
+    x_cpu = MT.SparseTensor(torch.from_numpy(feats0), torch.from_numpy(coords0))
+    with torch.no_grad():
+        cpu32 = cpu_net(x_cpu).F
+        MT.set_compute_dtype(torch.bfloat16)
+        cpu16 = cpu_net(MT.SparseTensor(torch.from_numpy(feats0), torch.from_numpy(coords0))).F
+    del cpu_net, net
+    # the bf16 path's own rounding cost on the CPU sets the scale: the card
+    # rounds the same sums in another order
+    tol = 2 * max(rel_diff(cpu16.double(), cpu32.double()), K1_BF16_RTOL)
+    vs_cpu = rel_diff(logits.double(), cpu16.double())
+    vs_f32 = rel_diff(logits.double(), card32.double())
+    print(f"[29 bf16 inference] {len(coords0)} voxels, {secs * 1e3:.2f} ms, "
+          f"{len(coords0) / secs:.0f} points/s, {n['gather_gemm_bf16']} bf16 gather_gemm launches; "
+          f"logits vs CPU bf16 {vs_cpu:.2e}, vs card float32 {vs_f32:.2e}; CPU bf16 vs CPU "
+          f"float32 {rel_diff(cpu16.double(), cpu32.double()):.2e}; tolerance {tol:.2e}")
+    if not (vs_cpu <= tol and vs_f32 <= tol):
+        raise AssertionError(f"bf16 logits disagree: {vs_cpu:.3e}, {vs_f32:.3e} > {tol:.3e}")
+
+    # 30. training in bf16: a warm-up step on phase 9's batch 0, then three
+    # timed steps on its batches 1-3
+    net = unet(dev)
+    opt = torch.optim.SGD(net.parameters(), lr=LR)
+    torch.cuda.reset_peak_memory_stats()
+    for step, (scans, lab) in enumerate(zip(raw, labels)):
+        def one_step():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            coords, feats = collate(scans)
+            loss, out = train_step(net, opt, coords, feats, lab, dev)
+            record = bf16_step_record(loss, net) if step == 0 else None
+            opt.step()
+            torch.cuda.synchronize()
+            return loss.item(), out.F.dtype, len(coords), record, time.perf_counter() - t0
+
+        (loss, dtype, n_vox, record, secs), n = counted(launches, one_step)
+        if step == 0:
+            card0 = record
+        print(f"[30 bf16 train] step {step}{' (warm-up)' if step == 0 else ''}: {n_vox} voxels, "
+              f"{secs * 1e3:.2f} ms, {n_vox / secs:.0f} points/s, loss {loss:.6f}, "
+              f"{n['gather_gemm_bf16']} bf16 gather_gemm and {n['conv_dw_bf16']} bf16 conv_dw "
+              f"launches, float32 instances {n['gather_gemm']} and {n['conv_dw']}")
+        if (n["gather_gemm_bf16"], n["conv_dw_bf16"], n["gather_gemm"], n["conv_dw"]) != (
+                MIN_LAUNCHES + MIN_DX_LAUNCHES, MIN_LAUNCHES, 0, 0):
+            raise AssertionError(f"step {step}: {n} launches")
+        if dtype != torch.bfloat16 or not np.isfinite(loss):
+            raise AssertionError(f"step {step}: logits {dtype}, loss {loss}")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  peak device memory {peak / 2**30:.2f} GiB (bf16) against "
+          f"{reuse['unet_peak'] / 2**30:.2f} GiB (float32, phase 9)")
+    del net, opt
+    cpu_net = unet("cpu")
+    c0, f0 = collate(raw[0])
+    t0 = time.perf_counter()
+    loss, _ = train_step(cpu_net, None, c0, f0, labels[0], "cpu")
+    cpu16 = bf16_step_record(loss, cpu_net)
+    print(f"[30 parity] CPU plain-path bf16 step, {len(c0)} voxels: {time.perf_counter() - t0:.1f} s")
+    del cpu_net
+    judge_bf16("30 parity", card0, cpu16, reuse["unet_cpu"][torch.float64])
+    unet_cpu16 = cpu16
+
+    # 31. MinkowskiFCNN: one bf16 training step on phase 13's first batch,
+    # dropout off; its global pools and linears run in bf16
+    def fcnn_bf16(device):
+        net = MinkowskiFCNN(3, CLASSES, device=device, **FCNN_WIDTHS).train()
+        net.load_state_dict(reuse["fcnn_init"])
+        set_dropout(net, False)
+        return net
+
+    net = fcnn_bf16(dev)
+    pooled = []
+    hooks = [m.register_forward_hook(lambda m, a, o: pooled.append(o.F.dtype))
+             for m in (net.global_max_pool, net.global_avg_pool, net.final[3])]
+    fcnn_step(net, *reuse["shape_batch"], dev)  # warm-up; then the initial state again
+    net.load_state_dict(reuse["fcnn_init"])
+    net.zero_grad(set_to_none=True)
+    pooled.clear()
+
+    def step31():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, logits = fcnn_step(net, *reuse["shape_batch"], dev)
+        record = bf16_step_record(loss, net)
+        torch.cuda.synchronize()
+        return record, logits.dtype, time.perf_counter() - t0
+
+    (card, dtype, secs), n = counted(launches, step31)
+    for h in hooks:
+        h.remove()
+    n_points = len(reuse["shape_batch"][0])
+    print(f"[31 bf16 FCNN step] {n_points} points, {secs * 1e3:.2f} ms, {n_points / secs:.0f} "
+          f"points/s, loss {card[0]:.6f}; global max, global average and final linear outputs "
+          f"{sorted({str(d) for d in pooled})}; {n['gather_gemm_bf16']} bf16 gather_gemm and "
+          f"{n['conv_dw_bf16']} bf16 conv_dw launches")
+    if dtype != torch.bfloat16 or set(pooled) != {torch.bfloat16}:
+        raise AssertionError(f"FCNN bf16: logits {dtype}, pools and linear {pooled}")
+    if (n["gather_gemm_bf16"] < 2 * FCNN_CONVS or n["conv_dw_bf16"] != FCNN_CONVS
+            or n["gather_gemm"] or n["conv_dw"]):
+        raise AssertionError(f"FCNN bf16 step: {n} launches")
+    del net
+    cpu_net = fcnn_bf16("cpu")
+    coords, feats, lab = reuse["shape_batch"]
+    loss, _ = fcnn_step(cpu_net, coords, torch.from_numpy(feats), lab, "cpu")
+    judge_bf16("31 parity", card, bf16_step_record(loss, cpu_net),
+               reuse["fcnn_cpu"][torch.float64])
+    del cpu_net
+
+    # 32. MinkowskiSyncBatchNorm on a one-rank NCCL group: MinkUNet34 through
+    # convert_sync_batchnorm, one bf16 step on batch 0, in the group and
+    # outside any group
+    def sync_step():
+        net = unet(dev)
+        MinkowskiSyncBatchNorm.convert_sync_batchnorm(net)
+        coords, feats = collate(raw[0])
+        loss, _ = train_step(net, None, coords, feats, labels[0], dev)
+        return bf16_step_record(loss, net), sum(
+            isinstance(m, MinkowskiSyncBatchNorm) for m in net.modules())
+
+    (alone, n_sync), n_alone = counted(launches, sync_step)
+    store = tempfile.mkdtemp()
+    torch.distributed.init_process_group(
+        "nccl", init_method=f"file://{store}/store", rank=0, world_size=1,
+        device_id=torch.device(dev),
+    )
+    try:
+        before = MinkowskiSyncBatchNorm.all_reduces
+        (grouped, _), n_group = counted(launches, sync_step)
+        torch.cuda.synchronize()
+        all_reduces = MinkowskiSyncBatchNorm.all_reduces - before
+    finally:
+        torch.distributed.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    same = grouped[0] == alone[0] and all(
+        torch.equal(grouped[i][k], alone[i][k]) for i in (1, 2) for k in alone[i])
+    print(f"[32 sync batch norm] {n_sync} sync batch norms, {all_reduces} NCCL all-reduces in the "
+          f"one-rank group's step (forward and backward), launches {n_group}; loss "
+          f"{grouped[0]:.6f} in the group, {alone[0]:.6f} outside: loss, {len(alone[1])} gradients "
+          f"and {len(alone[2])} running stats bit-equal: {same}")
+    if not same or all_reduces != 2 * n_sync:
+        raise AssertionError(f"sync batch norm: bit-equal {same}, {all_reduces} all-reduces")
+    if (n_group["gather_gemm_bf16"], n_group["conv_dw_bf16"]) != (
+            MIN_LAUNCHES + MIN_DX_LAUNCHES, MIN_LAUNCHES) or n_group != n_alone:
+        raise AssertionError(f"sync batch norm step launches: {n_group}, {n_alone}")
+    print("  against the plain batch norm's bf16 step (phase 30), card vs card: loss "
+          f"{abs(grouped[0] - card0[0]) / abs(card0[0]):.2e}, gradients median "
+          f"{median({k: rel_diff(grouped[1][k], card0[1][k]) for k in card0[1]}):.2e}; both held "
+          "to the float64 run:")
+    judge_bf16("32 sync vs plain", grouped, unet_cpu16, reuse["unet_cpu"][torch.float64])
+    MT.set_compute_dtype(None)
+    print(f"[28-32] {time.perf_counter() - start:.1f} s")
+    return unet_rows + fcnn_rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -1814,24 +2186,31 @@ def main() -> int:
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             print("  " + line.strip())
 
-    launches = {"gather_gemm": 0, "conv_dw": 0}
-    rows, real, synth_bwd, real_bwd, fcnn_bwd = segmentation_and_classification(dev, launches)
+    launches = dict.fromkeys(KERNELS, 0)
+    rows, real, synth_bwd, real_bwd, fcnn_bwd, reuse = segmentation_and_classification(dev, launches)
     gen_rows, completion_bwd, vae_bwd = generative(dev, launches)
     splat_bwd = splat_and_se(dev, launches)
     shim_bwd = data_loader_path(dev, launches)
+    bf16_bwd = bf16_path(dev, launches, reuse)
 
     bwd = synth_bwd + real_bwd + fcnn_bwd + gen_rows + completion_bwd + vae_bwd + splat_bwd + shim_bwd
     errors = {
         "gather_gemm": [r["max_abs_err"] for r in rows + real]
         + [r[p]["max_abs_err"] for r in bwd for p in ("fwd", "dx") if p in r],
         "conv_dw": [r["dw"]["max_abs_err"] for r in bwd],
+        "gather_gemm_bf16": [r[p]["max_abs_err"] for r in bf16_bwd for p in ("fwd", "dx") if p in r],
+        "conv_dw_bf16": [r["dw"]["max_abs_err"] for r in bf16_bwd],
     }
     # per training step of MinkUNet34, MinkowskiFCNN, CompletionNet, the VAE
     # and MinkowskiSplatFCNN, on their real maps
     sums = step_sums(real_bwd + fcnn_bwd + completion_bwd + vae_bwd + splat_bwd)
+    # and per bf16 training step of MinkUNet34 and MinkowskiFCNN (phase 28)
+    sums16 = step_sums(bf16_bwd)
     timing = {
         "gather_gemm": [a + b for a, b in zip(sums["fwd"], sums["dx"])],
         "conv_dw": sums["dw"],
+        "gather_gemm_bf16": [a + b for a, b in zip(sums16["fwd"], sums16["dx"])],
+        "conv_dw_bf16": sums16["dw"],
     }
     print(json.dumps({"kernels": [{
         "name": name,

@@ -2,7 +2,8 @@
 
 Sparse tensors, tensor fields, the coordinate engine, the data loader's
 quantization (a native host engine, ``csrc/hostengine.cpp``) and batch
-collation; convolution (with channelwise convolution and the Function
+collation; the bf16 compute path (``config.set_compute_dtype``);
+convolution (with channelwise convolution and the Function
 shims), pooling, normalization, the nonlinearities and
 ``MinkowskiFunctional``, pruning, union, broadcast, interpolation and
 splatting, SPMM; the MinkUNet, ResNet, point-cloud classification and
@@ -65,6 +66,8 @@ from .diagnostics import (
     is_cuda_available,
     print_diagnostics,
 )
+from . import config
+from .config import compute_dtype, set_compute_dtype
 from . import utils
 from . import models
 
@@ -95,6 +98,8 @@ __all__ = nn.__all__ + [
     "TensorField",
     "_sum",
     "clear_global_coordinate_manager",
+    "compute_dtype",
+    "config",
     "convert_region_type",
     "convert_to_int_list",
     "convert_to_int_tensor",
@@ -106,6 +111,7 @@ __all__ = nn.__all__ + [
     "is_cuda_available",
     "models",
     "print_diagnostics",
+    "set_compute_dtype",
     "set_coordinate_map_type",
     "set_global_coordinate_manager",
     "set_gpu_allocator",

@@ -1,10 +1,12 @@
-// Gather-GEMM for sparse convolution on Hopper (sm_90a), float32.
+// Gather-GEMM for sparse convolution on Hopper (sm_90a), float32 and bf16.
 //
 //   out[o, :] = sum_k X[idx[k, o], :] @ W[k]        idx = -1: no pair
 //
 // Replaces the Pallas forward family of the JAX package,
 // minkowskiengine_tpu/ops/pallas/conv_kernel.py::sparse_conv_fwd_pallas
-// (_conv_fwd_kernel, _conv_fwd_kernel_union, _conv_fwd_kernel_union_wide).
+// (_conv_fwd_kernel, _conv_fwd_kernel_union, _conv_fwd_kernel_union_wide),
+// in both of its types: float32, and bf16 X and W with a float32
+// accumulator and a bf16 output rounded once (conv_kernel.py:797-820).
 // The TPU kernels DMA a contiguous input slab per tile and gather from it
 // with one-hot matmuls, because row gathers are slow there; Hopper gathers
 // rows natively, so this kernel reads X rows by index and needs no slabs,
@@ -25,11 +27,22 @@
 //     stage into a zeroed fragment that is then added to the float32
 //     accumulator; padded shared-memory rows keep the fragment loads free
 //     of bank conflicts;
+//   * bf16 (me_gather_gemm_bf16): the same tiles, ring and vote, with
+//     copies of 8 elements (16 bytes; Cin and Cout multiples of 8), 2
+//     (4 bytes; even widths) or 1 (plain loads: cp.async has no 2-byte
+//     form); fragments by ldmatrix, plain for the gathered X rows (Cin
+//     contiguous) and .trans for W[k] (Cout contiguous), into one
+//     mma.sync m16n8k16 per 16 of Cin, each stage into a zeroed fragment
+//     added to the float32 accumulator; rows padded by 8 elements (80 and
+//     144 bytes, odd multiples of 16: conflict-free ldmatrix); the tile is
+//     rounded to bf16 once, or, with S > 1, written to the float32
+//     workspace, whose in-order sum rounds once;
 //   * with S > 1 offset ranges each block writes its partial tile to an
 //     (S, N_out, Cout) workspace, summed in order s = 0 .. S-1 by a second
 //     pass.  No atomics: two launches give the same bits.
 // Cin <= 4 (the 3-channel stem) keeps the SIMT body (gather_gemm_stem_kernel):
-// 4-wide chunks and 4 x 4 register tiles, f32 FMAs.
+// 4-wide chunks and 4 x 4 register tiles, f32 FMAs; its bf16 instance loads
+// bf16, multiplies and sums in float32 and rounds once.
 //
 // What bounds it on the H100: the offset split exists because the deep
 // levels (125 and 618 rows) gave only 8-40 row x Cout tiles on 132 SMs,
@@ -39,7 +52,8 @@
 // per warp and k-step, so the ring depth and the blocks per SM, not the
 // tensor-core rate, bound it.  At 51k rows (S = 1) the gathers of X rows,
 // about 0.6 of the slots paired, bound it.  wgmma (needs K-major shared
-// operands; W[k] is (Cin, Cout) row-major), TMA and bf16 are later work.
+// operands; W[k] is (Cin, Cout) row-major), TMA and bf16 tile tuning (a
+// 64-wide Cin chunk would halve the stages) are later work.
 //
 // Plain C interface, launched on the caller's stream; returns cudaError_t.
 
@@ -53,29 +67,44 @@ namespace {
 
 // --- Cin > 4: tensor cores ----------------------------------------------------
 
+using bf16 = __nv_bfloat16;
+
 constexpr int BM = 64;              // output rows per block
 constexpr int BN = 64;              // output channels per block
 constexpr int BK = 32;              // Cin per stage
 constexpr int NSTAGE = 3;           // ring depth
 constexpr int KG = 32;              // offsets whose indices are staged at once
 constexpr int THREADS = 128;        // 2 x 2 warps of 32 x 32
-constexpr int LDA = BK + 4;         // 36 = 4 (mod 32): A fragment loads hit 32 banks
-constexpr int LDB = BN + 8;         // 72 = 8 (mod 32): B fragment loads hit 32 banks
-constexpr int A_STAGE = BM * LDA;
-constexpr int B_STAGE = BK * LDB;
-constexpr int SMEM_BYTES =
-    (NSTAGE * (A_STAGE + B_STAGE)) * 4 + (KG * BM + 2 * KG + 4) * 4;
 
-// 3 blocks per SM, as the shared memory allows (unbounded, ptxas spilled
-// the 16-byte instance at 128 registers)
-template <int VEC>
+// shared-memory row strides in elements.  float32: 36 = 4 (mod 32) and
+// 72 = 8 (mod 32), so the A and B fragment loads hit 32 banks.  bf16: 40
+// and 72 elements, 80 and 144 bytes, odd multiples of 16, so each 8-row
+// ldmatrix phase hits 8 distinct bank groups.
+template <typename T>
+struct Tile {
+  static constexpr int LDA = sizeof(T) == 4 ? BK + 4 : BK + 8;
+  static constexpr int LDB = BN + 8;
+  static constexpr int A_STAGE = BM * LDA;
+  static constexpr int B_STAGE = BK * LDB;
+  static constexpr int SMEM_BYTES =
+      NSTAGE * (A_STAGE + B_STAGE) * static_cast<int>(sizeof(T)) + (KG * BM + 2 * KG + 4) * 4;
+};
+
+// T: float (3xTF32) or bf16 (m16n8k16); OutT: the output's type, or float
+// for the split workspace.  3 blocks per SM, as the shared memory allows
+// (unbounded, ptxas spilled the float32 16-byte instance at 128 registers)
+template <typename T, int VEC, typename OutT>
 __global__ void __launch_bounds__(THREADS, 3)
-gather_gemm_mma_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                       const int* __restrict__ idx, float* __restrict__ dst, int n_in,
+gather_gemm_mma_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                       const int* __restrict__ idx, OutT* __restrict__ dst, int n_in,
                        int n_out, int k_vol, int cin, int cout, int offsets_per_split) {
+  constexpr int LDA = Tile<T>::LDA;
+  constexpr int LDB = Tile<T>::LDB;
+  constexpr int A_STAGE = Tile<T>::A_STAGE;
+  constexpr int B_STAGE = Tile<T>::B_STAGE;
   extern __shared__ float4 smem4[];
-  float* as = reinterpret_cast<float*>(smem4);     // [NSTAGE][BM][LDA]
-  float* bs = as + NSTAGE * A_STAGE;               // [NSTAGE][BK][LDB]
+  T* as = reinterpret_cast<T*>(smem4);             // [NSTAGE][BM][LDA]
+  T* bs = as + NSTAGE * A_STAGE;                   // [NSTAGE][BK][LDB]
   int* rows = reinterpret_cast<int*>(bs + NSTAGE * B_STAGE);  // [KG][BM]
   int* has_pair = rows + KG * BM;                  // [KG]
   int* active = has_pair + KG;                     // [KG] offsets (in the group) to run
@@ -130,23 +159,23 @@ gather_gemm_mma_kernel(const float* __restrict__ x, const float* __restrict__ w,
     auto issue = [&](int s) {
       const int kl = active[s / n_chunks];
       const int c0 = (s % n_chunks) * BK;
-      float* a_dst = as + (s % NSTAGE) * A_STAGE;
-      float* b_dst = bs + (s % NSTAGE) * B_STAGE;
+      T* a_dst = as + (s % NSTAGE) * A_STAGE;
+      T* b_dst = bs + (s % NSTAGE) * B_STAGE;
       const int* rows_k = rows + kl * BM;
       for (int e = tid; e < BM * (BK / VEC); e += THREADS) {
         const int m = e / (BK / VEC);
         const int c = c0 + (e % (BK / VEC)) * VEC;
         const int r = rows_k[m];
         const bool ok = r >= 0 && c < cin;
-        const float* src = ok ? x + static_cast<int64_t>(r) * cin + c : x;
+        const T* src = ok ? x + static_cast<int64_t>(r) * cin + c : x;
         cp_async_vec<VEC>(a_dst + m * LDA + (c - c0), src, ok);
       }
-      const float* wk = w + static_cast<int64_t>(kg0 + kl) * cin * cout;
+      const T* wk = w + static_cast<int64_t>(kg0 + kl) * cin * cout;
       for (int e = tid; e < BK * (BN / VEC); e += THREADS) {
         const int kk = e / (BN / VEC);
         const int j = (e % (BN / VEC)) * VEC;
         const bool ok = c0 + kk < cin && n0 + j < cout;
-        const float* src = ok ? wk + static_cast<int64_t>(c0 + kk) * cout + n0 + j : w;
+        const T* src = ok ? wk + static_cast<int64_t>(c0 + kk) * cout + n0 + j : w;
         cp_async_vec<VEC>(b_dst + kk * LDB + j, src, ok);
       }
     };
@@ -161,8 +190,8 @@ gather_gemm_mma_kernel(const float* __restrict__ x, const float* __restrict__ w,
       cp_async_commit();
       cp_async_wait<NSTAGE - 1>();  // stage s has landed
       __syncthreads();
-      const float* a_s = as + (s % NSTAGE) * A_STAGE + (wm * 32) * LDA;
-      const float* b_s = bs + (s % NSTAGE) * B_STAGE + wn * 32;
+      const T* a_s = as + (s % NSTAGE) * A_STAGE + (wm * 32) * LDA;
+      const T* b_s = bs + (s % NSTAGE) * B_STAGE + wn * 32;
       float part[2][4][4];  // this stage's products (see mma_tile.cuh: accumulation)
 #pragma unroll
       for (int i = 0; i < 2; ++i)
@@ -170,25 +199,49 @@ gather_gemm_mma_kernel(const float* __restrict__ x, const float* __restrict__ w,
         for (int j = 0; j < 4; ++j)
 #pragma unroll
           for (int q = 0; q < 4; ++q) part[i][j][q] = 0.f;
+      if constexpr (sizeof(T) == 4) {
 #pragma unroll
-      for (int kk = 0; kk < BK; kk += 8) {
-        uint32_t a_hi[2][4], a_lo[2][4];
+        for (int kk = 0; kk < BK; kk += 8) {
+          uint32_t a_hi[2][4], a_lo[2][4];
 #pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const float* a = a_s + (i * 16 + g) * LDA + kk + t;
-          split_tf32(a[0], a_hi[i][0], a_lo[i][0]);
-          split_tf32(a[8 * LDA], a_hi[i][1], a_lo[i][1]);
-          split_tf32(a[4], a_hi[i][2], a_lo[i][2]);
-          split_tf32(a[8 * LDA + 4], a_hi[i][3], a_lo[i][3]);
+          for (int i = 0; i < 2; ++i) {
+            const float* a = a_s + (i * 16 + g) * LDA + kk + t;
+            split_tf32(a[0], a_hi[i][0], a_lo[i][0]);
+            split_tf32(a[8 * LDA], a_hi[i][1], a_lo[i][1]);
+            split_tf32(a[4], a_hi[i][2], a_lo[i][2]);
+            split_tf32(a[8 * LDA + 4], a_hi[i][3], a_lo[i][3]);
+          }
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float* b = b_s + (kk + t) * LDB + j * 8 + g;
+            uint32_t b_hi[2], b_lo[2];
+            split_tf32(b[0], b_hi[0], b_lo[0]);
+            split_tf32(b[4 * LDB], b_hi[1], b_lo[1]);
+#pragma unroll
+            for (int i = 0; i < 2; ++i) mma_3xtf32(part[i][j], a_hi[i], a_lo[i], b_hi, b_lo);
+          }
         }
+      } else {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float* b = b_s + (kk + t) * LDB + j * 8 + g;
-          uint32_t b_hi[2], b_lo[2];
-          split_tf32(b[0], b_hi[0], b_lo[0]);
-          split_tf32(b[4 * LDB], b_hi[1], b_lo[1]);
+        for (int kk = 0; kk < BK; kk += 16) {
+          // A: matrices (rows 0-7 | 8-15) x (k 0-7 | 8-15) of each 16-row tile
+          uint32_t a[2][4];
 #pragma unroll
-          for (int i = 0; i < 2; ++i) mma_3xtf32(part[i][j], a_hi[i], a_lo[i], b_hi, b_lo);
+          for (int i = 0; i < 2; ++i)
+            ldmatrix_x4(a[i], a_s + (i * 16 + (lane & 15)) * LDA + kk + (lane >> 4) * 8);
+          // B: W[k] rows are k; k 0-7 and 8-15 of two 8-wide column tiles
+#pragma unroll
+          for (int jj = 0; jj < 2; ++jj) {
+            uint32_t r[4];
+            ldmatrix_x4_trans(r, b_s + (kk + (lane & 15)) * LDB + jj * 16 + (lane >> 4) * 8);
+            const uint32_t b0[2] = {r[0], r[1]};
+            const uint32_t b1[2] = {r[2], r[3]};
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              mma_bf16(part[i][2 * jj], a[i], b0);
+              mma_bf16(part[i][2 * jj + 1], a[i], b1);
+            }
+          }
         }
       }
 #pragma unroll
@@ -202,7 +255,7 @@ gather_gemm_mma_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
 
   // this block's tile of split blockIdx.z (the output itself when S = 1)
-  float* out = dst + static_cast<int64_t>(blockIdx.z) * n_out * cout;
+  OutT* out = dst + static_cast<int64_t>(blockIdx.z) * n_out * cout;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
 #pragma unroll
@@ -212,14 +265,15 @@ gather_gemm_mma_kernel(const float* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int col = n0 + wn * 32 + j * 8 + 2 * t;
-        if (col < cout) out[static_cast<int64_t>(o) * cout + col] = acc[i][j][2 * h];
-        if (col + 1 < cout) out[static_cast<int64_t>(o) * cout + col + 1] = acc[i][j][2 * h + 1];
+        if (col < cout) store_as(out + static_cast<int64_t>(o) * cout + col, acc[i][j][2 * h]);
+        if (col + 1 < cout)
+          store_as(out + static_cast<int64_t>(o) * cout + col + 1, acc[i][j][2 * h + 1]);
       }
     }
   }
 }
 
-// --- Cin <= 4 (the stem): SIMT f32 ------------------------------------------
+// --- Cin <= 4 (the stem): SIMT, float32 FMAs --------------------------------
 
 constexpr int S_BK = 4;                                   // Cin per chunk
 constexpr int S_TM = 4;                                   // rows per thread
@@ -228,9 +282,12 @@ constexpr int S_THREADS = (BM / S_TM) * (BN / S_TN);      // 256
 constexpr int ROW_STEP = BM / S_TM;                       // 16
 constexpr int COL_STEP = BN / S_TN;                       // 16
 
+// T: the inputs' type (float or bf16, loaded and widened to float32);
+// OutT: the output's type, or float for the split workspace
+template <typename T, typename OutT>
 __global__ void __launch_bounds__(S_THREADS)
-gather_gemm_stem_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                        const int* __restrict__ idx, float* __restrict__ dst, int n_in,
+gather_gemm_stem_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                        const int* __restrict__ idx, OutT* __restrict__ dst, int n_in,
                         int n_out, int k_vol, int cin, int cout, int offsets_per_split) {
   __shared__ int rows[BM];
   __shared__ float xs[S_BK][BM + 1];  // transposed gather tile; +1 spreads banks
@@ -260,17 +317,18 @@ gather_gemm_stem_kernel(const float* __restrict__ x, const float* __restrict__ w
     // barrier + vote: skip offsets with no pair in this tile
     if (!__syncthreads_or(r >= 0)) continue;
 
-    const float* wk = w + static_cast<int64_t>(k) * cin * cout;
+    const T* wk = w + static_cast<int64_t>(k) * cin * cout;
     for (int e = tid; e < BM * S_BK; e += S_THREADS) {
       const int i = e / S_BK;
       const int c = e % S_BK;
       const int row = rows[i];
-      xs[c][i] = row >= 0 && c < cin ? x[static_cast<int64_t>(row) * cin + c] : 0.f;
+      xs[c][i] = row >= 0 && c < cin ? to_float(x[static_cast<int64_t>(row) * cin + c]) : 0.f;
     }
     for (int e = tid; e < S_BK * BN; e += S_THREADS) {
       const int c = e / BN;
       const int j = e % BN;
-      ws[c][j] = c < cin && n0 + j < cout ? wk[static_cast<int64_t>(c) * cout + n0 + j] : 0.f;
+      ws[c][j] =
+          c < cin && n0 + j < cout ? to_float(wk[static_cast<int64_t>(c) * cout + n0 + j]) : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -288,7 +346,7 @@ gather_gemm_stem_kernel(const float* __restrict__ x, const float* __restrict__ w
     __syncthreads();  // the tiles (and rows[]) are rewritten next
   }
 
-  float* out = dst + static_cast<int64_t>(blockIdx.z) * n_out * cout;
+  OutT* out = dst + static_cast<int64_t>(blockIdx.z) * n_out * cout;
 #pragma unroll
   for (int i = 0; i < S_TM; ++i) {
     const int o = m0 + ty + i * ROW_STEP;
@@ -296,10 +354,47 @@ gather_gemm_stem_kernel(const float* __restrict__ x, const float* __restrict__ w
 #pragma unroll
     for (int j = 0; j < S_TN; ++j) {
       const int col = n0 + tx + j * COL_STEP;
-      if (col < cout) out[static_cast<int64_t>(o) * cout + col] = acc[i][j];
+      if (col < cout) store_as(out + static_cast<int64_t>(o) * cout + col, acc[i][j]);
     }
   }
 }
+
+// one launch of the instance for T and the copy width VEC into dst (the
+// output, or the float32 workspace when S > 1)
+template <typename T, int VEC, typename OutT>
+cudaError_t launch(dim3 grid, cudaStream_t s, const T* x, const T* w, const int* idx, OutT* dst,
+                   int n_in, int n_out, int k_vol, int cin, int cout, int offsets_per_split) {
+  if (cin <= 4) {
+    gather_gemm_stem_kernel<T, OutT><<<grid, S_THREADS, 0, s>>>(x, w, idx, dst, n_in, n_out,
+                                                                 k_vol, cin, cout,
+                                                                 offsets_per_split);
+    return cudaGetLastError();
+  }
+  return launch_dynamic(gather_gemm_mma_kernel<T, VEC, OutT>, grid, THREADS,
+                        Tile<T>::SMEM_BYTES, s, x, w, idx, dst, n_in, n_out, k_vol, cin, cout,
+                        offsets_per_split);
+}
+
+template <typename T, int VEC>
+cudaError_t run(const void* x, const void* w, const void* idx, void* out, void* workspace,
+                int n_in, int n_out, int k_vol, int cin, int cout, int splits, void* stream) {
+  const int offsets_per_split = (k_vol + splits - 1) / splits;
+  const dim3 grid((n_out + BM - 1) / BM, (cout + BN - 1) / BN, splits);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const T* xt = static_cast<const T*>(x);
+  const T* wt = static_cast<const T*>(w);
+  const int* ii = static_cast<const int*>(idx);
+  if (splits == 1)
+    return launch<T, VEC>(grid, s, xt, wt, ii, static_cast<T*>(out), n_in, n_out, k_vol, cin,
+                          cout, offsets_per_split);
+  float* ws = static_cast<float*>(workspace);
+  const cudaError_t err = launch<T, VEC>(grid, s, xt, wt, ii, ws, n_in, n_out, k_vol, cin, cout,
+                                         offsets_per_split);
+  if (err != cudaSuccess) return err;
+  return sum_splits(ws, static_cast<T*>(out), static_cast<int64_t>(n_out) * cout, splits, s);
+}
+
+bool aligned(const void* p, int bytes) { return reinterpret_cast<uintptr_t>(p) % bytes == 0; }
 
 }  // namespace
 
@@ -312,30 +407,34 @@ extern "C" int me_gather_gemm_f32(const void* x, const void* w, const void* idx,
   if (n_out <= 0 || cout <= 0) return static_cast<int>(cudaSuccess);
   if (splits < 1 || (splits > 1 && workspace == nullptr) || (vec != 1 && vec != 4))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (vec == 4 && (cin % 4 != 0 || cout % 4 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
-                   reinterpret_cast<uintptr_t>(w) % 16 != 0))
+  if (vec == 4 && (cin % 4 != 0 || cout % 4 != 0 || !aligned(x, 16) || !aligned(w, 16)))
     return static_cast<int>(cudaErrorMisalignedAddress);
-  const int offsets_per_split = (k_vol + splits - 1) / splits;
-  const dim3 grid((n_out + BM - 1) / BM, (cout + BN - 1) / BN, splits);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* xf = static_cast<const float*>(x);
-  const float* wf = static_cast<const float*>(w);
-  const int* ii = static_cast<const int*>(idx);
-  float* dst = static_cast<float*>(splits > 1 ? workspace : out);
+  return static_cast<int>(
+      vec == 4 ? run<float, 4>(x, w, idx, out, workspace, n_in, n_out, k_vol, cin, cout, splits,
+                               stream)
+               : run<float, 1>(x, w, idx, out, workspace, n_in, n_out, k_vol, cin, cout, splits,
+                               stream));
+}
+
+// bf16 x, w and out; workspace as above.  vec: 8 for 16-byte copies (Cin
+// and Cout multiples of 8, x and w 16-byte aligned), 2 for 4-byte copies
+// (even widths, 4-byte aligned), 1 for plain 2-byte loads.  Cin <= 4 takes
+// the SIMT stem whatever vec says.
+extern "C" int me_gather_gemm_bf16(const void* x, const void* w, const void* idx, void* out,
+                                   void* workspace, int n_in, int n_out, int k_vol, int cin,
+                                   int cout, int splits, int vec, void* stream) {
+  if (n_out <= 0 || cout <= 0) return static_cast<int>(cudaSuccess);
+  if (splits < 1 || (splits > 1 && workspace == nullptr) || (vec != 1 && vec != 2 && vec != 8))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (vec > 1 && (cin % vec != 0 || cout % vec != 0 || !aligned(x, 2 * vec) ||
+                  !aligned(w, 2 * vec)))
+    return static_cast<int>(cudaErrorMisalignedAddress);
   cudaError_t err;
-  if (cin <= 4) {
-    gather_gemm_stem_kernel<<<grid, S_THREADS, 0, s>>>(xf, wf, ii, dst, n_in, n_out, k_vol, cin,
-                                                        cout, offsets_per_split);
-    err = cudaGetLastError();
-  } else if (vec == 4) {
-    err = launch_dynamic(gather_gemm_mma_kernel<4>, grid, THREADS, SMEM_BYTES, s, xf, wf, ii, dst,
-                         n_in, n_out, k_vol, cin, cout, offsets_per_split);
-  } else {
-    err = launch_dynamic(gather_gemm_mma_kernel<1>, grid, THREADS, SMEM_BYTES, s, xf, wf, ii, dst,
-                         n_in, n_out, k_vol, cin, cout, offsets_per_split);
-  }
-  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
-  return static_cast<int>(sum_splits(static_cast<const float*>(workspace),
-                                     static_cast<float*>(out),
-                                     static_cast<int64_t>(n_out) * cout, splits, s));
+  if (vec == 8)
+    err = run<bf16, 8>(x, w, idx, out, workspace, n_in, n_out, k_vol, cin, cout, splits, stream);
+  else if (vec == 2)
+    err = run<bf16, 2>(x, w, idx, out, workspace, n_in, n_out, k_vol, cin, cout, splits, stream);
+  else
+    err = run<bf16, 1>(x, w, idx, out, workspace, n_in, n_out, k_vol, cin, cout, splits, stream);
+  return static_cast<int>(err);
 }

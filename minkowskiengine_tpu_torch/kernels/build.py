@@ -43,9 +43,11 @@ SIGNATURES = {
     # (x, w, idx, out, workspace, n_in, n_out, k_vol, cin, cout, splits, vec,
     #  stream) -> cudaError_t
     "me_gather_gemm_f32": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P], _I),
+    "me_gather_gemm_bf16": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P], _I),
     # (x, g, idx, out, workspace, n_in, n_out, k_vol, cin, cout, splits,
     #  cin_tile, cout_tile, vec, stream)
     "me_conv_dw_f32": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P], _I),
+    "me_conv_dw_bf16": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P], _I),
 }
 
 _lib = None

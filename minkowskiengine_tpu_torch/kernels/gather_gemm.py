@@ -6,7 +6,10 @@ version, ``gather_gemm_reference``, for CPU tensors.  There is no fallback
 between the two: on a CUDA tensor the kernel runs, or the call raises.
 
 It replaces the JAX package's Pallas forward family behind
-``minkowskiengine_tpu/ops/pallas/conv_kernel.py::sparse_conv_fwd_pallas``.
+``minkowskiengine_tpu/ops/pallas/conv_kernel.py::sparse_conv_fwd_pallas``,
+which takes float32 or bf16 features.  The kernel has two instances: float32
+(3xTF32 tensor-core products) and bf16 (bf16 tensor-core products with a
+float32 sum, rounded to bf16 once at the end, as the Pallas body does).
 """
 
 from __future__ import annotations
@@ -28,33 +31,53 @@ class Plan(NamedTuple):
 
     splits: int  # offset ranges S; > 1: partial tiles summed in order by a second pass
     offsets_per_split: int
-    vec: int  # 4: 16-byte cp.async copies; 1: 4-byte copies (Cin or Cout % 4, or unaligned)
-    body: str  # "mma" (3xTF32 tensor cores) or "simt" (Cin <= 4, the stem)
+    # elements per cp.async copy: float32 4 (16 bytes) or 1 (4 bytes); bf16 8
+    # (16 bytes), 2 (4 bytes) or 1 (plain 2-byte loads, odd widths)
+    vec: int
+    body: str  # "mma" (tensor cores) or "simt" (Cin <= 4, the stem)
 
     def workspace_bytes(self, n_out: int, cout: int) -> int:
         return 4 * self.splits * n_out * cout if self.splits > 1 else 0
 
 
-def plan(n_out: int, k_vol: int, cin: int, cout: int, sms: int, aligned: bool = True) -> Plan:
+def copy_width(cin: int, cout: int, aligned: bool, bf16: bool) -> int:
+    """Elements per copy of the tensor-core instances: the widest copy of
+    16 or 4 bytes (or, for bf16, one 2-byte element) whose element count
+    divides Cin and Cout; 16 bytes only when ``aligned`` (both data pointers
+    16-byte aligned)."""
+    widths = (8, 2, 1) if bf16 else (4, 1)
+    for v in widths:
+        if cin % v == 0 and cout % v == 0 and (aligned or v * (2 if bf16 else 4) < 16):
+            return v
+    return 1
+
+
+def plan(n_out: int, k_vol: int, cin: int, cout: int, sms: int, aligned: bool = True,
+         bf16: bool = False) -> Plan:
     """The offset split: when the row x Cout tiles number fewer than
     ``BLOCKS_PER_SM`` per SM, each block takes a contiguous range of
     offsets, enough ranges to fill the SMs, no more than ``k_vol``, and no
-    more than keep the workspace within ``WORKSPACE_CAP``.  ``aligned``:
-    both input pointers are 16-byte aligned."""
+    more than keep the float32 workspace within ``WORKSPACE_CAP``.
+    ``aligned``: both input pointers are 16-byte aligned; ``bf16``: the
+    bf16 instance."""
     tiles = -(-n_out // ROWS_PER_TILE) * -(-cout // COUT_PER_TILE)
     want = -(-BLOCKS_PER_SM * sms // tiles)
     fit = WORKSPACE_CAP // (4 * n_out * cout)
     splits = max(1, min(k_vol, want, fit))
     per = -(-k_vol // splits)
     splits = -(-k_vol // per)  # no empty range
-    vec = 4 if aligned and cin % 4 == 0 and cout % 4 == 0 else 1
+    vec = copy_width(cin, cout, aligned, bf16)
     return Plan(splits, per, vec, "simt" if cin <= 4 else "mma")
 
 
 def gather_gemm_reference(x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch gather-GEMM: per offset, gather rows (an index of -1,
     or any index outside [0, N_in), gathers a zero row), then
-    matmul-accumulate."""
+    matmul-accumulate.  bf16 inputs compute what the bf16 instance
+    computes: each product exact in float32 (a bf16 x bf16 product fits its
+    mantissa), the sums in float32, one rounding to bf16 at the end."""
+    if x.dtype == torch.bfloat16:
+        return gather_gemm_reference(x.float(), w.float(), idx).to(torch.bfloat16)
     n_in = x.shape[0]
     padded = torch.cat([x, x.new_zeros(1, x.shape[1])])
     safe = torch.where((idx >= 0) & (idx < n_in), idx, n_in).long()
@@ -79,9 +102,10 @@ def _check(x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor) -> None:
         raise ValueError(
             f"x, w and idx must share a device: {x.device}, {w.device}, {idx.device}"
         )
-    if x.dtype not in (torch.float32, torch.float64) or w.dtype != x.dtype:
+    if x.dtype not in (torch.float32, torch.bfloat16, torch.float64) or w.dtype != x.dtype:
         raise TypeError(
-            f"x and w must both be float32 (or float64 on the CPU), got {x.dtype}, {w.dtype}"
+            f"x and w must both be float32 or bf16 (or float64 on the CPU), got {x.dtype}, "
+            f"{w.dtype}"
         )
     if idx.dtype != torch.int32:
         raise TypeError(f"idx must be int32, got {idx.dtype}")
@@ -91,23 +115,25 @@ def gather_gemm(x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor) -> torch.Te
     """``out[o, :] = Σ_k x[idx[k, o], :] @ w[k]`` with -1 = no pair.
 
     Args:
-      x: (N_in, Cin) float32; float64 is taken on the CPU too (the plain
-        version is type-generic), for checks against a float64 run.
+      x: (N_in, Cin) float32 or bf16; float64 is taken on the CPU too (the
+        plain version is type-generic), for checks against a float64 run.
       w: (K, Cin, Cout), of x's type.
       idx: (K, N_out) int32.
 
-    Returns (N_out, Cout) of x's type.  ``gather_gemm.launches`` counts the
-    kernel launches (CPU calls run the plain version and do not count);
-    ``gather_gemm.last_plan`` is the ``Plan`` of the last launch.  Two
-    launches on the same inputs give the same bits.
+    Returns (N_out, Cout) of x's type; bf16 is summed in float32 and rounded
+    once.  ``gather_gemm.launches`` counts the float32 instance's launches
+    and ``gather_gemm.bf16_launches`` the bf16 instance's (CPU calls run the
+    plain version and count nothing); ``gather_gemm.last_plan`` is the
+    ``Plan`` of the last launch.  Two launches on the same inputs give the
+    same bits.
     """
     _check(x, w, idx)
     if x.device.type == "cpu":
         return gather_gemm_reference(x, w, idx)
     if x.device.type != "cuda":
         raise ValueError(f"gather_gemm runs on CPU or CUDA tensors, got {x.device}")
-    if x.dtype != torch.float32:
-        raise TypeError(f"the CUDA kernel takes float32, got {x.dtype}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the CUDA kernel takes float32 or bf16, got {x.dtype}")
     for name, t in (("x", x), ("w", w), ("idx", idx)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
@@ -116,28 +142,34 @@ def gather_gemm(x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor) -> torch.Te
     cout = w.shape[2]
     if max(n_in, n_out, k_vol, cin, cout) >= 2**31:  # passed as C ints
         raise ValueError("gather_gemm dimensions must fit in int32")
-    out = torch.empty((n_out, cout), dtype=torch.float32, device=x.device)
+    bf16 = x.dtype == torch.bfloat16
+    out = torch.empty((n_out, cout), dtype=x.dtype, device=x.device)
     if n_out == 0 or cout == 0:
         return out
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     aligned = x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
-    p = plan(n_out, k_vol, cin, cout, sms, aligned)
+    p = plan(n_out, k_vol, cin, cout, sms, aligned, bf16)
     ws = None
     if p.splits > 1:  # per-range partial tiles, summed in order by a second pass
         ws = torch.empty((p.splits, n_out, cout), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = build.library().me_gather_gemm_f32(
+        lib = build.library()
+        err = (lib.me_gather_gemm_bf16 if bf16 else lib.me_gather_gemm_f32)(
             x.data_ptr(), w.data_ptr(), idx.data_ptr(), out.data_ptr(),
             None if ws is None else ws.data_ptr(),
             n_in, n_out, k_vol, cin, cout, p.splits, p.vec, stream,
         )
     if err != 0:
         raise RuntimeError(f"gather_gemm kernel launch failed: cudaError {err} ({p})")
-    gather_gemm.launches += 1
+    if bf16:
+        gather_gemm.bf16_launches += 1
+    else:
+        gather_gemm.launches += 1
     gather_gemm.last_plan = p
     return out
 
 
 gather_gemm.launches = 0
+gather_gemm.bf16_launches = 0
 gather_gemm.last_plan = None

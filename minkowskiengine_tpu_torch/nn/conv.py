@@ -7,7 +7,12 @@ kernel map) runs in the cached manager; the feature work is
 ``ops.functional.sparse_conv_kmap``, a plain product for stride-1 volume-1
 kernels, or ``ops.functional.channelwise_conv`` for the depthwise conv.
 The ``.apply`` shims of the reference's autograd Functions build the same
-kernel map as the modules and run the same ``sparse_conv_kmap``.  The JAX package's dense-grid dispatch is TPU-only and
+kernel map as the modules and run the same ``sparse_conv_kmap``.  Under
+``config.set_compute_dtype`` the conv modules cast their input features to
+that dtype, as JAX's do (nn/conv.py:273-318); the float32 weight goes into
+the conv's autograd Function, which casts it (its gradient stays float32),
+and the volume-1 product and the bias run in the features' dtype.  The
+channelwise conv casts nothing, as in JAX.  The JAX package's dense-grid dispatch is TPU-only and
 is not carried over.
 """
 
@@ -19,6 +24,7 @@ from typing import Optional, Union
 import torch
 from torch import nn
 
+from ..config import compute_dtype
 from ..coords.manager import CoordinateManager, CoordinateMapKey
 from ..kernel_generator import KernelGenerator
 from ..ops import functional as F
@@ -175,8 +181,11 @@ class MinkowskiConvolutionBase(nn.Module):
             raise ValueError(f"input channels {input.F.shape[1]} != {self.in_channels}")
 
         feats = input.F
+        cdt = compute_dtype()
+        if cdt is not None and feats.dtype != cdt:
+            feats = feats.to(cdt)
         if self.use_mm and coordinates is None:
-            outfeat = feats @ self.kernel
+            outfeat = feats @ self.kernel.to(feats.dtype)
             out_key = input.coordinate_map_key
         else:
             out_key = _resolve_out_key(
@@ -196,7 +205,7 @@ class MinkowskiConvolutionBase(nn.Module):
             kernel = self.kernel if self.kernel.ndim == 3 else self.kernel[None]
             outfeat = F.sparse_conv_kmap(feats.contiguous(), kernel.contiguous(), kmap)
         if self.bias is not None:
-            outfeat = outfeat + self.bias
+            outfeat = outfeat + self.bias.to(outfeat.dtype)
         return SparseTensor(
             outfeat, coordinate_map_key=out_key, coordinate_manager=input.coordinate_manager
         )

@@ -8,7 +8,17 @@ reference does (MinkowskiNormalization.py:51-98): its state-dict names
 (``bn.weight``, ``bn.running_mean``, ...) are the reference's.  Train mode
 normalizes with the biased batch variance and updates the running variance
 with the unbiased one; eval mode uses the running statistics.  It takes a
-SparseTensor or a TensorField.
+SparseTensor or a TensorField.  bf16 features are normalized in float32 and
+cast back, as JAX's ``_apply`` does (JAX nn/norm.py:88-111); the running
+statistics stay float32.
+
+``MinkowskiSyncBatchNorm``: batch norm whose (count, sum, sum of squares),
+taken in float32, are all-reduced over a ``torch.distributed`` process group
+(the default one unless ``process_group`` names another) when one is
+initialized, with a gradient (JAX: ``lax.psum`` over a mesh axis, nn/norm.py:
+122-180).  Outside a group it normalizes with the same sums, unreduced.
+``convert_sync_batchnorm`` swaps a model's batch norms for it in place,
+keeping each ``.bn`` (parameters, buffers, names).
 
 ``MinkowskiInstanceNorm``: per batch item (point cloud), the mean and the
 biased variance over the item's rows (its origin-map segment), then
@@ -23,6 +33,7 @@ pooling and broadcast written in torch ops; autograd gives its backward.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ..ops import functional as F
@@ -50,7 +61,110 @@ class MinkowskiBatchNorm(nn.Module):
         )
 
     def forward(self, input):
-        return input._wrap(self.bn(input.F))
+        feats = input.F
+        work = torch.promote_types(feats.dtype, torch.float32)  # f32 statistics under bf16
+        return input._wrap(self.bn(feats.to(work)).to(feats.dtype))
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """Sum over the ranks of a process group; its gradient is the sum of
+    the ranks' gradients.  Each all-reduce, forward or backward, adds one
+    to ``MinkowskiSyncBatchNorm.all_reduces``."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.clone()
+        dist.all_reduce(out, group=group)
+        MinkowskiSyncBatchNorm.all_reduces += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone()
+        dist.all_reduce(grad, group=ctx.group)
+        MinkowskiSyncBatchNorm.all_reduces += 1
+        return grad, None
+
+
+class MinkowskiSyncBatchNorm(MinkowskiBatchNorm):
+    """Cross-replica batch norm (reference: MinkowskiNormalization.py:101-191).
+
+    In train mode (or without running statistics) each rank sums its rows'
+    count, sum and sum of squares in float32; with ``torch.distributed``
+    initialized the three are all-reduced over ``process_group`` (default:
+    the world), then ``mean = sum / count`` and the biased ``var = max(sq /
+    count - mean², 0)`` normalize, and the running variance takes the
+    unbiased ``var · count / (count - 1)``, as JAX computes them.  Eval mode
+    uses the running statistics.  ``MinkowskiSyncBatchNorm.all_reduces``
+    counts the all-reduces of every instance, forward and backward.
+    """
+
+    all_reduces = 0
+
+    def __init__(
+        self,
+        num_features: int,
+        eps: float = 1e-5,
+        momentum: float = 0.1,
+        affine: bool = True,
+        track_running_stats: bool = True,
+        process_group=None,
+        device=None,
+    ):
+        super().__init__(num_features, eps, momentum, affine, track_running_stats, device)
+        self.process_group = process_group
+
+    def _batch_stats(self, x):
+        c = x.shape[1]
+        stats = torch.cat([
+            x.new_full((1,), float(x.shape[0])), x.sum(0), (x * x).sum(0)
+        ])
+        if dist.is_available() and dist.is_initialized():
+            stats = _AllReduceSum.apply(stats, self.process_group)
+        count = stats[0].clamp_min(1.0)
+        mean = stats[1:1 + c] / count
+        var = (stats[1 + c:] / count - mean * mean).clamp_min(0.0)
+        return mean, var, count
+
+    def forward(self, input):
+        feats = input.F
+        x = feats.to(torch.promote_types(feats.dtype, torch.float32))
+        bn = self.bn
+        if self.training or not bn.track_running_stats:
+            mean, var, count = self._batch_stats(x)
+            if self.training and bn.track_running_stats:
+                with torch.no_grad():
+                    bn.num_batches_tracked.add_(1)
+                    m = bn.momentum
+                    unbiased = var * count / (count - 1.0).clamp_min(1.0)
+                    bn.running_mean.mul_(1 - m).add_(m * mean.to(bn.running_mean.dtype))
+                    bn.running_var.mul_(1 - m).add_(m * unbiased.to(bn.running_var.dtype))
+        else:
+            mean, var = bn.running_mean, bn.running_var
+        out = (x - mean) * torch.rsqrt(var + bn.eps)
+        if bn.affine:
+            out = out * bn.weight + bn.bias
+        return input._wrap(out.to(feats.dtype))
+
+    @classmethod
+    def convert_sync_batchnorm(cls, module: nn.Module, process_group=None) -> nn.Module:
+        """Replace every ``MinkowskiBatchNorm`` in ``module`` (itself
+        included) by a ``MinkowskiSyncBatchNorm`` holding the same ``.bn``,
+        so parameters, buffers and state-dict names stay as they were; in
+        place, returning ``module`` or its replacement (reference:
+        MinkowskiNormalization.py:139-191)."""
+        if isinstance(module, MinkowskiBatchNorm) and not isinstance(module, cls):
+            bn = module.bn
+            out = cls(bn.num_features, bn.eps, bn.momentum, bn.affine, bn.track_running_stats,
+                      process_group=process_group, device="meta")
+            out.bn = bn
+            return out.train(module.training)
+        for name, child in module.named_children():
+            new = cls.convert_sync_batchnorm(child, process_group)
+            if new is not child:
+                setattr(module, name, new)
+        return module
 
 
 def _instance_normalize(feats, origin_rows, num, eps):

@@ -45,7 +45,13 @@ class MinkowskiLinear(nn.Module):
                     p.copy_(t)
 
     def forward(self, input):
-        return input._wrap(self.linear(input.F))
+        # in the features' dtype, as JAX's Linear casts its weight (bf16
+        # features give bf16 outputs; the parameters stay float32)
+        feats = input.F
+        w, b = self.linear.weight, self.linear.bias
+        return input._wrap(torch.nn.functional.linear(
+            feats, w.to(feats.dtype), None if b is None else b.to(feats.dtype)
+        ))
 
 
 class MinkowskiToFeature(nn.Module):

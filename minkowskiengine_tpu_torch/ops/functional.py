@@ -40,9 +40,14 @@ def _segment_ids(seg_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
 
 
 def segment_sum(feats: torch.Tensor, seg_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
-    """Sum rows by segment id; ids < 0 are dropped."""
-    out = feats.new_zeros((num_segments + 1,) + tuple(feats.shape[1:]))
-    return out.index_add(0, _segment_ids(seg_ids, num_segments), feats)[:num_segments]
+    """Sum rows by segment id; ids < 0 are dropped.  bf16 rows are summed
+    in float32 and the sums rounded to bf16 once, on the CPU and under
+    CUDA's atomics alike; JAX's CPU scatter rounds after every add, which
+    stalls a long sum (26,115 rows of 0.5 stop at 128)."""
+    acc = torch.float32 if feats.dtype == torch.bfloat16 else feats.dtype
+    out = feats.new_zeros((num_segments + 1,) + tuple(feats.shape[1:]), dtype=acc)
+    out = out.index_add(0, _segment_ids(seg_ids, num_segments), feats.to(acc))[:num_segments]
+    return out.to(feats.dtype)
 
 
 def segment_count(seg_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
@@ -72,7 +77,13 @@ def channelwise_conv(feats: torch.Tensor, kernel: torch.Tensor, in_idx: torch.Te
     MinkowskiChannelwiseConvolution.py:142-191).  One gather and one
     multiply-add per offset into an (N_out, ch) sum, as JAX's scan runs it;
     the zero row and the safe indices are made once for all offsets, so an
-    offset costs two launches.  Autograd gives the backward."""
+    offset costs two launches.  Autograd gives the backward.  A kernel
+    whose dtype would widen the sum (bf16 features, a float32 kernel)
+    raises ``TypeError``, as JAX's scan does on the changed carry type."""
+    if torch.promote_types(feats.dtype, kernel.dtype) != feats.dtype:
+        raise TypeError(
+            f"channelwise_conv: {kernel.dtype} kernel would widen the {feats.dtype} features' sum"
+        )
     n = feats.shape[0]
     padded = torch.cat([feats, feats.new_zeros((1, feats.shape[1]))])
     safe = torch.where((in_idx >= 0) & (in_idx < n), in_idx, n).long()
@@ -204,26 +215,36 @@ def splat_features(field_feats: torch.Tensor, neighbor_rows: torch.Tensor, weigh
 
 
 class _SparseConv(torch.autograd.Function):
-    """The conv and its hand-written VJP (JAX: ``_conv_vjp_bwd``)."""
+    """The conv and its hand-written VJP (JAX: ``_conv_vjp_bwd``).
+
+    ``kernel`` comes in as the parameter itself (float32 under bf16
+    compute) and is cast to the features' dtype here, not before the call:
+    the weight gradient then leaves in float32, the sum K2 computes, as the
+    TPU path returns it (``sparse_conv_dw_pallas``).  Cast outside, autograd
+    would round it to bf16 on the way out of this Function and back up in
+    the cast's backward."""
 
     @staticmethod
     def forward(ctx, feats, kernel, in_idx, out_idx_t):
-        ctx.save_for_backward(feats, kernel, in_idx, out_idx_t)
-        return gather_gemm(feats, kernel, in_idx)
+        w = kernel
+        if feats.dtype == torch.bfloat16 and kernel.dtype == torch.float32:
+            w = kernel.to(torch.bfloat16)
+        ctx.save_for_backward(feats, w, in_idx, out_idx_t)
+        return gather_gemm(feats, w.contiguous(), in_idx)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, grad_out):
-        feats, kernel, in_idx, out_idx_t = ctx.saved_tensors
+        feats, w, in_idx, out_idx_t = ctx.saved_tensors
         # torch.cat's backward hands its inputs column slices
         g = grad_out.contiguous()
         d_feats = d_kernel = None
         if ctx.needs_input_grad[0]:
             # d_feats[i] = Σ_k g[out_idx_t[k, i]] @ W[k]ᵀ: the forward kernel
             # on the transposed matching
-            d_feats = gather_gemm(g, kernel.transpose(1, 2).contiguous(), out_idx_t)
+            d_feats = gather_gemm(g, w.transpose(1, 2).contiguous(), out_idx_t)
         if ctx.needs_input_grad[1]:
-            d_kernel = conv_dw(feats, g, in_idx)
+            d_kernel = conv_dw(feats, g, in_idx)  # float32 for bf16 inputs
         return d_feats, d_kernel, None, None
 
 
@@ -237,7 +258,8 @@ def sparse_conv(
     ``out[o] = Σ_k feats[in_idx[k, o]] @ kernel[k]``.
 
     Args:
-      feats: (N_in, ch_in) input features.
+      feats: (N_in, ch_in) input features: float32, bf16 (with a float32
+        or bf16 ``kernel``), or float64 on the CPU.
       kernel: (K, ch_in, ch_out) weights, offset-major as in the reference
         (MinkowskiConvolution.py:262-285).
       in_idx: (K, N_out) int32 gather map, -1 = no pair.
@@ -247,7 +269,10 @@ def sparse_conv(
     Differentiable in ``feats`` and ``kernel``.  The forward and the input
     gradient run the gather-GEMM (on ``in_idx``, and on ``out_idx_t`` with
     ``kernel[k]ᵀ``), the weight gradient runs ``conv_dw``: the hand-written
-    kernels for CUDA tensors, their plain versions for CPU tensors.
+    kernels for CUDA tensors, their plain versions for CPU tensors.  bf16
+    features run the bf16 instances: the output and the input gradient are
+    bf16, each rounded once from a float32 sum, and the weight gradient is
+    float32.  Any other pairing of dtypes raises.
     """
     if out_idx_t is None and feats.requires_grad and torch.is_grad_enabled():
         raise ValueError("sparse_conv needs out_idx_t for the input gradient")

@@ -25,12 +25,8 @@ NOT_YET_PORTED = {
     "CompiledReplayer": "geometry and replay",
     "stack_geometries": "geometry and replay",
     "parallel": "parallel",
-    "MinkowskiSyncBatchNorm": "parallel",
     "spatial_execution": "parallel",
     "set_spatial_execution": "parallel",
-    "config": "compute_dtype",
-    "compute_dtype": "compute_dtype",
-    "set_compute_dtype": "compute_dtype",
 }
 
 

@@ -276,3 +276,88 @@ def test_splat_map(dev):
     x = torch.randn(n, 32, device=dev, generator=g)
     go = torch.randn(n, 48, device=dev, generator=g)
     _check(x, go, kmap.in_idx)
+
+
+# --- the bf16 instance: bf16 x and g, a float32 dW ---------------------------
+# Tolerance: DW_RTOL, as the float32 instance: bf16 x bf16 products are
+# exact in float32, so both sides sum the same float32 terms in another
+# order.
+
+
+@pytest.mark.parametrize(
+    "K,n_in,n_out,cin,cout",
+    [
+        (125, 3000, 3000, 3, 32),      # the stem: bf16 loads, float32 FMAs
+        (27, 700, 650, 256, 256),
+        (27, 20000, 20000, 96, 96),    # many rows: the row split, ragged Cout tile
+        (8, 300, 1200, 128, 96),
+        (27, 47834, 27633, 336, 256),  # FCNN conv5a: Cin 336
+        (27, 47834, 47834, 32, 48),    # FCNN conv1: Cout 48
+        (27, 9538, 3012, 512, 1024),   # FCNN conv5c: Cout 1024
+        (27, 1500, 1700, 6, 70),       # even widths: 4-byte copies
+        (27, 1500, 1700, 5, 70),       # odd Cin: plain loads
+        (8, 1500, 1700, 96, 33),       # odd Cout: plain loads
+        (4, 10, 0, 8, 8),
+    ],
+)
+def test_bf16_kernel_matches_plain(dev, K, n_in, n_out, cin, cout):
+    x, go, idx = _inputs(dev, K, n_in, n_out, cin, cout)
+    x, go = x.bfloat16(), go.bfloat16()
+    f32_before, before = conv_dw.launches, conv_dw.bf16_launches
+    got = conv_dw(x, go, idx)
+    want = conv_dw_reference(x, go, idx)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == torch.float32 and got.shape == (K, cin, cout)
+    assert conv_dw.bf16_launches == before + 1 and conv_dw.launches == f32_before
+    if n_out:
+        assert _rel(got, want) <= DW_RTOL
+        p = conv_dw.last_plan
+        assert p.body == ("simt" if cin <= 4 else "mma")
+        if cin > 4:
+            want_vec = 8 if cin % 8 == 0 and cout % 8 == 0 else 2 if cin % 2 == 0 and cout % 2 == 0 else 1
+            assert p.vec == want_vec
+        if (n_out, cin, cout) == (20000, 96, 96):
+            assert p.splits > 1
+    else:
+        assert torch.all(got == 0)
+
+
+def test_bf16_two_launches_are_bit_equal(dev):
+    for shape in [(27, 20000, 20000, 96, 96), (125, 3000, 3000, 3, 32)]:
+        x, go, idx = _inputs(dev, *shape)
+        x, go = x.bfloat16(), go.bfloat16()
+        assert torch.equal(conv_dw(x, go, idx), conv_dw(x, go, idx))
+
+
+def test_bf16_sparse_conv_grads(dev):
+    """bf16 features with the float32 weight: a bf16 output and input
+    gradient (the bf16 K1 instance, one ulp), a float32 weight gradient
+    (the bf16 K2 instance, the float32 sum, not its bf16 rounding)."""
+    from minkowskiengine_tpu_torch.kernels.gather_gemm import gather_gemm_reference
+
+    n_in, n_out, K, cin, cout = 3000, 2500, 27, 64, 96
+    gen = torch.Generator().manual_seed(0)
+    m = min(n_in, n_out)
+    in_idx = torch.full((K, n_out), -1, dtype=torch.int32)
+    for k in range(K):
+        in_idx[k, torch.randperm(n_out, generator=gen)[:m]] = torch.randperm(n_in, generator=gen)[:m].int()
+    in_idx[torch.rand(K, n_out, generator=gen) > 0.7] = -1
+    out_idx_t = _invert_matching(in_idx, n_in).to(dev)
+    in_idx = in_idx.to(dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn(n_in, cin, device=dev, generator=g).bfloat16().requires_grad_()
+    w = (torch.randn(K, cin, cout, device=dev, generator=g) / (K * cin) ** 0.5).requires_grad_()
+    go = torch.randn(n_out, cout, device=dev, generator=g).bfloat16()
+    counts = (gather_gemm.launches, gather_gemm.bf16_launches, conv_dw.launches, conv_dw.bf16_launches)
+    out = sparse_conv(x, w, in_idx, out_idx_t)
+    out.backward(go)
+    assert (gather_gemm.launches, gather_gemm.bf16_launches, conv_dw.launches,
+            conv_dw.bf16_launches) == (counts[0], counts[1] + 2, counts[2], counts[3] + 1)
+    wb = w.detach().bfloat16()
+    assert out.dtype == x.grad.dtype == torch.bfloat16 and w.grad.dtype == torch.float32
+    assert _rel(out.float(), gather_gemm_reference(x.detach(), wb, in_idx).float()) <= 2.0**-7
+    want_dx = gather_gemm_reference(go, wb.transpose(1, 2).contiguous(), out_idx_t)
+    assert _rel(x.grad.float(), want_dx.float()) <= 2.0**-7
+    want_dw = conv_dw_reference(x.detach(), go, in_idx)
+    assert _rel(w.grad, want_dw) <= DW_RTOL
+    assert not torch.equal(w.grad, w.grad.bfloat16().float())  # not rounded to bf16

@@ -254,3 +254,82 @@ def test_splat_map_forward_and_input_gradient(dev):
     assert _rel(gather_gemm(x, w, kmap.in_idx), gather_gemm_reference(x, w, kmap.in_idx)) <= 1e-5
     wt = w.transpose(1, 2).contiguous()
     assert _rel(gather_gemm(go, wt, kmap.out_idx_t), gather_gemm_reference(go, wt, kmap.out_idx_t)) <= 1e-5
+
+
+# --- the bf16 instance -------------------------------------------------------
+# Tolerance: max |Δ| / max |ref| <= 2^-7, one bf16 ulp at the output's
+# largest value: the kernel and the plain version both sum exact products
+# in float32, in different orders, and round once, so a sum next to a
+# rounding boundary may land one ulp apart.
+BF16_RTOL = 2.0**-7
+
+# (K, rows in, rows out, Cin, Cout, copy width or None for the stem)
+BF16_CASES = [
+    (125, 1000, 1000, 3, 32, None),    # the stem: bf16 loads, float32 FMAs
+    (27, 700, 650, 96, 96, 8),         # ragged Cout tile, rows not a multiple of 64
+    (8, 300, 1200, 256, 128, 8),       # transposed conv: more outputs than inputs
+    (27, 3012, 1142, 336, 48, 8),      # Cin 336: a ragged last chunk; Cout 48: a padded tile
+    (27, 9538, 3012, 512, 1024, 8),    # FCNN conv5c: Cout 1024
+    (27, 27633, 9538, 48, 64, 8),      # FCNN conv2: Cin 48
+    (27, 800, 700, 6, 70, 2),          # even widths: 4-byte copies
+    (27, 800, 700, 5, 64, 1),          # odd Cin: plain loads
+    (8, 600, 500, 64, 33, 1),          # odd Cout: plain loads
+    (1, 5, 3, 5, 70, 1),
+    (4, 10, 0, 8, 8, 8),               # no output rows
+]
+
+
+@pytest.mark.parametrize("K,n_in,n_out,cin,cout,vec", BF16_CASES)
+def test_bf16_kernel_matches_plain(dev, K, n_in, n_out, cin, cout, vec):
+    x, w, idx = _inputs(dev, K, n_in, n_out, cin, cout)
+    x, w = x.bfloat16(), (w / (K * cin) ** 0.5).bfloat16()
+    f32_before, before = gather_gemm.launches, gather_gemm.bf16_launches
+    got = gather_gemm(x, w, idx)
+    want = gather_gemm_reference(x, w, idx)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == torch.bfloat16 and got.shape == (n_out, cout)
+    if n_out:
+        assert _rel(got.float(), want.float()) <= BF16_RTOL
+        assert gather_gemm.bf16_launches == before + 1 and gather_gemm.launches == f32_before
+        p = gather_gemm.last_plan
+        assert p.body == ("simt" if cin <= 4 else "mma")
+        if vec is not None:
+            assert p.vec == vec
+
+
+@pytest.mark.parametrize("K,n,cin,cout", [(27, 125, 256, 256), (27, 618, 384, 256)])
+def test_bf16_offset_split_rounds_once(dev, K, n, cin, cout):
+    """S > 1: float32 partials summed in order, then one rounding."""
+    x, w, idx = _inputs(dev, K, n, n, cin, cout, density=0.4)
+    x, w = x.bfloat16(), (w / (K * cin) ** 0.5).bfloat16()
+    got = gather_gemm(x, w, idx)
+    assert gather_gemm.last_plan.splits > 1
+    assert _rel(got.float(), gather_gemm_reference(x, w, idx).float()) <= BF16_RTOL
+
+
+def test_bf16_four_byte_copies_from_an_unaligned_view(dev):
+    x, w, idx = _inputs(dev, 8, 501, 400, 8, 32)
+    xv = x.bfloat16()[1:]  # 16 bytes in: 16-byte aligned, 8 bf16 per row
+    flat = torch.cat([x.new_zeros(2).bfloat16(), x.bfloat16()[:500].flatten()])
+    xu = flat[2:].view(500, 8)  # 4 bytes past a 16-byte boundary
+    assert xu.data_ptr() % 16 != 0 and xu.data_ptr() % 4 == 0
+    wb = w.bfloat16()
+    for xb, vec in ((xv, 8), (xu, 2)):
+        got = gather_gemm(xb, wb, idx)
+        assert gather_gemm.last_plan.vec == vec
+        assert _rel(got.float(), gather_gemm_reference(xb, wb, idx).float()) <= BF16_RTOL
+
+
+def test_bf16_two_launches_are_bit_equal(dev):
+    for shape in [(27, 618, 618, 384, 256), (27, 5000, 5000, 96, 96), (125, 2000, 2000, 3, 32)]:
+        x, w, idx = _inputs(dev, *shape)
+        x, w = x.bfloat16(), w.bfloat16()
+        assert torch.equal(gather_gemm(x, w, idx), gather_gemm(x, w, idx))
+
+
+def test_bf16_rejects_mixed_and_half(dev):
+    x, w, idx = _inputs(dev, 8, 100, 200, 16, 16)
+    with pytest.raises(TypeError):
+        gather_gemm(x.bfloat16(), w, idx)  # the weight must be cast by the caller
+    with pytest.raises(TypeError):
+        gather_gemm(x.half(), w.half(), idx)

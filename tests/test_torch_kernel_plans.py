@@ -169,3 +169,37 @@ def test_generative_plans():
     assert (p.body, p.cin_tile, p.cout_tile, p.vec) == ("mma", 32, 32, 4)
     assert dw.plan(27, 1, 16, 342916, SMS).body == "simt"
     assert gg.plan(342916, 27, 16, 1, SMS).vec == 1  # phase 15 checks the stem's dX too: Cout 1
+
+
+@pytest.mark.parametrize(
+    "cin,cout,aligned,vec",
+    [
+        (32, 48, True, 8), (336, 256, True, 8), (512, 1024, True, 8),  # the FCNN's edges
+        (48, 64, False, 2),   # not 16-byte aligned: 4-byte copies
+        (6, 70, True, 2),     # even widths, not multiples of 8
+        (5, 64, True, 1),     # odd Cin: plain 2-byte loads
+        (64, 33, True, 1),    # odd Cout
+    ],
+)
+def test_bf16_copy_widths(cin, cout, aligned, vec):
+    """The bf16 instances copy 8 elements (16 bytes) where both widths are
+    multiples of 8 and the pointers aligned, 2 (4 bytes) for even widths,
+    1 (plain loads) for odd ones; the float32 plans are unchanged."""
+    assert gg.plan(1000, 27, cin, cout, SMS, aligned, bf16=True).vec == vec
+    assert dw.plan(27, cin, cout, 1000, SMS, aligned, bf16=True).vec == vec
+    f32 = 4 if aligned and cin % 4 == 0 and cout % 4 == 0 else 1
+    assert gg.plan(1000, 27, cin, cout, SMS, aligned).vec == f32
+    assert dw.plan(27, cin, cout, 1000, SMS, aligned).vec == f32
+
+
+def test_bf16_plans_keep_the_tiles_and_splits():
+    """Only the copy width depends on the dtype: S, the offset ranges, the
+    tiles and the body are those of the float32 instance on the same
+    shapes (the workspace stays float32)."""
+    for args in [(125, 27, 384, 256), (51000, 27, 96, 96), (618, 8, 128, 256), (3000, 125, 3, 32)]:
+        a, b = gg.plan(*args, SMS), gg.plan(*args, SMS, bf16=True)
+        assert a._replace(vec=0) == b._replace(vec=0)
+    for args in [(27, 96, 96, 20000), (27, 384, 256, 618), (125, 3, 32, 3000), (27, 16, 16, 4716408)]:
+        a, b = dw.plan(*args, SMS), dw.plan(*args, SMS, bf16=True)
+        assert a._replace(vec=0) == b._replace(vec=0)
+    assert gg.plan(3000, 125, 3, 32, SMS, bf16=True).body == "simt"

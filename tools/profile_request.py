@@ -60,7 +60,14 @@ by splatting) in train mode as in its phase 23, on the batch of step 8:
     output at the field's points) alone on that batch, each forward and
     backward under the profiler: their busy device time beside the step's;
 
-and, last, one JSON line with the numbers of all six.
+Then the training step of 5-6 again under ``MT.set_compute_dtype(torch.bfloat16)``:
+
+11. five steps and one profiled step as in 6 (K1 and K2 run their bf16
+    instances), with the device time and count of the elementwise copy
+    kernels, which carry the dtype casts (the conv's features and weights,
+    batch norm's float32 round trip), beside step 6's;
+
+and, last, one JSON line with the numbers of all seven.
 """
 
 from __future__ import annotations
@@ -90,6 +97,7 @@ from minkowskiengine_tpu_torch.utils.datasets import CoordinateTransformation  #
 K1_NAME = "gather_gemm_"  # gather_gemm_mma_kernel, gather_gemm_stem_kernel
 K2_NAME = "conv_dw_"  # conv_dw_mma_kernel, conv_dw_stem_kernel
 SPLITS_NAME = "sum_splits_kernel"  # the second pass of either kernel
+COPY_NAME = "copy_kernel"  # elementwise copies: dtype casts, contiguous()
 SEED = 0
 REPEATS = 5
 
@@ -132,12 +140,14 @@ def device_split(prof, secs):
     k1_us, k1_n = span(K1_NAME)
     k2_us, k2_n = span(K2_NAME)
     sums_us, sums_n = span(SPLITS_NAME)
+    copy_us, copy_n = span(COPY_NAME)
     wall_us = secs * 1e6
     return dict(
         wall_ms=wall_us / 1e3, device_busy_ms=device_us / 1e3, device_events=len(device),
         gather_gemm_ms=k1_us / 1e3, gather_gemm_launches=k1_n,
         conv_dw_ms=k2_us / 1e3, conv_dw_launches=k2_n,
-        split_sums_ms=sums_us / 1e3, split_sums=sums_n, idle_share=1 - device_us / wall_us,
+        split_sums_ms=sums_us / 1e3, split_sums=sums_n, copy_kernels_ms=copy_us / 1e3,
+        copy_kernels=copy_n, idle_share=1 - device_us / wall_us,
     )
 
 
@@ -152,20 +162,29 @@ def train_once(model, opt, scans, labels, dev):
     return time.perf_counter() - t0
 
 
-def profile_train(dev):
+def profile_train(dev, steps_tag="5 training steps", profiled_tag="6 profiled step"):
     model = MinkUNet34(3, 20, D=3, generator=torch.Generator().manual_seed(0), device=dev).train()
     opt = torch.optim.SGD(model.parameters(), lr=0.01)
     scans = [scan(SEED), scan(SEED + 1)]
     labels = labels_for(0, sum(len(c) for c, _ in scans))
     train_once(model, opt, scans, labels, dev)  # warm-up
     steps = [train_once(model, opt, scans, labels, dev) * 1e3 for _ in range(REPEATS)]
-    print(f"[5 training steps] {len(labels)} voxels, ms: {', '.join(f'{t:.2f}' for t in steps)}")
+    print(f"[{steps_tag}] {len(labels)} voxels, ms: {', '.join(f'{t:.2f}' for t in steps)}")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         secs = train_once(model, opt, scans, labels, dev)
     split = device_split(prof, secs)
-    report("6 profiled step", split, prof)
+    report(profiled_tag, split, prof)
     return {"voxels": len(labels), "step_ms": steps,
             **{f"profiled_{k}": v for k, v in split.items()}}
+
+
+def profile_bf16_train(dev):
+    """Step 11: the step of 5-6 under the bf16 compute policy."""
+    MT.set_compute_dtype(torch.bfloat16)
+    try:
+        return profile_train(dev, "11 bf16 training steps", "11 profiled bf16 step")
+    finally:
+        MT.set_compute_dtype(None)
 
 
 def report(tag, split, prof):
@@ -176,7 +195,8 @@ def report(tag, split, prof):
         f"gather_gemm {split['gather_gemm_ms']:.3f} ms in {split['gather_gemm_launches']} "
         f"launches, conv_dw {split['conv_dw_ms']:.3f} ms in {split['conv_dw_launches']} "
         f"launches, split sums {split['split_sums_ms']:.3f} ms in {split['split_sums']} "
-        f"kernels; device idle {100 * split['idle_share']:.1f}% of the wall"
+        f"kernels, elementwise copies {split['copy_kernels_ms']:.3f} ms in "
+        f"{split['copy_kernels']} kernels; device idle {100 * split['idle_share']:.1f}% of the wall"
     )
     print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=20))
 
@@ -420,10 +440,12 @@ def main() -> int:
     fcnn_batch, fcnn_train = profile_classification(dev)
     completion = profile_completion(dev)
     splat = profile_splat(dev)
+    bf16_train = profile_bf16_train(dev)
     print(json.dumps({
         "request": request, "train_step": train,
         "fcnn_batch": fcnn_batch, "fcnn_train_step": fcnn_train,
         "completion_train_step": completion, "splat_fcnn_train_step": splat,
+        "bf16_train_step": bf16_train,
     }))
     return 0
 
