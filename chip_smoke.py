@@ -193,6 +193,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    gradients and running statistics bit-equal, 2 NCCL all-reduces per
    batch norm counted; then against the plain batch norm's step, both held
    to the float64 run as phase 30.
+33. fresh-geometry replay: the oplog of ``MinkUNet34(3, 20, D=3)`` recorded
+   on phase 9's batch 0; a ``GeometryReplayer`` warmed on two batches;
+   then, on six fresh two-scan batches, the eager manager (a forward),
+   the sync replay, the deferred replay and ``CompiledReplayer.run`` (one
+   CUDA graph): maps, kernel maps and stride maps bit-equal to the eager
+   manager's, index for index; per mode the host ms of the coordinate
+   phase and its host syncs (torch's sync debug mode), the compiled one
+   exactly one per batch; the graphs captured, and no recovery.
+34. fresh-geometry training: 4 SGD steps (lr 0.01) on phase 9's batches
+   through ``CompiledReplayer.run`` -> ``from_geometry`` -> ``SparseTensor``
+   -> forward, cross-entropy, backward, beside the same steps in phase 9's
+   form from the same weights: losses and every parameter gradient
+   bit-equal, 109 + 55 launches per step, wall time per step of both and
+   their peak memory.
+35. floor violation: one strided level's floor lowered below its count at
+   the same bucket: ``ok`` comes back false, ``recover`` ratchets the
+   floor, bumps the version and the next run recaptures; its geometry
+   equals the eager manager's.
 
 Bound of a kernel call: the larger of its useful operations (2 · pairs ·
 Cin · Cout) over the H100's 495 TFLOP/s dense TF32 tensor peak and its
@@ -213,6 +231,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -2153,6 +2172,273 @@ def bf16_path(dev, launches, reuse):
     return unet_rows + fcnn_rows
 
 
+# the coordinate manager's building calls, timed in an eager forward
+COORDINATE_CALLS = (
+    "insert_and_map", "stride", "stride_region", "origin", "origin_map", "kernel_map",
+    "stride_map", "merge",
+)
+# phase 33's batches: two to warm the replayer, six fresh ones
+WARM_SEEDS, FRESH_SEEDS = (100, 102), (104, 106, 108, 110, 112, 114)
+
+
+class SyncCount:
+    """Host syncs inside the block, by torch's sync debug mode ("warn")."""
+
+    def __enter__(self):
+        self._catch = warnings.catch_warnings(record=True)
+        self._caught = self._catch.__enter__()
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.set_sync_debug_mode(0)
+        self._catch.__exit__(*exc)
+        self.n = sum("synchronizing" in str(w.message) for w in self._caught)
+
+
+class CoordinateClock:
+    """Host ms and host syncs inside the manager's building calls during an
+    eager forward: each outermost call starts on an idle card and ends
+    with a synchronize, so its time is the coordinate work alone."""
+
+    def __init__(self):
+        self.ms, self.syncs, self._depth = 0.0, 0, 0
+
+    def __enter__(self):
+        self._saved = {n: getattr(MT.CoordinateManager, n) for n in COORDINATE_CALLS}
+        for name, fn in self._saved.items():
+            setattr(MT.CoordinateManager, name, self._timed(fn))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._saved.items():
+            setattr(MT.CoordinateManager, name, fn)
+
+    def _timed(self, fn):
+        def call(*args, **kw):
+            if self._depth:
+                return fn(*args, **kw)
+            torch.cuda.synchronize()
+            self._depth += 1
+            t0 = time.perf_counter()
+            try:
+                with SyncCount() as count:
+                    out = fn(*args, **kw)
+                torch.cuda.synchronize()
+                return out
+            finally:
+                self._depth -= 1
+                self.ms += (time.perf_counter() - t0) * 1e3
+                self.syncs += count.n
+        return call
+
+
+def host_phase(fn):
+    """(fn's result, host ms from an idle card to the end of its device
+    work, host syncs it made)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with SyncCount() as count:
+        out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3, count.n
+
+
+def same_geometry(tag, got, want):
+    """A Geometry against an eager manager: the same keys, and coordinates,
+    packed keys, kernel maps and stride maps bit-equal, index for index."""
+    bad = []
+    if list(got.maps) != list(want._maps) or set(got.kernel_maps) != set(want._kernel_maps):
+        bad.append("keys")
+    else:
+        bad += [k for k, m in want._maps.items() if not (
+            torch.equal(got.maps[k].coordinates, m.coordinates)
+            and torch.equal(got.maps[k].keys, m.keys))]
+        bad += [k[:2] for k, km in want._kernel_maps.items() if not (
+            torch.equal(got.kernel_maps[k].in_idx, km.in_idx)
+            and torch.equal(got.kernel_maps[k].out_idx_t, km.out_idx_t))]
+        bad += [k for k, sm in want._stride_maps.items()
+                if not torch.equal(got.stride_maps[k], sm)]
+    if bad:
+        raise AssertionError(f"{tag}: geometry differs from the eager manager's at {bad}")
+
+
+def fresh_geometry(dev, launches, reuse):
+    """Phases 33-35: geometry replay and training on fresh geometry."""
+    start = time.perf_counter()
+    init, raw, labels = reuse["unet_init"], reuse["raw"], reuse["labels"]
+
+    def unet(train):
+        net = MinkUNet34(3, 20, D=3, device=dev)
+        net.load_state_dict(init)
+        return net.train(train)
+
+    def on_card(scans):
+        coords, feats = collate(scans)
+        return coords.to(dev), feats.to(dev)
+
+    # 33. record, warm, then six fresh batches in every mode
+    recorder = unet(False)
+    coords, feats = on_card(raw[0])
+    x = MT.SparseTensor(feats, coords)
+    with torch.no_grad():
+        recorder(x)
+    log = x.coordinate_manager.oplog()
+    kinds = {k: [e[0] for e in log].count(k) for k in dict.fromkeys(e[0] for e in log)}
+    replayer = MT.GeometryReplayer(x.coordinate_manager)
+    for s in WARM_SEEDS:
+        replayer(on_card([scan(s), scan(s + 1)])[0])
+    compiled = MT.CompiledReplayer(x.coordinate_manager).adopt(replayer)
+    print(f"[33 fresh-geometry replay] oplog of {len(log)} entries {kinds} on {len(coords)} "
+          f"voxels; floors after {len(WARM_SEEDS)} warm batches: "
+          f"{ {k[0][0]: v for k, v in replayer.cap_floors.items() if k[0] != 'kmax'} }")
+    batch = on_card([scan(WARM_SEEDS[0]), scan(WARM_SEEDS[0] + 1)])
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    geo, _, _ = compiled.run(*batch)  # the capture
+    del geo, batch
+    torch.cuda.synchronize()
+    held = (torch.cuda.memory_allocated() - held) / 2**20
+    modes = {m: ([], []) for m in ("eager", "sync", "deferred", "compiled")}
+    fresh = [on_card([scan(s), scan(s + 1)]) for s in FRESH_SEEDS]
+    for i, (c, f) in enumerate(fresh):
+        clock = CoordinateClock()
+        with clock:
+            x = MT.SparseTensor(f, c)
+            with torch.no_grad():
+                recorder(x)
+        eager = x.coordinate_manager
+        modes["eager"][0].append(clock.ms)
+        modes["eager"][1].append(clock.syncs)
+        runs = {
+            "sync": lambda: MT.CoordinateManager.replay(log, c, deferred=False).export_geometry(),
+            "deferred": lambda: replayer(c).export_geometry(),
+            "compiled": lambda: compiled.run(c, f),
+        }
+        for mode, fn in runs.items():
+            out, ms, syncs = host_phase(fn)
+            if mode == "compiled":
+                geo, fp, ok = out
+                if not ok or fp.shape != (len(c), 3):
+                    raise AssertionError(f"batch {i}: compiled replay ok {ok}")
+            else:
+                geo = out
+            same_geometry(f"33 batch {i} {mode}", geo, eager)
+            modes[mode][0].append(ms)
+            modes[mode][1].append(syncs)
+        print(f"  batch {i}: {len(c)} voxels; host ms / syncs: " + ", ".join(
+            f"{m} {v[0][-1]:.2f} / {v[1][-1]}" for m, v in modes.items()))
+        del x, eager
+    graph = next(iter(compiled._graphs.values())).graph
+    print("  median host ms of the coordinate phase: " + ", ".join(
+        f"{m} {median(dict(enumerate(v[0]))):.2f}" for m, v in modes.items())
+        + f"; graphs captured {compiled.captures}, recoveries {compiled.recoveries}; the "
+        f"graph's replay alone {cuda_ms(graph.replay):.3f} ms (CUDA events); the graph and its "
+        f"static inputs hold {held:.1f} MiB")
+    if modes["compiled"][1] != [1] * len(fresh) or compiled.recoveries or compiled.captures != 1:
+        raise AssertionError(f"compiled replay: syncs {modes['compiled'][1]}, captures "
+                             f"{compiled.captures}, recoveries {compiled.recoveries}")
+    del recorder
+
+    # 34. four SGD steps on phase 9's batches, eager and through the graph;
+    # the gradients are compared on the host, so neither peak holds them
+    def host_grads(net):
+        return {k: p.grad.detach().cpu() for k, p in net.named_parameters()}
+
+    def eager_steps():
+        net = unet(True)
+        opt = torch.optim.SGD(net.parameters(), lr=LR)
+        out = []
+        for scans, lab in zip(raw, labels):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            coords, feats = collate(scans)
+            loss, _ = train_step(net, opt, coords, feats, lab, dev)
+            opt.step()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            out.append((loss.item(), host_grads(net), secs * 1e3))
+        return out
+
+    def compiled_steps():
+        net = unet(True)
+        opt = torch.optim.SGD(net.parameters(), lr=LR)
+        out = []
+        for scans, lab in zip(raw, labels):
+            fwd_dx, dw = gather_gemm.launches, conv_dw.launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            coords, feats = collate(scans)
+            coords, feats = coords.to(dev), feats.to(dev)
+            t1 = time.perf_counter()
+            geo, fp, ok = compiled.run(coords, feats)
+            if not ok:
+                geo, fp = compiled.recover(coords, feats)
+            t2 = time.perf_counter()
+            view = MT.CoordinateManager.from_geometry(geo)
+            out_t = net(MT.SparseTensor(fp, coordinate_map_key=geo.entry_key,
+                                        coordinate_manager=view))
+            loss = torch.nn.functional.cross_entropy(out_t.F.float(), lab.to(dev))
+            opt.zero_grad()
+            loss.backward()
+            opt.step()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            n = (gather_gemm.launches - fwd_dx, conv_dw.launches - dw)
+            if out_t.F.shape != (len(coords), 20) or len(view._maps) != len(geo.maps):
+                raise AssertionError(f"compiled step: logits {tuple(out_t.F.shape)}")
+            out.append((loss.item(), host_grads(net), secs * 1e3, (t2 - t1) * 1e3, n))
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    eager = eager_steps()
+    eager_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    steps = compiled_steps()
+    take_launches(launches)
+    peak = torch.cuda.max_memory_allocated()
+    for i, ((loss_e, grads_e, ms_e), (loss_c, grads_c, ms_c, coord_ms, n)) in enumerate(
+            zip(eager, steps)):
+        same = loss_e == loss_c and all(torch.equal(grads_c[k], g) for k, g in grads_e.items())
+        print(f"[34 fresh-geometry training] step {i}: loss {loss_c:.6f} (eager {loss_e:.6f}), "
+              f"{len(grads_e)} gradients bit-equal: {same}; {ms_c:.2f} ms (replay {coord_ms:.2f} "
+              f"ms of it) vs eager {ms_e:.2f} ms; {n[0]} gather_gemm and {n[1]} conv_dw launches")
+        if not same or n != (MIN_LAUNCHES + MIN_DX_LAUNCHES, MIN_LAUNCHES):
+            raise AssertionError(f"fresh-geometry step {i}: bit-equal {same}, launches {n}")
+    print(f"  peak device memory: compiled steps {peak / 2**30:.2f} GiB, eager steps "
+          f"{eager_peak / 2**30:.2f} GiB; graphs captured {compiled.captures}, recoveries "
+          f"{compiled.recoveries}")
+    if compiled.recoveries:
+        raise AssertionError(f"{compiled.recoveries} recoveries after warm-up")
+    del eager, steps
+
+    # 35. a strided level's floor below its count, at the same bucket
+    c, f = fresh[0]
+    level = ((8, 8, 8), "")
+    want = MT.CoordinateManager.replay(log, c, deferred=False)
+    rows = want.size(MT.CoordinateMapKey(*level))
+    low = MT.GeometryReplayer(want)
+    low.cap_floors = dict(replayer.cap_floors)
+    low.cap_floors[level] = rows // 2
+    compiled.adopt(low)
+    version, captures = compiled._version, compiled.captures
+    _, _, ok = compiled.run(c, f)
+    geo, _ = compiled.recover(c, f)
+    ratcheted = compiled.cap_floors[level]
+    geo2, _, ok2 = compiled.run(c, f)
+    print(f"[35 floor violation] level {level[0]}: {rows} rows, floor lowered to {rows // 2}: ok "
+          f"{ok}; recover ratchets it to {ratcheted}, version {version} -> {compiled._version}, "
+          f"graphs captured {captures} -> {compiled.captures}; rerun ok {ok2}")
+    if ok or not ok2 or ratcheted < rows or compiled._version <= version or (
+            compiled.captures != captures + 2):
+        raise AssertionError("floor violation: no recovery")
+    same_geometry("35 recover", geo, want)
+    same_geometry("35 rerun", geo2, want)
+    print(f"[33-35] {time.perf_counter() - start:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -2192,6 +2478,7 @@ def main() -> int:
     splat_bwd = splat_and_se(dev, launches)
     shim_bwd = data_loader_path(dev, launches)
     bf16_bwd = bf16_path(dev, launches, reuse)
+    fresh_geometry(dev, launches, reuse)
 
     bwd = synth_bwd + real_bwd + fcnn_bwd + gen_rows + completion_bwd + vae_bwd + splat_bwd + shim_bwd
     errors = {

@@ -7,7 +7,10 @@ convolution (with channelwise convolution and the Function
 shims), pooling, normalization, the nonlinearities and
 ``MinkowskiFunctional``, pruning, union, broadcast, interpolation and
 splatting, SPMM; the MinkUNet, ResNet, point-cloud classification and
-generative (CompletionNet, VAE) models, for inference and training.  The
+generative (CompletionNet, VAE) models, for inference and training; and
+geometry replay for training on fresh point clouds (``Geometry``,
+``GeometryReplayer``, ``CompiledReplayer``: the coordinate phase recorded
+once and replayed per batch, on the card as one CUDA graph).  The
 sparse convolution runs on two hand-written Hopper kernels: the gather-GEMM
 for the forward and the input gradient (``kernels/gather_gemm.py``,
 ``csrc/gather_gemm.cu``) and the weight gradient (``kernels/conv_dw.py``,
@@ -24,6 +27,7 @@ from .coords.manager import (
     set_memory_manager_backend,
 )
 from .coords.map import CoordinateMap
+from .coords.geometry import CompiledReplayer, Geometry, GeometryReplayer, stack_geometries
 from .kernel_generator import KernelGenerator, KernelRegion, convert_region_type, get_kernel_volume
 from . import nn
 from .nn import *  # noqa: F401,F403 (the reference exports every layer at the top level)
@@ -76,6 +80,7 @@ CoordsManager = CoordinateManager  # the reference keeps the v0.4 name
 __all__ = nn.__all__ + [
     "BroadcastMode",
     "CUDAKernelMapMode",
+    "CompiledReplayer",
     "ConvolutionMode",
     "CoordinateManager",
     "CoordinateMap",
@@ -83,6 +88,8 @@ __all__ = nn.__all__ + [
     "CoordinateMapType",
     "CoordsManager",
     "GPUMemoryAllocatorType",
+    "Geometry",
+    "GeometryReplayer",
     "KernelGenerator",
     "KernelMap",
     "KernelRegion",
@@ -120,6 +127,7 @@ __all__ = nn.__all__ + [
     "sparse_tensor_operation_mode",
     "spmm",
     "spmm_average",
+    "stack_geometries",
     "sum",
     "utils",
 ]

@@ -1,13 +1,36 @@
-"""Coordinate engine: packed keys, sorted maps, kernel maps, the manager."""
+"""Coordinate engine: packed keys, sorted maps, kernel maps, the manager,
+and geometry replay for training on fresh point clouds."""
 
 from .kernel_map import KernelMap, build_kernel_map
-from .manager import CoordinateManager, CoordinateMapKey
-from .map import CoordinateMap
+from .manager import (
+    CapacityFloorExceeded,
+    CoordinateManager,
+    CoordinateMapKey,
+    UntraceableReplay,
+)
+from .map import CoordinateMap, bucket_capacity
+from .geometry import (
+    CompiledReplayer,
+    Geometry,
+    GeometryReplayer,
+    index_geometry,
+    squeeze_geometry,
+    stack_geometries,
+)
 
 __all__ = [
+    "CapacityFloorExceeded",
+    "CompiledReplayer",
     "CoordinateManager",
     "CoordinateMap",
     "CoordinateMapKey",
+    "Geometry",
+    "GeometryReplayer",
     "KernelMap",
+    "UntraceableReplay",
+    "bucket_capacity",
     "build_kernel_map",
+    "index_geometry",
+    "squeeze_geometry",
+    "stack_geometries",
 ]

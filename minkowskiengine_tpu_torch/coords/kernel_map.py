@@ -16,11 +16,18 @@ its TPU kernel is not carried over.
 Pooling with stride == kernel size takes the stride-map fast path: a
 many-to-one stride map (``build_stride_map``) wrapped as a kernel map whose
 rows are collision slots, not offsets (``stride_map_to_kernel_map``).
+
+Every map-building function also takes padded maps
+(``PaddedCoordinateMap``, geometry replay): an output row past the map's
+count pairs with nothing (-1 in every slot), and a padded input row is
+never probed, so cutting the result to the exact counts gives the eager
+map index for index.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -60,16 +67,21 @@ class KernelMap:
 
 
 def _build_queries(out_coords: torch.Tensor, offsets: torch.Tensor):
-    """Probe keys (K, N_out) and their overflow mask."""
-    queries = out_coords.to(torch.int64)[None, :, :] + offsets[:, None, :]
-    return K.pack(queries), K.overflow_mask(queries)
+    """Probe keys (K, N_out) and their overflow mask, built from the output
+    rows' keys and the offsets' key deltas: the (K, N_out, D+1) query
+    coordinates are never formed."""
+    keys = K.pack(out_coords)[None, :] + K.pack_offsets(offsets)[:, None]
+    return keys, K.overflow_mask_of_sum(out_coords, offsets)
 
 
 def _build_in_idx(
-    in_keys: torch.Tensor, out_coords: torch.Tensor, offsets: torch.Tensor
+    in_keys: torch.Tensor, out_coords: torch.Tensor, offsets: torch.Tensor, out_valid=None
 ) -> torch.Tensor:
-    """in_idx[k, o] = row of (out_coords[o] + offsets[k]) in the in-map, or -1."""
+    """in_idx[k, o] = row of (out_coords[o] + offsets[k]) in the in-map, or
+    -1; -1 in every slot of an output row where ``out_valid`` is false."""
     q_keys, invalid = _build_queries(out_coords, offsets)
+    if out_valid is not None:
+        invalid |= ~out_valid[None, :]
     rows = find_rows(in_keys, q_keys)
     return rows.masked_fill_(invalid, -1)
 
@@ -107,10 +119,10 @@ def build_kernel_map(
         offsets = np.concatenate(
             [np.zeros((offsets.shape[0], 1), np.int64), offsets], axis=1
         )
-    offs = torch.as_tensor(offsets, device=out_map.device)
-    in_idx = _build_in_idx(in_map.keys, out_map.coordinates, offs)
-    out_idx_t = _invert_matching(in_idx, in_map.size)
-    return KernelMap(in_idx, out_idx_t, in_map.size, out_map.size)
+    offs = K.device_constant(offsets, device=out_map.device)
+    in_idx = _build_in_idx(in_map.keys, out_map.coordinates, offs, out_map.valid_mask())
+    out_idx_t = _invert_matching(in_idx, in_map.rows)
+    return KernelMap(in_idx, out_idx_t, in_map.rows, out_map.rows)
 
 
 def build_stride_map(
@@ -123,16 +135,21 @@ def build_stride_map(
     src/coordinate_map_cpu.hpp:672-722).
     """
     c = in_map.coordinates
-    stride = torch.tensor(out_tensor_stride, dtype=torch.int32, device=c.device)
+    stride = K.device_constant(out_tensor_stride, torch.int32, c.device)
     spatial = torch.div(c[:, 1:], stride, rounding_mode="floor") * stride
     queries = torch.cat([c[:, :1], spatial], dim=1)
     rows = find_rows(out_map.keys, K.pack(queries))
-    return rows.masked_fill_(K.overflow_mask(queries), -1)
+    invalid = K.overflow_mask(queries)
+    in_valid = in_map.valid_mask()
+    if in_valid is not None:
+        invalid |= ~in_valid
+    return rows.masked_fill_(invalid, -1)
 
 
 def _collision_rank(in_to_out: torch.Tensor, n_out: int):
     """rank[i] = position of input i among the inputs sharing its output
-    row, in input-row order (a stable sort); and the largest count."""
+    row, in input-row order (a stable sort); and the largest count, a 0-d
+    device tensor."""
     n_in = in_to_out.shape[0]
     dev = in_to_out.device
     valid = in_to_out >= 0
@@ -144,11 +161,13 @@ def _collision_rank(in_to_out: torch.Tensor, n_out: int):
     seg_start = torch.cummax(torch.where(is_new, pos, 0), 0).values
     rank = torch.empty_like(pos)
     rank[order] = pos - seg_start
-    max_rank = int(torch.where(valid, rank, -1).max()) + 1 if n_in else 0
+    max_rank = torch.where(valid, rank, -1).max() + 1 if n_in else rank.new_zeros(())
     return rank, max_rank
 
 
-def stride_map_to_kernel_map(in_to_out: torch.Tensor, n_in: int, n_out: int) -> KernelMap:
+def stride_map_to_kernel_map(
+    in_to_out: torch.Tensor, n_in: int, n_out: int, kmax_floor: Optional[int] = None
+) -> Tuple[KernelMap, torch.Tensor]:
     """Wrap a many-to-one stride map as a (Kmax, N_out) kernel map.
 
     Counterpart of ``_stride_map_to_kernel_map`` in
@@ -157,13 +176,17 @@ def stride_map_to_kernel_map(in_to_out: torch.Tensor, n_in: int, n_out: int) -> 
     slots: slot r holds the r-th input, in input-row order, of each output
     voxel.  Max pooling's tie-break and average pooling's sum order follow
     that order.  ``Kmax`` (most inputs per voxel) is read on the host once,
-    when the map is built and cached.
+    when the map is built and cached; geometry replay passes ``kmax_floor``
+    instead and checks on the device that it held.  Returns the map and the
+    most inputs per voxel, a 0-d device tensor.
     """
     dev = in_to_out.device
     rank, max_rank = _collision_rank(in_to_out, n_out)
-    kmax = max(max_rank, 1)
+    kmax = max(int(max_rank), 1) if kmax_floor is None else kmax_floor
     valid = in_to_out >= 0
-    flat_tgt = torch.where(valid, rank * n_out + in_to_out.long(), kmax * n_out)
+    # a slot past a floor that did not hold is dropped (the check reports it)
+    fits = valid & (rank < kmax)
+    flat_tgt = torch.where(fits, rank * n_out + in_to_out.long(), kmax * n_out)
     flat = torch.full((kmax * n_out + 1,), -1, dtype=torch.int32, device=dev)
     flat.scatter_(0, flat_tgt, torch.arange(n_in, dtype=torch.int32, device=dev))
     in_idx = flat[:-1].view(kmax, n_out)
@@ -171,4 +194,4 @@ def stride_map_to_kernel_map(in_to_out: torch.Tensor, n_in: int, n_out: int) -> 
     out_idx_t = torch.where(
         (slots == rank[None, :]) & valid[None, :], in_to_out[None, :], -1
     ).to(torch.int32)
-    return KernelMap(in_idx, out_idx_t, n_in, n_out)
+    return KernelMap(in_idx, out_idx_t, n_in, n_out), max_rank

@@ -14,6 +14,12 @@ Bit budget (``bit_allocation``) is the JAX package's: D <= 3 uses 16 batch
 bits and 16 bits per coordinate (±32768), 4 <= D <= 6 uses 12 batch bits
 and ``52 // D`` bits per coordinate.  Wider dimensions need multi-word keys
 and are not ported.  Out-of-range rows are reported by ``overflow_mask``.
+
+``PAD_KEY``, the largest int64, tags the padded tail of a map built at a
+fixed capacity (geometry replay): it sorts after every real key and never
+matches a query.  It is the packing of the one maximal tuple at a full
+64-bit budget, which ``overflow_mask`` refuses as the JAX package refuses
+its padding key; at a smaller budget every valid key lies below it.
 """
 
 from __future__ import annotations
@@ -21,9 +27,11 @@ from __future__ import annotations
 import functools
 from typing import Tuple
 
+import numpy as np
 import torch
 
 MAX_DIMENSION = 6
+PAD_KEY = torch.iinfo(torch.int64).max
 
 
 @functools.lru_cache(maxsize=None)
@@ -89,3 +97,53 @@ def overflow_mask(coords: torch.Tensor) -> torch.Tensor:
             is_max = is_max & (c[..., f] == hi_v)
         bad = bad | is_max
     return bad
+
+
+def pack_offsets(offsets: torch.Tensor) -> torch.Tensor:
+    """(K,) int64 key deltas of (K, D+1) coordinate offsets: for a query
+    ``c + o`` inside the bit budget, packing is additive field by field, so
+    ``pack(c + o) == pack(c) + pack_offsets(o)`` (int64 arithmetic wraps,
+    and the true sum is a valid key).  A query outside the budget gets a
+    meaningless key: ``overflow_mask_of_sum`` flags it."""
+    bits = bit_allocation(offsets.shape[-1] - 1)
+    o = offsets.to(torch.int64)
+    pos = sum(bits)
+    delta = torch.zeros(o.shape[:-1], dtype=torch.int64, device=o.device)
+    for f, b in enumerate(bits):
+        pos -= b
+        delta = delta + o[..., f] * (2**pos)
+    return delta
+
+
+def overflow_mask_of_sum(coords: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
+    """``overflow_mask(coords[None] + offsets[:, None])`` as a (K, N) bool,
+    without the (K, N, D+1) sums: each field's bounds move by the offset."""
+    ranges = field_ranges(coords.shape[-1] - 1)
+    c = coords.to(torch.int64)
+    o = offsets.to(torch.int64)
+    bad = torch.zeros((o.shape[0], c.shape[0]), dtype=torch.bool, device=c.device)
+    for f, (lo_v, hi_v) in enumerate(ranges):
+        bad |= c[None, :, f] < (lo_v - o[:, f])[:, None]
+        bad |= c[None, :, f] > (hi_v - o[:, f])[:, None]
+    if sum(bit_allocation(coords.shape[-1] - 1)) == 64:  # the maximal tuple, as overflow_mask
+        is_max = torch.ones_like(bad)
+        for f, (_, hi_v) in enumerate(ranges):
+            is_max &= c[None, :, f] == (hi_v - o[:, f])[:, None]
+        bad |= is_max
+    return bad
+
+
+@functools.lru_cache(maxsize=512)
+def _constant(data: bytes, shape: Tuple[int, ...], dtype: str, device: str) -> torch.Tensor:
+    host = torch.frombuffer(bytearray(data), dtype=getattr(torch, dtype)).reshape(shape)
+    return host.to(device)
+
+
+def device_constant(values, dtype=torch.int64, device="cpu") -> torch.Tensor:
+    """A small host array (offsets, strides) as a tensor on ``device``,
+    copied there once and cached: a CUDA graph cannot capture a copy from
+    host memory, so the coordinate ops take their constants from here.
+    The tensor is shared: never write to it."""
+    name = str(dtype).replace("torch.", "")
+    arr = np.ascontiguousarray(values, dtype=name)
+    return _constant(arr.tobytes(), arr.shape, name, str(torch.device(device)))

@@ -16,7 +16,7 @@ def find_rows(map_keys: torch.Tensor, q_keys: torch.Tensor) -> torch.Tensor:
     n = map_keys.shape[0]
     if n == 0:
         return torch.full(q_keys.shape, -1, dtype=torch.int32, device=q_keys.device)
-    pos = torch.searchsorted(map_keys, q_keys)
+    pos = torch.searchsorted(map_keys, q_keys, out_int32=True)
     safe = pos.clamp_max(n - 1)
     found = (pos < n) & (map_keys[safe] == q_keys)
-    return torch.where(found, safe, -1).to(torch.int32)
+    return torch.where(found, safe, -1)

@@ -8,14 +8,24 @@ int64 keys and caches its result under the reference's cache keys
 (``kernel_map_key_type``, src/types.hpp:183-192).  Maps hold exact row
 counts.  Field maps (a TensorField's float coordinates), origin maps,
 stride maps and field-to-sparse maps live beside the coordinate maps.
-The JAX package's oplog and replay, slab floors and grid probes are TPU
-machinery and are not carried over.
+
+Every op that builds a map records itself in the oplog, in the JAX
+package's form and order, so that ``replay`` can run the recipe again on a
+new point cloud without the model (fresh-geometry training, see
+``coords/geometry.py``).  Replay has three modes: sync (the eager ops),
+deferred (each map at its ratcheted capacity floor with its count on the
+device, then one host transfer reads every count and cuts the maps to
+exact rows) and traced (no host sync at all: the caller reads
+``traced_ok()`` with the counts, and ``CompiledReplayer`` captures the
+whole replay in one CUDA graph).  The JAX package's slab, grid and join
+floors and its grid probes are TPU machinery and are not carried over.
 """
 
 from __future__ import annotations
 
 import itertools
-from typing import Dict, Optional, Tuple
+import math
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -25,8 +35,18 @@ from ..types import RegionType, as_tuple, resolve_device
 from . import keys as K
 from .kernel_map import KernelMap, build_kernel_map, build_stride_map, stride_map_to_kernel_map
 from .lookup import find_rows
-from .map import CoordinateFieldMap, CoordinateMap
-from .unique import unique_coordinates
+from .map import CoordinateFieldMap, CoordinateMap, PaddedCoordinateMap, bucket_capacity
+from .unique import unique_coordinates, unique_coordinates_padded
+
+
+class UntraceableReplay(RuntimeError):
+    """A traced replay reached an op with no ratcheted floor, so its
+    capacity is unknown: warm the replayer with a sync pass first."""
+
+
+class CapacityFloorExceeded(RuntimeError):
+    """A deferred or traced replay found more rows than a ratcheted floor
+    holds; the sync replay runs instead and ratchets the floor."""
 
 
 class CoordinateMapKey:
@@ -157,6 +177,41 @@ class CoordinateManager:
         # (field key, sparse key) -> sparse row of each field row
         self._field_to_sparse: Dict[tuple, torch.Tensor] = {}
         self._id_counter = itertools.count()
+        # the coordinate-op recipe (geometry replay); a frozen view
+        # (from_geometry) builds nothing
+        self._oplog: List[tuple] = []
+        self._frozen = False
+        self._entry_key: Optional[CoordinateMapKey] = None
+        # (unique_map, inverse_map) of each inserted map, for reduce_features
+        self._insert_results: Dict[tuple, tuple] = {}
+        # ratchets carried across replays: the largest capacity bucket seen
+        # for each map (by (tensor_stride, string id)), and the most inputs
+        # per voxel of each pooling fast-path map (by ("kmax", cache key))
+        self._cap_floors: Dict[tuple, int] = {}
+        self._overprovision = 1.0  # > 1 while recovering from a violated floor
+        self._deferred: Optional[dict] = None  # deferred/traced replay state
+
+    def _record(self, *entry) -> None:
+        if not self._frozen:
+            self._oplog.append(entry)
+
+    def _check_not_frozen(self, what: str) -> None:
+        if self._frozen:
+            raise RuntimeError(
+                f"cannot build {what}: this manager is a frozen Geometry view; "
+                "the op was not in the recorded coordinate phase (re-run the "
+                "eager forward to record it)"
+            )
+
+    def oplog(self) -> List[tuple]:
+        """The recorded coordinate-op recipe (see coords/geometry.py)."""
+        return list(self._oplog)
+
+    def _ratchet(self, floor_key: tuple, n: int) -> None:
+        """Raise a map's capacity floor to the bucket of ``n`` rows (times
+        the over-provision while recovering)."""
+        cap = bucket_capacity(math.ceil(n * self._overprovision))
+        self._cap_floors[floor_key] = max(self._cap_floors.get(floor_key, 0), cap)
 
     # ------------------------------------------------------------------
     # map bookkeeping
@@ -208,6 +263,7 @@ class CoordinateManager:
         self._stride_maps.clear()
         self._origin_keys.clear()
         self._field_to_sparse.clear()
+        self._insert_results.clear()
 
     def get_coordinates(self, key: CoordinateMapKey) -> torch.Tensor:
         return self._get_map(key).coordinates
@@ -215,10 +271,16 @@ class CoordinateManager:
     def get_coordinate_field(self, key: CoordinateMapKey) -> torch.Tensor:
         return self._get_field_map(key).coordinates
 
-    def _find_rows_in(self, key: CoordinateMapKey, coords: torch.Tensor) -> torch.Tensor:
-        """Row of each integer query coordinate in a map, or -1 (int32)."""
+    def _find_rows_in(
+        self, key: CoordinateMapKey, coords: torch.Tensor, valid=None
+    ) -> torch.Tensor:
+        """Row of each integer query coordinate in a map, or -1 (int32); -1
+        too where ``valid`` is false."""
         rows = find_rows(self._get_map(key).keys, K.pack(coords))
-        return rows.masked_fill_(K.overflow_mask(coords), -1)
+        invalid = K.overflow_mask(coords)
+        if valid is not None:
+            invalid |= ~valid
+        return rows.masked_fill_(invalid, -1)
 
     def __repr__(self):
         lines = [f"CoordinateManager(D={self.D}, device={self.device})"]
@@ -231,31 +293,64 @@ class CoordinateManager:
     # insertion
     # ------------------------------------------------------------------
     def _register_unique(
-        self, coords: torch.Tensor, tensor_stride: Tuple[int, ...], string_id: str
+        self,
+        coords: torch.Tensor,
+        tensor_stride: Tuple[int, ...],
+        string_id: str,
+        valid: Optional[torch.Tensor] = None,
     ):
-        """Unique ``coords`` into a new registered map.
+        """Unique the rows of ``coords`` where ``valid`` (all rows when None)
+        into a new registered map.
 
-        Returns (key, unique_map, inverse_map).
+        Returns (key, unique_map, inverse_map).  In a deferred or traced
+        replay, a map with a capacity floor is built at that capacity with
+        its count on the device (``PaddedCoordinateMap``) and both maps are
+        padded (see ``unique_padded``).
         """
+        self._check_not_frozen("a coordinate map")
+        tensor_stride = tuple(tensor_stride)
+        sid = self._unique_string_id(tensor_stride, string_id)
+        key = CoordinateMapKey(tensor_stride, sid)
+        d = self._deferred
+        if d is not None and key.get_key() in self._cap_floors:
+            if valid is None:
+                valid = torch.ones(coords.shape[0], dtype=torch.bool, device=coords.device)
+            res, u_coords, overflow = unique_coordinates_padded(
+                coords, valid, self._cap_floors[key.get_key()]
+            )
+            self._maps[key.get_key()] = PaddedCoordinateMap(
+                u_coords, res.sorted_keys, tensor_stride, res.count
+            )
+            d["maps"].append((key.get_key(), overflow))
+            return key, res.unique_map, res.inverse_map
+        if d is not None and d["traced"]:
+            raise UntraceableReplay(
+                f"no capacity floor for map {key.get_key()}; warm the replayer "
+                "with a sync pass first"
+            )
+        if valid is not None:
+            coords = coords[valid]
         res, u_coords, overflow = unique_coordinates(coords)
         if bool(overflow):
             raise ValueError(
                 "Coordinate out of packed-key range for dimension "
                 f"{self.D}; see coords/keys.py field_ranges"
             )
-        sid = self._unique_string_id(tensor_stride, string_id)
-        key = CoordinateMapKey(tensor_stride, sid)
-        self._maps[key.get_key()] = CoordinateMap(
-            u_coords, res.sorted_keys, tuple(tensor_stride)
-        )
+        self._maps[key.get_key()] = CoordinateMap(u_coords, res.sorted_keys, tensor_stride)
+        self._ratchet(key.get_key(), u_coords.shape[0])
         return key, res.unique_map, res.inverse_map
 
-    def insert_and_map(self, coordinates, tensor_stride=1, string_id: str = ""):
+    def insert_and_map(self, coordinates, tensor_stride=1, string_id: str = "", n_valid=None):
         """Insert coordinates, returning (key, (unique_map, inverse_map)).
 
         Reference: CoordinateMapManager::insert_and_map
         (src/coordinate_map_manager.cpp:349-399);
-        ``coords[unique_map][inverse_map] == coords``.
+        ``coords[unique_map][inverse_map] == coords``.  Records the insert
+        (the first one is the geometry's entry key).
+
+        ``n_valid``: a 0-d device tensor, the count of valid leading rows
+        when ``coordinates`` is padded to a fixed bucket (the traced
+        replay's calling convention); the maps are then padded too.
         """
         ts = as_tuple(tensor_stride, self.D)
         coords = torch.as_tensor(coordinates, device=self.device).to(torch.int32)
@@ -263,12 +358,22 @@ class CoordinateManager:
             raise ValueError(
                 f"coordinates must be (N, {self.D + 1}), got {tuple(coords.shape)}"
             )
-        key, unique_map, inverse_map = self._register_unique(coords, ts, string_id)
+        valid = None
+        if n_valid is not None:
+            valid = torch.arange(coords.shape[0], device=coords.device) < n_valid
+        key, unique_map, inverse_map = self._register_unique(coords, ts, string_id, valid)
+        self._record("insert", ts, string_id, key.get_key())
+        if self._entry_key is None:
+            self._entry_key = key
+        self._insert_results[key.get_key()] = (unique_map, inverse_map)
+        if self._deferred is not None:
+            self._deferred["inserts"].append((key.get_key(), n_valid))
         return key, (unique_map, inverse_map)
 
     def insert_field(self, coordinates, tensor_stride=1, string_id: str = "") -> CoordinateMapKey:
         """Insert continuous coordinates, the store behind a TensorField
         (reference: insert_field, src/coordinate_map_manager.cpp:139-186)."""
+        self._check_not_frozen("a coordinate field map")
         ts = as_tuple(tensor_stride, self.D)
         coords = torch.as_tensor(coordinates, device=self.device).to(torch.float32)
         if coords.ndim != 2 or coords.shape[1] != self.D + 1:
@@ -297,10 +402,11 @@ class CoordinateManager:
         if (out_ts, sid) in self._maps:
             return CoordinateMapKey(out_ts, sid)
         c = in_map.coordinates
-        ts = torch.tensor(out_ts, dtype=torch.int32, device=c.device)
+        ts = K.device_constant(out_ts, torch.int32, c.device)
         spatial = torch.div(c[:, 1:], ts, rounding_mode="floor") * ts
         strided = torch.cat([c[:, :1], spatial], dim=1)
-        new_key, _, _ = self._register_unique(strided, out_ts, sid)
+        new_key, _, _ = self._register_unique(strided, out_ts, sid, in_map.valid_mask())
+        self._record("stride", key.get_key(), s, string_id)
         return new_key
 
     def stride_region(
@@ -324,14 +430,24 @@ class CoordinateManager:
         sid = string_id or key.get_key()[1]
         if (out_ts, sid) in self._maps and not expand_coordinates:
             return CoordinateMapKey(out_ts, sid)
-        c = self._get_map(key).coordinates
-        offs = torch.zeros((region.volume, self.D + 1), dtype=torch.int32, device=c.device)
-        offs[:, 1:] = torch.as_tensor(region.offsets, device=c.device)
+        in_map = self._get_map(key)
+        c = in_map.coordinates
+        offs = np.zeros((region.volume, self.D + 1), np.int32)
+        offs[:, 1:] = region.offsets
+        offs = K.device_constant(offs, torch.int32, c.device)
         cand = (c[None, :, :] + offs[:, None, :]).reshape(-1, self.D + 1)
+        valid = in_map.valid_mask()
+        if valid is not None:
+            valid = valid.repeat(region.volume)
         if not is_transpose:
-            ts = torch.tensor(out_ts, dtype=torch.int32, device=c.device)
-            cand = cand[torch.all(torch.remainder(cand[:, 1:], ts) == 0, dim=1)]
-        new_key, _, _ = self._register_unique(cand, out_ts, sid)
+            ts = K.device_constant(out_ts, torch.int32, c.device)
+            aligned = torch.all(torch.remainder(cand[:, 1:], ts) == 0, dim=1)
+            valid = aligned if valid is None else valid & aligned
+        new_key, _, _ = self._register_unique(cand, out_ts, sid, valid)
+        self._record(
+            "stride_region", key.get_key(), int(region.region_type), region.offsets.tobytes(),
+            region.offsets.shape, out_ts, bool(expand_coordinates), bool(is_transpose), string_id,
+        )
         return new_key
 
     def origin(self, key: CoordinateMapKey) -> CoordinateMapKey:
@@ -339,10 +455,12 @@ class CoordinateManager:
         src/coordinate_map_cpu.hpp:492-513)."""
         k = key.get_key()
         if k not in self._origin_keys:
-            ocoords = _origin_coords(self._get_map(key).coordinates)
+            in_map = self._get_map(key)
             self._origin_keys[k], _, _ = self._register_unique(
-                ocoords, (1,) * self.D, f"origin-{k[1]}"
+                _origin_coords(in_map.coordinates), (1,) * self.D, f"origin-{k[1]}",
+                in_map.valid_mask(),
             )
+            self._record("origin", k)
         return self._origin_keys[k]
 
     def origin_field(self, key: CoordinateMapKey) -> CoordinateMapKey:
@@ -363,8 +481,12 @@ class CoordinateManager:
         origin_key = self.origin(key)
         ck = (key.get_key(), origin_key.get_key())
         if ck not in self._stride_maps:
-            ocoords = _origin_coords(self._get_map(key).coordinates)
-            self._stride_maps[ck] = self._find_rows_in(origin_key, ocoords)
+            self._check_not_frozen("an origin map")
+            in_map = self._get_map(key)
+            self._stride_maps[ck] = self._find_rows_in(
+                origin_key, _origin_coords(in_map.coordinates), in_map.valid_mask()
+            )
+            self._record("origin_map", key.get_key())
         return origin_key, self._stride_maps[ck]
 
     def origin_field_map(self, key: CoordinateMapKey) -> Tuple[CoordinateMapKey, torch.Tensor]:
@@ -373,6 +495,7 @@ class CoordinateManager:
         origin_key = self.origin_field(key)
         ck = (key.get_key(), "field", origin_key.get_key())
         if ck not in self._stride_maps:
+            self._check_not_frozen("an origin map")
             coords = self._get_field_map(key).coordinates.to(torch.int32)
             self._stride_maps[ck] = self._find_rows_in(origin_key, _origin_coords(coords))
         return origin_key, self._stride_maps[ck]
@@ -395,6 +518,7 @@ class CoordinateManager:
         gather map of the feature copy.  The new map's string id is
         ``pruned``, or ``pruned-N`` where that is taken, as in JAX.
         """
+        self._check_not_frozen("a pruned map")
         in_map = self._get_map(key)
         keep = torch.as_tensor(keep, device=in_map.device).to(torch.bool)
         if keep.shape != (in_map.size,):
@@ -418,7 +542,15 @@ class CoordinateManager:
         if any(m.tensor_stride != ts for m in maps):
             raise ValueError("merge requires identical tensor strides")
         coords = torch.cat([m.coordinates for m in maps], dim=0)
-        new_key, _, _ = self._register_unique(coords, ts, "merged")
+        masks = [m.valid_mask() for m in maps]
+        valid = None
+        if any(v is not None for v in masks):
+            valid = torch.cat([
+                torch.ones(m.rows, dtype=torch.bool, device=m.device) if v is None else v
+                for m, v in zip(maps, masks)
+            ])
+        new_key, _, _ = self._register_unique(coords, ts, "merged", valid)
+        self._record("merge", tuple(k.get_key() for k in keys))
         return new_key
 
     def union_map(self, in_keys, out_key: CoordinateMapKey):
@@ -451,6 +583,7 @@ class CoordinateManager:
         row's voxel is not in the sparse map."""
         ck = (field_key.get_key(), sparse_key.get_key())
         if ck not in self._field_to_sparse:
+            self._check_not_frozen("a field-to-sparse map")
             smap = self._get_map(sparse_key)
             qcoords = _quantize_field(self._get_field_map(field_key).coordinates, smap.tensor_stride)
             self._field_to_sparse[ck] = self._find_rows_in(sparse_key, qcoords)
@@ -582,14 +715,15 @@ class CoordinateManager:
         )
         if cache_key in self._kernel_maps:
             return self._kernel_maps[cache_key]
+        self._check_not_frozen("a kernel map")
         _, _, ks, s, dil, _, _, _, off_key = cache_key
         fast_pool = is_pool and s == ks and off_key is None
         in_map = self._get_map(in_key)
         out_map = self._get_map(out_key)
         if not is_transpose:
             if fast_pool:
-                kmap = stride_map_to_kernel_map(
-                    self.stride_map(in_key, out_key), in_map.size, out_map.size
+                kmap = self._pool_kernel_map(
+                    self.stride_map(in_key, out_key), in_map.rows, out_map.rows, cache_key
                 )
             else:
                 offs = region_offsets_for(
@@ -604,8 +738,8 @@ class CoordinateManager:
             if swapped_key in self._kernel_maps:
                 kmap = self._kernel_maps[swapped_key].swap()
             elif fast_pool:
-                kmap = stride_map_to_kernel_map(
-                    self.stride_map(out_key, in_key), out_map.size, in_map.size
+                kmap = self._pool_kernel_map(
+                    self.stride_map(out_key, in_key), out_map.rows, in_map.rows, cache_key
                 ).swap()
             else:
                 # build out→in with offsets at the *output's* (finer)
@@ -615,6 +749,28 @@ class CoordinateManager:
                 )
                 kmap = build_kernel_map(out_map, in_map, offs).swap()
         self._kernel_maps[cache_key] = kmap
+        self._record(
+            "kernel_map", in_key.get_key(), out_key.get_key(), s, ks, dil, int(region_type),
+            None if off_key is None else (off_key, np.asarray(region_offsets, np.int32).shape),
+            bool(is_transpose), bool(is_pool),
+        )
+        return kmap
+
+    def _pool_kernel_map(self, in_to_out, n_in: int, n_out: int, cache_key) -> KernelMap:
+        """The pooling fast path's map (``stride_map_to_kernel_map``), with
+        ``Kmax`` from its floor in a deferred or traced replay."""
+        floor_key = ("kmax", cache_key)
+        d = self._deferred
+        if d is not None and floor_key in self._cap_floors:
+            kmap, max_rank = stride_map_to_kernel_map(
+                in_to_out, n_in, n_out, self._cap_floors[floor_key]
+            )
+            d["kmax"].append((cache_key, max_rank))
+            return kmap
+        if d is not None and d["traced"]:
+            raise UntraceableReplay(f"no Kmax floor for pooling map {cache_key[:2]}")
+        kmap, _ = stride_map_to_kernel_map(in_to_out, n_in, n_out)
+        self._cap_floors[floor_key] = max(self._cap_floors.get(floor_key, 0), kmap.kernel_volume)
         return kmap
 
     def stride_map(self, in_key: CoordinateMapKey, out_key: CoordinateMapKey) -> torch.Tensor:
@@ -622,8 +778,283 @@ class CoordinateManager:
         fast path's map; reference: src/coordinate_map_cpu.hpp:672-722)."""
         ck = (in_key.get_key(), out_key.get_key())
         if ck not in self._stride_maps:
+            self._check_not_frozen("a stride map")
             out_map = self._get_map(out_key)
             self._stride_maps[ck] = build_stride_map(
                 self._get_map(in_key), out_map, out_map.tensor_stride
             )
+            self._record("stride_map", in_key.get_key(), out_key.get_key())
         return self._stride_maps[ck]
+
+    # ------------------------------------------------------------------
+    # quantized features of an insert
+    # ------------------------------------------------------------------
+    def reduce_features(
+        self, key: CoordinateMapKey, features, quantization_mode=None
+    ) -> torch.Tensor:
+        """The features of an inserted map's input rows reduced onto its
+        rows by the quantization mode (RANDOM_SUBSAMPLE by default): what
+        ``SparseTensor``'s constructor does, for use after ``replay``, where
+        the insert has already happened.  bf16 sums stay float32 until the
+        end, as in ``ops.functional.segment_sum``.  On a traced replay's
+        padded maps the result is padded too (zero rows past the count)."""
+        from ..sparse_tensor import quantize_features
+        from ..types import SparseTensorQuantizationMode as Q
+
+        res = self._insert_results.get(key.get_key())
+        if res is None:
+            raise KeyError(f"no insert recorded for {key.get_key()}")
+        unique_map, inverse_map = res
+        feats = torch.as_tensor(features, device=self.device)
+        mode = Q.RANDOM_SUBSAMPLE if quantization_mode is None else quantization_mode
+        return quantize_features(feats, inverse_map, unique_map.shape[0], mode, unique_map)
+
+    # ------------------------------------------------------------------
+    # geometry export and replay (coords/geometry.py)
+    # ------------------------------------------------------------------
+    def export_geometry(self):
+        """The cached coordinate state as a ``Geometry``: maps, kernel maps,
+        stride and origin maps, origin keys and the entry key.  The JAX
+        package's ``dense_plans`` do not exist here: its dense route is
+        not ported."""
+        from .geometry import Geometry
+
+        if self._deferred is not None:
+            raise RuntimeError("a traced replay's maps are padded: finalize it first")
+        return Geometry(
+            D=self.D,
+            maps=dict(self._maps),
+            kernel_maps=dict(self._kernel_maps),
+            stride_maps=dict(self._stride_maps),
+            origin_keys={k: v.get_key() for k, v in self._origin_keys.items()},
+            entry_key_tuple=self._entry_key.get_key() if self._entry_key else None,
+        )
+
+    @classmethod
+    def from_geometry(cls, geometry) -> "CoordinateManager":
+        """A frozen view over a Geometry: every lookup hits its caches, and
+        any build raises ``RuntimeError``."""
+        if geometry.row_shapes is not None:
+            raise ValueError("a stacked Geometry: take one with index_geometry first")
+        mgr = cls(D=geometry.D, device=geometry.device)
+        mgr._maps = dict(geometry.maps)
+        mgr._kernel_maps = dict(geometry.kernel_maps)
+        mgr._stride_maps = dict(geometry.stride_maps)
+        mgr._origin_keys = {k: CoordinateMapKey(*v) for k, v in geometry.origin_keys.items()}
+        if geometry.entry_key_tuple is not None:
+            mgr._entry_key = CoordinateMapKey(*geometry.entry_key_tuple)
+        mgr._frozen = True
+        return mgr
+
+    def traced_ok(self) -> torch.Tensor:
+        """0-d device bool: every floor of this traced replay held (each
+        map's count within its capacity, no coordinate out of the key
+        range, each pooling map's Kmax within its floor).  Read it once per
+        batch; on False, replay the batch in sync mode, which ratchets."""
+        d = self._deferred
+        checks = [torch.ones((), dtype=torch.bool, device=self.device)]
+        if d is not None:
+            for key_t, overflow in d["maps"]:
+                m = self._maps[key_t]
+                checks.append((m.count <= m.capacity) & ~overflow)
+            for cache_key, max_rank in d["kmax"]:
+                checks.append(max_rank <= self._cap_floors[("kmax", cache_key)])
+        return torch.stack(checks).all()
+
+    def _begin_deferred(self, traced: bool) -> None:
+        self._deferred = {"maps": [], "kmax": [], "inserts": [], "traced": traced}
+
+    def _pending_scalars(self) -> List[torch.Tensor]:
+        """The device scalars ``_finalized`` reads, in its order: each
+        padded map's count and overflow flag, each floored Kmax, each
+        traced insert's valid rows."""
+        d = self._deferred
+        out = [self._maps[k].count for k, _ in d["maps"]]
+        out += [ovf for _, ovf in d["maps"]]
+        out += [r for _, r in d["kmax"]]
+        out += [n for _, n in d["inserts"] if isinstance(n, torch.Tensor)]
+        return [t.to(torch.int64).reshape(()) for t in out]
+
+    def _finalize_deferred(self) -> "CoordinateManager":
+        """One host transfer of every pending count, then ``_finalized``."""
+        scalars = self._pending_scalars()
+        values = torch.stack(scalars).tolist() if scalars else []
+        return self._finalized(values)
+
+    def _finalized(self, values: Sequence[int]) -> "CoordinateManager":
+        """A new exact manager from this deferred one, given the host values
+        of ``_pending_scalars``: every padded map, kernel map, stride map
+        and insert result cut to its exact rows (copies, which own their
+        memory), floors ratcheted.  This manager is left as it was, so a
+        CUDA graph's outputs can be read again after the next replay.
+        Raises CapacityFloorExceeded if a floor did not hold."""
+        d = self._deferred
+        it = iter(values)
+        counts = {k: next(it) for k, _ in d["maps"]}
+        overflow = [next(it) for _ in d["maps"]]
+        kmax = {ck: next(it) for ck, _ in d["kmax"]}
+        n_in = {k: (next(it) if isinstance(n, torch.Tensor) else None) for k, n in d["inserts"]}
+        if any(overflow):
+            raise ValueError(
+                "Coordinate out of packed-key range for dimension "
+                f"{self.D}; see coords/keys.py field_ranges"
+            )
+        over = [k for k, n in counts.items() if n > self._maps[k].capacity]
+        over += [ck[:2] for ck, r in kmax.items() if r > self._cap_floors[("kmax", ck)]]
+        if over:
+            raise CapacityFloorExceeded(f"floors too small for {over}")
+
+        new = type(self)(D=self.D, device=self.device)
+        n_ids = next(self._id_counter)
+        self._id_counter, new._id_counter = itertools.count(n_ids), itertools.count(n_ids)
+        new._oplog = list(self._oplog)
+        new._entry_key = self._entry_key
+        new._origin_keys = dict(self._origin_keys)
+        new._cap_floors = dict(self._cap_floors)
+        new._overprovision = self._overprovision
+        rows = {}
+        for k, m in self._maps.items():
+            if k in counts:
+                new._maps[k], rows[k] = m.exact(counts[k]), counts[k]
+                new._ratchet(k, counts[k])
+            else:
+                new._maps[k], rows[k] = m, m.rows
+        for ck, km in self._kernel_maps.items():
+            # a transposed pooling map is its forward map swapped: same Kmax
+            pool_ck = ck if ck in kmax else (ck[1], ck[0], *ck[2:6], False, *ck[7:])
+            if ck[0] in counts or ck[1] in counts or pool_ck in kmax:
+                kv = max(kmax[pool_ck], 1) if pool_ck in kmax else km.kernel_volume
+                km = KernelMap(
+                    km.in_idx[:kv, : rows[ck[1]]].clone(memory_format=torch.contiguous_format),
+                    km.out_idx_t[:kv, : rows[ck[0]]].clone(memory_format=torch.contiguous_format),
+                    rows[ck[0]], rows[ck[1]],
+                )
+            new._kernel_maps[ck] = km
+        for ck, sm in self._stride_maps.items():
+            new._stride_maps[ck] = sm[: counts[ck[0]]].clone() if ck[0] in counts else sm
+        for k, (um, im) in self._insert_results.items():
+            if k in counts:
+                rows_in = im.shape[0] if n_in[k] is None else n_in[k]
+                um, im = um[: counts[k]].clone(), im[:rows_in].clone()
+            new._insert_results[k] = (um, im)
+        return new
+
+    @classmethod
+    def replay(
+        cls,
+        oplog: Sequence[tuple],
+        coordinates,
+        tensor_stride=1,
+        cap_floors: Optional[Dict[tuple, int]] = None,
+        deferred: Optional[bool] = None,
+        traced: bool = False,
+        n_valids=None,
+        overprovision: float = 1.0,
+        device=None,
+    ) -> "CoordinateManager":
+        """Run a recorded coordinate-op recipe again on new coordinates.
+
+        The fresh-geometry path: record the ops once (the first eager
+        forward), then replay them per batch without the model and export a
+        ``Geometry`` for the training step.  With capacity floors (deferred
+        by default then), every map is built at its floored capacity with
+        its count on the device and ONE host transfer resolves them all; a
+        floor that proves too small makes the sync replay run instead,
+        which ratchets it.  ``traced=True`` makes no host sync at all: the
+        maps stay padded, ``traced_ok()`` is the device bool to read, and a
+        missing floor raises ``UntraceableReplay`` (``CompiledReplayer`` is
+        the per-batch runner).
+
+        ``coordinates``: one (N, D+1) array, or a list with one per recorded
+        ``insert``.  ``n_valids``: per insert, a 0-d device tensor counting
+        the valid leading rows of a padded array (traced convention).
+        ``tensor_stride`` is taken from the recipe and kept for the JAX
+        signature.  ``device``: where the maps go; by default the
+        coordinates' device, or the card for host data.
+        """
+        if traced:
+            return cls._replay_once(oplog, coordinates, cap_floors, "traced", n_valids, 1.0, device)
+        if deferred is None:
+            deferred = bool(cap_floors)
+        if deferred:
+            try:
+                return cls._replay_once(
+                    oplog, coordinates, cap_floors, True, n_valids, overprovision, device
+                )
+            except CapacityFloorExceeded:
+                pass  # the sync replay below ratchets the floors
+        return cls._replay_once(
+            oplog, coordinates, cap_floors, False, n_valids, overprovision, device
+        )
+
+    @classmethod
+    def _replay_once(
+        cls, oplog, coordinates, cap_floors, mode, n_valids, overprovision, device
+    ) -> "CoordinateManager":
+        if not isinstance(coordinates, (list, tuple)):
+            coordinates = [coordinates]
+        if n_valids is not None and not isinstance(n_valids, (list, tuple)):
+            n_valids = [n_valids]
+        coords_iter = iter(coordinates)
+        nvalid_iter = iter(n_valids) if n_valids is not None else None
+        mgr = None
+        for entry in oplog:
+            op = entry[0]
+            if op == "insert":
+                _, ts, sid, produced = entry
+                c = next(coords_iter)
+                if mgr is None:
+                    dev = device
+                    if dev is None and isinstance(c, torch.Tensor):
+                        dev = c.device
+                    mgr = cls(D=int(c.shape[1]) - 1, device=dev)
+                    mgr._overprovision = float(overprovision)
+                    mgr._cap_floors.update(cap_floors or {})
+                    if mode:
+                        mgr._begin_deferred(traced=mode == "traced")
+                key, _ = mgr.insert_and_map(
+                    c, ts, sid, n_valid=next(nvalid_iter) if nvalid_iter is not None else None
+                )
+                if key.get_key() != produced:
+                    raise RuntimeError(
+                        f"replay produced key {key.get_key()}, recorded {produced}: "
+                        "op order diverged"
+                    )
+                continue
+            if mgr is None:
+                raise RuntimeError("oplog does not start with an insert")
+            if op == "stride":
+                _, in_k, stride, sid = entry
+                mgr.stride(CoordinateMapKey(*in_k), stride, sid)
+            elif op == "stride_region":
+                _, in_k, rtype, off_bytes, off_shape, out_ts, expand, is_t, sid = entry
+                offsets = np.frombuffer(off_bytes, np.int32).reshape(off_shape)
+                region = KernelRegion(RegionType(rtype), offsets)
+                mgr.stride_region(CoordinateMapKey(*in_k), region, out_ts, expand, is_t, sid)
+            elif op == "origin":
+                mgr.origin(CoordinateMapKey(*entry[1]))
+            elif op == "origin_map":
+                mgr.origin_map(CoordinateMapKey(*entry[1]))
+            elif op == "kernel_map":
+                _, in_k, out_k, stride, ks, dil, rtype, off, is_t, is_pool = entry
+                region_offs = (
+                    None if off is None else np.frombuffer(off[0], np.int32).reshape(off[1])
+                )
+                mgr.kernel_map(
+                    CoordinateMapKey(*in_k), CoordinateMapKey(*out_k), stride, ks, dil,
+                    RegionType(rtype), region_offs, is_t, is_pool,
+                )
+            elif op == "stride_map":
+                _, in_k, out_k = entry
+                mgr.stride_map(CoordinateMapKey(*in_k), CoordinateMapKey(*out_k))
+            elif op == "merge":
+                mgr.merge([CoordinateMapKey(*k) for k in entry[1]])
+            else:
+                raise RuntimeError(f"unknown oplog entry {op!r}")
+        if mgr is None:
+            raise RuntimeError("empty oplog")
+        if mode == "traced":
+            return mgr  # the checks stay on the device: see traced_ok()
+        if mode:
+            return mgr._finalize_deferred()
+        return mgr

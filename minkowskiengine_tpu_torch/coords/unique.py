@@ -9,7 +9,9 @@ contract (src/coordinate_map_cpu.hpp:340-352)::
     unique_coordinates = input_coordinates[unique_map]
     unique_coordinates[inverse_map] == input_coordinates
 
-Row counts are exact: there is no capacity padding.
+Row counts are exact: there is no capacity padding, except in
+``unique_padded``, the form geometry replay uses: the same sort at a fixed
+output capacity, with the count on the device and no host sync.
 """
 
 from __future__ import annotations
@@ -56,3 +58,55 @@ def unique_coordinates(coords: torch.Tensor):
     res = unique_from_keys(K.pack(coords))
     overflow = K.overflow_mask(coords).any()
     return res, coords[res.unique_map].to(torch.int32), overflow
+
+
+class PaddedUniqueResult(NamedTuple):
+    """Unique/inverse maps at a fixed capacity, all on the device.
+
+    Attributes:
+      sorted_keys: (capacity,) int64, ascending unique keys, then PAD_KEY.
+      unique_map: (capacity,) int64, first input row of each unique key;
+        -1 past ``count``.
+      inverse_map: (N,) int64, unique row of each valid input row; -1 for
+        an invalid row.
+      count: () int64, unique keys among the valid rows (may exceed the
+        capacity: the rows past it are dropped).
+    """
+
+    sorted_keys: torch.Tensor
+    unique_map: torch.Tensor
+    inverse_map: torch.Tensor
+    count: torch.Tensor
+
+
+def unique_padded(keys: torch.Tensor, valid: torch.Tensor, capacity: int) -> PaddedUniqueResult:
+    """``unique_from_keys`` over ``keys[valid]``, written into ``capacity``
+    rows by a scatter in place of a boolean-mask compaction, so nothing
+    waits on the host.  Invalid rows sort last as ``PAD_KEY``; on the first
+    ``count`` rows the result equals ``unique_from_keys`` index for index."""
+    keys = torch.where(valid, keys, K.PAD_KEY)
+    s_keys, order = torch.sort(keys, stable=True)
+    real = s_keys != K.PAD_KEY
+    is_new = torch.ones_like(real)
+    is_new[1:] = s_keys[1:] != s_keys[:-1]
+    is_new &= real
+    seg_id = torch.cumsum(is_new, 0) - 1
+    inverse = torch.empty_like(order)
+    inverse[order] = torch.where(real, seg_id, -1)
+    tgt = torch.where(is_new & (seg_id < capacity), seg_id, capacity)
+    unique_map = order.new_full((capacity + 1,), -1).scatter_(0, tgt, order)[:capacity]
+    sorted_keys = s_keys.new_full((capacity + 1,), K.PAD_KEY).scatter_(0, tgt, s_keys)[:capacity]
+    return PaddedUniqueResult(sorted_keys, unique_map, inverse, is_new.sum())
+
+
+def unique_coordinates_padded(coords: torch.Tensor, valid: torch.Tensor, capacity: int):
+    """``unique_padded`` over (N, D+1) integer coordinates.
+
+    Returns (PaddedUniqueResult, unique coordinates (capacity, D+1) int32
+    with zero rows past the count, overflow flag over the valid rows as a
+    0-d bool tensor)."""
+    res = unique_padded(K.pack(coords), valid, capacity)
+    overflow = (K.overflow_mask(coords) & valid).any()
+    u_coords = coords[res.unique_map.clamp_min(0)].to(torch.int32)
+    u_coords = u_coords.masked_fill_((res.unique_map < 0)[:, None], 0)
+    return res, u_coords, overflow

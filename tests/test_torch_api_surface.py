@@ -20,10 +20,6 @@ ROOT = Path(__file__).resolve().parents[1]
 
 # name -> the ROADMAP queue 1 item that still holds it
 NOT_YET_PORTED = {
-    "Geometry": "geometry and replay",
-    "GeometryReplayer": "geometry and replay",
-    "CompiledReplayer": "geometry and replay",
-    "stack_geometries": "geometry and replay",
     "parallel": "parallel",
     "spatial_execution": "parallel",
     "set_spatial_execution": "parallel",

@@ -67,7 +67,16 @@ Then the training step of 5-6 again under ``MT.set_compute_dtype(torch.bfloat16)
     kernels, which carry the dtype casts (the conv's features and weights,
     batch norm's float32 round trip), beside step 6's;
 
-and, last, one JSON line with the numbers of all seven.
+Then the training step of 5-6 on fresh geometry: the coordinate phase
+recorded once, a ``GeometryReplayer`` warmed on two other batches, and
+per step ``CompiledReplayer.run`` (one CUDA graph, one host sync) ->
+``from_geometry`` -> ``SparseTensor`` -> forward, backward, SGD:
+
+12. five steps with the host time of the replay, then one profiled step:
+    device busy, the idle share and the replay's host time, beside step
+    6's eager step;
+
+and, last, one JSON line with the numbers of all eight.
 """
 
 from __future__ import annotations
@@ -185,6 +194,59 @@ def profile_bf16_train(dev):
         return profile_train(dev, "11 bf16 training steps", "11 profiled bf16 step")
     finally:
         MT.set_compute_dtype(None)
+
+
+def profile_fresh_geometry(dev, eager):
+    """Step 12: step 6's batch through the compiled replay."""
+    model = MinkUNet34(3, 20, D=3, generator=torch.Generator().manual_seed(0), device=dev).train()
+    opt = torch.optim.SGD(model.parameters(), lr=0.01)
+    coords, feats = collate([scan(SEED), scan(SEED + 1)])
+    labels = labels_for(0, len(coords)).to(dev)
+    x = MT.SparseTensor(feats.to(dev), coords.to(dev))
+    with torch.no_grad():
+        model.eval()(x)  # records the coordinate phase
+    model.train()
+    replayer = MT.GeometryReplayer(x.coordinate_manager)
+    for s in (SEED + 2, SEED + 4):
+        replayer(collate([scan(s), scan(s + 1)])[0].to(dev))
+    compiled = MT.CompiledReplayer(x.coordinate_manager).adopt(replayer)
+
+    def step():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        c, f = coords.to(dev), feats.to(dev)
+        t1 = time.perf_counter()
+        geo, fp, ok = compiled.run(c, f)
+        if not ok:
+            geo, fp = compiled.recover(c, f)
+        t2 = time.perf_counter()
+        view = MT.CoordinateManager.from_geometry(geo)
+        out = model(MT.SparseTensor(fp, coordinate_map_key=geo.entry_key, coordinate_manager=view))
+        loss = torch.nn.functional.cross_entropy(out.F, labels)
+        opt.zero_grad()
+        loss.backward()
+        opt.step()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, t2 - t1
+
+    step()  # warm-up: the graph's capture
+    runs = [step() for _ in range(REPEATS)]
+    steps, replay = [t * 1e3 for t, _ in runs], [r * 1e3 for _, r in runs]
+    print(f"[12 fresh-geometry training steps] {len(coords)} voxels, ms: "
+          f"{', '.join(f'{t:.2f}' for t in steps)}; replay host ms: "
+          f"{', '.join(f'{t:.2f}' for t in replay)}; graphs captured {compiled.captures}, "
+          f"recoveries {compiled.recoveries}")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        secs, replay_s = step()
+    split = device_split(prof, secs)
+    report("12 profiled fresh-geometry step", split, prof)
+    print(f"  replay host {replay_s * 1e3:.2f} ms of the profiled step; against step 6's eager "
+          f"step: wall {split['wall_ms']:.2f} vs {eager['profiled_wall_ms']:.2f} ms, device busy "
+          f"{split['device_busy_ms']:.3f} vs {eager['profiled_device_busy_ms']:.3f} ms, idle "
+          f"{100 * split['idle_share']:.1f}% vs {100 * eager['profiled_idle_share']:.1f}%")
+    return {"voxels": len(coords), "step_ms": steps, "replay_host_ms": replay,
+            "profiled_replay_host_ms": replay_s * 1e3, "graphs_captured": compiled.captures,
+            "recoveries": compiled.recoveries, **{f"profiled_{k}": v for k, v in split.items()}}
 
 
 def report(tag, split, prof):
@@ -441,11 +503,12 @@ def main() -> int:
     completion = profile_completion(dev)
     splat = profile_splat(dev)
     bf16_train = profile_bf16_train(dev)
+    fresh = profile_fresh_geometry(dev, train)
     print(json.dumps({
         "request": request, "train_step": train,
         "fcnn_batch": fcnn_batch, "fcnn_train_step": fcnn_train,
         "completion_train_step": completion, "splat_fcnn_train_step": splat,
-        "bf16_train_step": bf16_train,
+        "bf16_train_step": bf16_train, "fresh_geometry_train_step": fresh,
     }))
     return 0
 
