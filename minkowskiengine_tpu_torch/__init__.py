@@ -10,7 +10,9 @@ splatting, SPMM; the MinkUNet, ResNet, point-cloud classification and
 generative (CompletionNet, VAE) models, for inference and training; and
 geometry replay for training on fresh point clouds (``Geometry``,
 ``GeometryReplayer``, ``CompiledReplayer``: the coordinate phase recorded
-once and replayed per batch, on the card as one CUDA graph).  The
+once and replayed per batch, on the card as one CUDA graph); and data,
+spatial and tensor parallelism over a ``torch.distributed`` device mesh
+(``parallel``, ``spatial_execution``).  The
 sparse convolution runs on two hand-written Hopper kernels: the gather-GEMM
 for the forward and the input gradient (``kernels/gather_gemm.py``,
 ``csrc/gather_gemm.cu``) and the weight gradient (``kernels/conv_dw.py``,
@@ -71,9 +73,10 @@ from .diagnostics import (
     print_diagnostics,
 )
 from . import config
-from .config import compute_dtype, set_compute_dtype
+from .config import compute_dtype, set_compute_dtype, set_spatial_execution, spatial_execution
 from . import utils
 from . import models
+from . import parallel
 
 CoordsManager = CoordinateManager  # the reference keeps the v0.4 name
 
@@ -117,6 +120,7 @@ __all__ = nn.__all__ + [
     "global_coordinate_manager",
     "is_cuda_available",
     "models",
+    "parallel",
     "print_diagnostics",
     "set_compute_dtype",
     "set_coordinate_map_type",
@@ -124,7 +128,9 @@ __all__ = nn.__all__ + [
     "set_gpu_allocator",
     "set_memory_manager_backend",
     "set_sparse_tensor_operation_mode",
+    "set_spatial_execution",
     "sparse_tensor_operation_mode",
+    "spatial_execution",
     "spmm",
     "spmm_average",
     "stack_geometries",

@@ -71,7 +71,7 @@ class Geometry:
 
     def to(self, device) -> "Geometry":
         """The same geometry with every tensor on ``device``."""
-        return _with_tensors(self, {p: t.to(device) for p, t, _ in _tensors(self)})
+        return _with_tensors(self, {p: t.to(device) for p, t, _ in _tensors(self)}, self.row_shapes)
 
 
 def _tensors(geo: Geometry):
@@ -144,6 +144,17 @@ def index_geometry(geo: Geometry, i: int) -> Geometry:
         p: t[(i,) + tuple(slice(0, s) for s in geo.row_shapes[p][i])].contiguous()
         for p, t, _ in _tensors(geo)
     })
+
+
+def slice_geometry(geo: Geometry, lo: int, hi: int) -> Geometry:
+    """Geometries ``lo``..``hi - 1`` of a stacked one, still stacked (a
+    rank's share of a stack, ``parallel.shard_batch``)."""
+    if geo.row_shapes is None:
+        raise ValueError("slice_geometry takes a stacked Geometry (stack_geometries)")
+    return _with_tensors(
+        geo, {p: t[lo:hi] for p, t, _ in _tensors(geo)},
+        {p: s[lo:hi] for p, s in geo.row_shapes.items()},
+    )
 
 
 def squeeze_geometry(geo: Geometry) -> Geometry:

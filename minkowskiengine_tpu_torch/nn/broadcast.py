@@ -13,13 +13,14 @@ import torch
 from torch import nn
 
 from ..ops import functional as F
-from ..sparse_tensor import SparseTensor
+from ..sparse_tensor import SparseTensor, whole_rows
 from ..types import BroadcastMode
 
 _OPS = {BroadcastMode.ELEMENTWISE_ADDITON: "add", BroadcastMode.ELEMENTWISE_MULTIPLICATION: "mul"}
 
 
 def _origin_rows(input: SparseTensor):
+    whole_rows(input, "broadcast")
     return input.coordinate_manager.origin_map(input.coordinate_map_key)
 
 

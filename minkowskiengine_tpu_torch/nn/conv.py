@@ -14,6 +14,14 @@ the conv's autograd Function, which casts it (its gradient stays float32),
 and the volume-1 product and the bias run in the features' dtype.  The
 channelwise conv casts nothing, as in JAX.  The JAX package's dense-grid dispatch is TPU-only and
 is not carried over.
+
+Parallel execution (``parallel/``): on a row block (spatial execution) a
+conv runs the halo path (``sparse_conv_kmap``), or, at volume 1, its
+row-local product; the kernel of that product and the bias enter through
+``RowBlock.replicated`` so their gradients sum over the group, and the
+output keeps the block.  The channelwise conv takes no row block.
+``apply_tensor_parallelism`` cuts a conv's Cout and wraps its calls in
+hooks of its own; the conv computes whatever slice its kernel holds.
 """
 
 from __future__ import annotations
@@ -24,11 +32,11 @@ from typing import Optional, Union
 import torch
 from torch import nn
 
-from ..config import compute_dtype
+from ..config import compute_dtype, spatial_execution_ctx
 from ..coords.manager import CoordinateManager, CoordinateMapKey
 from ..kernel_generator import KernelGenerator
 from ..ops import functional as F
-from ..sparse_tensor import SparseTensor
+from ..sparse_tensor import SparseTensor, whole_rows
 from ..types import RegionType, resolve_device
 
 
@@ -184,10 +192,18 @@ class MinkowskiConvolutionBase(nn.Module):
         cdt = compute_dtype()
         if cdt is not None and feats.dtype != cdt:
             feats = feats.to(cdt)
+        block, bias = input.row_block, self.bias
+        if block is not None and bias is not None:
+            bias = block.replicated(bias)
         if self.use_mm and coordinates is None:
-            outfeat = feats @ self.kernel.to(feats.dtype)
+            kernel = self.kernel if block is None else block.replicated(self.kernel)
+            outfeat = feats @ kernel.to(feats.dtype)
             out_key = input.coordinate_map_key
         else:
+            if block is not None and spatial_execution_ctx() != (block.mesh, block.axis_name):
+                raise ValueError(
+                    "a row block's convs run under MT.spatial_execution of its own mesh axis"
+                )
             out_key = _resolve_out_key(
                 input,
                 coordinates,
@@ -204,10 +220,11 @@ class MinkowskiConvolutionBase(nn.Module):
             kmap = self._kernel_map(input, out_key)
             kernel = self.kernel if self.kernel.ndim == 3 else self.kernel[None]
             outfeat = F.sparse_conv_kmap(feats.contiguous(), kernel.contiguous(), kmap)
-        if self.bias is not None:
-            outfeat = outfeat + self.bias.to(outfeat.dtype)
+        if bias is not None:
+            outfeat = outfeat + bias.to(outfeat.dtype)
         return SparseTensor(
-            outfeat, coordinate_map_key=out_key, coordinate_manager=input.coordinate_manager
+            outfeat, coordinate_map_key=out_key, coordinate_manager=input.coordinate_manager,
+            row_block=block,
         )
 
     def extra_repr(self):
@@ -380,6 +397,7 @@ class MinkowskiChannelwiseConvolution(nn.Module):
     ) -> SparseTensor:
         if input.F.shape[1] != self.in_channels:
             raise ValueError(f"input channels {input.F.shape[1]} != {self.in_channels}")
+        whole_rows(input, "the channelwise convolution")
         kg = self.kernel_generator
         manager = input.coordinate_manager
         out_key = _resolve_out_key(

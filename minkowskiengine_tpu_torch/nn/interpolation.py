@@ -13,7 +13,7 @@ import torch
 from torch import nn
 
 from ..ops import functional as F
-from ..sparse_tensor import SparseTensor
+from ..sparse_tensor import SparseTensor, whole_rows
 
 
 class MinkowskiInterpolationFunction:
@@ -44,6 +44,7 @@ class MinkowskiInterpolation(nn.Module):
         self.return_weights = bool(return_weights)
 
     def forward(self, input: SparseTensor, tfield):
+        whole_rows(input, "interpolation")
         out, in_map, out_map, weights = MinkowskiInterpolationFunction.apply(
             input.F, tfield, input.coordinate_map_key, input.coordinate_manager
         )

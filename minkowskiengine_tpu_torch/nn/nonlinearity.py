@@ -18,6 +18,7 @@ import torch
 from torch import nn
 from torch.nn import functional as TF
 
+from ..sparse_tensor import whole_rows
 from ..types import resolve_device
 
 
@@ -246,6 +247,10 @@ class MinkowskiPReLU(MinkowskiNonlinearityBase):
             torch.full((num_parameters,), float(init), device=resolve_device(device))
         )
 
+    def forward(self, input):
+        whole_rows(input, "PReLU's shared slope")
+        return super().forward(input)
+
     def _fn(self, x):
         return prelu_features(x, self.weight)
 
@@ -296,6 +301,7 @@ class MinkowskiSinusoidal(nn.Module):
         self.kernel = nn.Parameter(kernel.to(resolve_device(device)))
 
     def forward(self, input):
+        whole_rows(input, "Sinusoidal's shared kernel")
         return input._wrap(torch.cos(input.F @ self.kernel))
 
 

@@ -12,11 +12,22 @@ SparseTensor or a TensorField.  bf16 features are normalized in float32 and
 cast back, as JAX's ``_apply`` does (JAX nn/norm.py:88-111); the running
 statistics stay float32.
 
+Under spatial execution (an input that holds a row block of its cloud,
+``parallel/spatial.py``) batch norm in train mode takes its statistics
+over every row of the cloud, not over the block: each rank's (count, sum,
+sum of squares), in float32, are all-reduced over the block's group, as
+JAX's ``spatial_masked_moments`` does and as its partitioner does for a
+sharded batch norm; the normalization then follows
+``MinkowskiSyncBatchNorm``'s sums.  The affine parameters enter through
+``RowBlock.replicated``, so their gradients are summed over the group.
+
 ``MinkowskiSyncBatchNorm``: batch norm whose (count, sum, sum of squares),
 taken in float32, are all-reduced over a ``torch.distributed`` process group
-(the default one unless ``process_group`` names another) when one is
-initialized, with a gradient (JAX: ``lax.psum`` over a mesh axis, nn/norm.py:
-122-180).  Outside a group it normalizes with the same sums, unreduced.
+(the default one unless ``process_group`` names another, or a mesh's
+``axis_name`` group when ``process_group`` is a ``DeviceMesh``, as JAX's
+``axis_name`` names a mesh axis) when one is initialized, with a gradient
+(JAX: ``lax.psum`` over a mesh axis, nn/norm.py:122-180).  Outside a group
+it normalizes with the same sums, unreduced.
 ``convert_sync_batchnorm`` swaps a model's batch norms for it in place,
 keeping each ``.bn`` (parameters, buffers, names).
 
@@ -35,8 +46,11 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 from torch import nn
+from torch.distributed.device_mesh import DeviceMesh
 
 from ..ops import functional as F
+from ..parallel import comm
+from ..sparse_tensor import whole_rows
 from ..types import resolve_device
 
 
@@ -61,30 +75,60 @@ class MinkowskiBatchNorm(nn.Module):
         )
 
     def forward(self, input):
+        block = getattr(input, "row_block", None)
+        if block is not None:
+            reduce = None
+            if block.size > 1:
+                def reduce(stats):
+                    return comm.AllReduceSum.apply(stats, block.group)
+            return self._normalize(input, reduce, block)
         feats = input.F
         work = torch.promote_types(feats.dtype, torch.float32)  # f32 statistics under bf16
         return input._wrap(self.bn(feats.to(work)).to(feats.dtype))
 
+    def _normalize(self, input, reduce=None, block=None):
+        """Normalize with (count, sum, sum of squares) in float32, summed by
+        ``reduce`` (over the ranks) where given: ``mean = sum / count``, the
+        biased ``var = max(sq / count - mean², 0)``, and the running variance
+        takes the unbiased ``var · count / (count - 1)``, as JAX computes
+        them.  Eval mode uses the running statistics.  On a row block the
+        affine parameters' gradients sum over its group."""
+        feats = input.F
+        x = feats.to(torch.promote_types(feats.dtype, torch.float32))
+        bn = self.bn
+        if self.training or not bn.track_running_stats:
+            mean, var, count = F.batch_moments(x, reduce)
+            if self.training and bn.track_running_stats:
+                with torch.no_grad():
+                    bn.num_batches_tracked.add_(1)
+                    m = bn.momentum
+                    unbiased = var * count / (count - 1.0).clamp_min(1.0)
+                    bn.running_mean.mul_(1 - m).add_(m * mean.to(bn.running_mean.dtype))
+                    bn.running_var.mul_(1 - m).add_(m * unbiased.to(bn.running_var.dtype))
+        else:
+            mean, var = bn.running_mean, bn.running_var
+        out = (x - mean) * torch.rsqrt(var + bn.eps)
+        if bn.affine:
+            w, b = bn.weight, bn.bias
+            if block is not None:
+                w, b = block.replicated(w), block.replicated(b)
+            out = out * w + b
+        return input._wrap(out.to(feats.dtype))
 
-class _AllReduceSum(torch.autograd.Function):
-    """Sum over the ranks of a process group; its gradient is the sum of
-    the ranks' gradients.  Each all-reduce, forward or backward, adds one
-    to ``MinkowskiSyncBatchNorm.all_reduces``."""
+
+class _AllReduceSum(comm.AllReduceSum):
+    """``comm.AllReduceSum`` that adds each all-reduce, forward or
+    backward, to ``MinkowskiSyncBatchNorm.all_reduces``."""
 
     @staticmethod
     def forward(ctx, x, group):
-        ctx.group = group
-        out = x.clone()
-        dist.all_reduce(out, group=group)
         MinkowskiSyncBatchNorm.all_reduces += 1
-        return out
+        return comm.AllReduceSum.forward(ctx, x, group)
 
     @staticmethod
     def backward(ctx, grad):
-        grad = grad.clone()
-        dist.all_reduce(grad, group=ctx.group)
         MinkowskiSyncBatchNorm.all_reduces += 1
-        return grad, None
+        return comm.AllReduceSum.backward(ctx, grad)
 
 
 class MinkowskiSyncBatchNorm(MinkowskiBatchNorm):
@@ -93,11 +137,11 @@ class MinkowskiSyncBatchNorm(MinkowskiBatchNorm):
     In train mode (or without running statistics) each rank sums its rows'
     count, sum and sum of squares in float32; with ``torch.distributed``
     initialized the three are all-reduced over ``process_group`` (default:
-    the world), then ``mean = sum / count`` and the biased ``var = max(sq /
-    count - mean², 0)`` normalize, and the running variance takes the
-    unbiased ``var · count / (count - 1)``, as JAX computes them.  Eval mode
-    uses the running statistics.  ``MinkowskiSyncBatchNorm.all_reduces``
-    counts the all-reduces of every instance, forward and backward.
+    the world; a ``DeviceMesh``: its ``axis_name`` group), then normalize
+    as ``MinkowskiBatchNorm._normalize`` says.  Eval mode uses the running
+    statistics.  ``MinkowskiSyncBatchNorm.all_reduces`` counts the
+    all-reduces of every instance, forward and backward.  On a row block
+    (spatial execution) it sums over the block's group, as batch norm does.
     """
 
     all_reduces = 0
@@ -111,44 +155,28 @@ class MinkowskiSyncBatchNorm(MinkowskiBatchNorm):
         track_running_stats: bool = True,
         process_group=None,
         device=None,
+        axis_name: str = "data",
     ):
         super().__init__(num_features, eps, momentum, affine, track_running_stats, device)
         self.process_group = process_group
-
-    def _batch_stats(self, x):
-        c = x.shape[1]
-        stats = torch.cat([
-            x.new_full((1,), float(x.shape[0])), x.sum(0), (x * x).sum(0)
-        ])
-        if dist.is_available() and dist.is_initialized():
-            stats = _AllReduceSum.apply(stats, self.process_group)
-        count = stats[0].clamp_min(1.0)
-        mean = stats[1:1 + c] / count
-        var = (stats[1 + c:] / count - mean * mean).clamp_min(0.0)
-        return mean, var, count
+        self.axis_name = axis_name
 
     def forward(self, input):
-        feats = input.F
-        x = feats.to(torch.promote_types(feats.dtype, torch.float32))
-        bn = self.bn
-        if self.training or not bn.track_running_stats:
-            mean, var, count = self._batch_stats(x)
-            if self.training and bn.track_running_stats:
-                with torch.no_grad():
-                    bn.num_batches_tracked.add_(1)
-                    m = bn.momentum
-                    unbiased = var * count / (count - 1.0).clamp_min(1.0)
-                    bn.running_mean.mul_(1 - m).add_(m * mean.to(bn.running_mean.dtype))
-                    bn.running_var.mul_(1 - m).add_(m * unbiased.to(bn.running_var.dtype))
-        else:
-            mean, var = bn.running_mean, bn.running_var
-        out = (x - mean) * torch.rsqrt(var + bn.eps)
-        if bn.affine:
-            out = out * bn.weight + bn.bias
-        return input._wrap(out.to(feats.dtype))
+        if getattr(input, "row_block", None) is not None:
+            return super().forward(input)
+        reduce = None
+        if dist.is_available() and dist.is_initialized():
+            group = self.process_group
+            if isinstance(group, DeviceMesh):
+                group = group.get_group(self.axis_name)
+
+            def reduce(stats):
+                return _AllReduceSum.apply(stats, group)
+        return self._normalize(input, reduce)
 
     @classmethod
-    def convert_sync_batchnorm(cls, module: nn.Module, process_group=None) -> nn.Module:
+    def convert_sync_batchnorm(cls, module: nn.Module, process_group=None,
+                               axis_name: str = "data") -> nn.Module:
         """Replace every ``MinkowskiBatchNorm`` in ``module`` (itself
         included) by a ``MinkowskiSyncBatchNorm`` holding the same ``.bn``,
         so parameters, buffers and state-dict names stay as they were; in
@@ -157,11 +185,11 @@ class MinkowskiSyncBatchNorm(MinkowskiBatchNorm):
         if isinstance(module, MinkowskiBatchNorm) and not isinstance(module, cls):
             bn = module.bn
             out = cls(bn.num_features, bn.eps, bn.momentum, bn.affine, bn.track_running_stats,
-                      process_group=process_group, device="meta")
+                      process_group=process_group, device="meta", axis_name=axis_name)
             out.bn = bn
             return out.train(module.training)
         for name, child in module.named_children():
-            new = cls.convert_sync_batchnorm(child, process_group)
+            new = cls.convert_sync_batchnorm(child, process_group, axis_name)
             if new is not child:
                 setattr(module, name, new)
         return module
@@ -200,6 +228,7 @@ class MinkowskiInstanceNorm(nn.Module):
         self.eps = 1e-6
 
     def forward(self, input):
+        whole_rows(input, "instance norm")
         manager = input.coordinate_manager
         origin_key, origin_rows = manager.origin_map(input.coordinate_map_key)
         out = _instance_normalize(input.F, origin_rows, manager.size(origin_key), self.eps)

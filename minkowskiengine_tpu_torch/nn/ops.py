@@ -49,6 +49,10 @@ class MinkowskiLinear(nn.Module):
         # features give bf16 outputs; the parameters stay float32)
         feats = input.F
         w, b = self.linear.weight, self.linear.bias
+        block = getattr(input, "row_block", None)
+        if block is not None:  # a row block: the gradients sum over the group
+            w = block.replicated(w)
+            b = None if b is None else block.replicated(b)
         return input._wrap(torch.nn.functional.linear(
             feats, w.to(feats.dtype), None if b is None else b.to(feats.dtype)
         ))

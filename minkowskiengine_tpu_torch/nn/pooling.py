@@ -16,7 +16,7 @@ from torch import nn
 
 from ..kernel_generator import KernelGenerator
 from ..ops import functional as F
-from ..sparse_tensor import SparseTensor
+from ..sparse_tensor import SparseTensor, whole_rows
 from ..types import PoolingMode, RegionType
 from .conv import _conv_out_key, _expected_out_ts, _resolve_out_key
 
@@ -60,6 +60,7 @@ class MinkowskiPoolingBase(nn.Module):
         self.expand_coordinates = bool(expand_coordinates)
 
     def _out_key_and_kmap(self, input: SparseTensor, coordinates):
+        whole_rows(input, "pooling")
         kg = self.kernel_generator
         in_key = input.coordinate_map_key
         out_key = _resolve_out_key(
@@ -160,6 +161,7 @@ _GLOBAL = {
 
 def _origin(input):
     """(origin key, origin row of each row) of a SparseTensor or TensorField."""
+    whole_rows(input, "global pooling")
     manager = input.coordinate_manager
     if isinstance(input, SparseTensor):
         return manager.origin_map(input.coordinate_map_key)

@@ -13,7 +13,7 @@ import torch
 from torch import nn
 
 from ..ops import functional as F
-from ..sparse_tensor import SparseTensor
+from ..sparse_tensor import SparseTensor, whole_rows
 
 
 class MinkowskiPruning(nn.Module):
@@ -21,6 +21,7 @@ class MinkowskiPruning(nn.Module):
     is true, on a new coordinate map, in their sorted order."""
 
     def forward(self, input: SparseTensor, mask) -> SparseTensor:
+        whole_rows(input, "pruning")
         manager = input.coordinate_manager
         new_key, _, out_from_in = manager.prune(input.coordinate_map_key, torch.as_tensor(mask))
         return SparseTensor(

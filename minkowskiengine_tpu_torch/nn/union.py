@@ -11,7 +11,7 @@ from __future__ import annotations
 from torch import nn
 
 from ..ops import functional as F
-from ..sparse_tensor import SparseTensor, _invert_union_map
+from ..sparse_tensor import SparseTensor, _invert_union_map, whole_rows
 
 
 class MinkowskiUnion(nn.Module):
@@ -24,6 +24,7 @@ class MinkowskiUnion(nn.Module):
         for x in inputs:
             if not isinstance(x, SparseTensor):
                 raise TypeError("All inputs must be SparseTensors")
+            whole_rows(x, "union")
             if x.coordinate_manager is not inputs[0].coordinate_manager:
                 raise ValueError("All inputs must share a coordinate manager")
             if x.tensor_stride != inputs[0].tensor_stride:

@@ -71,6 +71,20 @@ def segment_max(feats: torch.Tensor, seg_ids: torch.Tensor, num_segments: int) -
     return torch.where(torch.isneginf(out), 0.0, out)
 
 
+def batch_moments(x: torch.Tensor, reduce=None):
+    """(mean, biased var, count) of the rows of ``x`` from (count, sum, sum
+    of squares), summed over the ranks by ``reduce`` where given: batch
+    norm's statistics, as JAX computes them."""
+    c = x.shape[1]
+    stats = torch.cat([x.new_full((1,), float(x.shape[0])), x.sum(0), (x * x).sum(0)])
+    if reduce is not None:
+        stats = reduce(stats)
+    count = stats[0].clamp_min(1.0)
+    mean = stats[1:1 + c] / count
+    var = (stats[1 + c:] / count - mean * mean).clamp_min(0.0)
+    return mean, var, count
+
+
 def channelwise_conv(feats: torch.Tensor, kernel: torch.Tensor, in_idx: torch.Tensor) -> torch.Tensor:
     """Depthwise convolution ``out[o] = Σ_k feats[in_idx[k, o]] * kernel[k]``;
     kernel (K, ch), a slot -1 adds nothing (reference:
@@ -280,5 +294,16 @@ def sparse_conv(
 
 
 def sparse_conv_kmap(feats: torch.Tensor, kernel: torch.Tensor, kmap: KernelMap):
-    """Sparse convolution through a cached kernel map."""
+    """Sparse convolution through a cached kernel map.  Under
+    ``config.spatial_execution`` ``feats`` is this rank's row block and the
+    halo-exchange conv runs (``parallel.spatial.spatial_conv_apply``, with
+    the halo measured per map, so no pair drops), as JAX's does."""
+    from ..config import spatial_execution_ctx
+
+    sp = spatial_execution_ctx()
+    if sp is not None:
+        from ..parallel.spatial import spatial_conv_apply
+
+        out, _dropped = spatial_conv_apply(feats, kernel, kmap, mesh=sp[0], axis_name=sp[1])
+        return out
     return sparse_conv(feats, kernel, kmap.in_idx, kmap.out_idx_t)

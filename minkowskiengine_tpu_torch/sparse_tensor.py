@@ -6,6 +6,23 @@ and follow the map's canonical batch-major key order.  ``slice`` and
 ``cat_slice`` carry features back to the TensorField they came from;
 ``interpolate`` and ``features_at_coordinates`` sample them at float
 points; ``dense`` and ``sparse`` export them.
+
+**Row blocks** (spatial execution, ``parallel/spatial.py``): a SparseTensor
+made by ``parallel.shard_sparse_tensor`` holds one row block of its map's
+features, the map itself being whole on every rank.  Its ``row_block``
+(a ``parallel.spatial.RowBlock``: the mesh axis, so rank r of n) says
+which: block r of every map, by ``torch.tensor_split``'s rule.  The
+descriptor, not a padded or global tensor, carries the sharding, so the
+exact-row-count maps and kernels stay as they are.  ``F`` and ``C`` are
+the block's rows.  Ops that keep the key and work row by row carry the
+descriptor through ``_wrap`` (nonlinearities, ``cat`` at the skip joins,
+arithmetic on one map); the conv modules run the halo path and their
+outputs take the same descriptor on the new map; batch norm sums its
+statistics over the group.  Every op that needs all rows of the cloud
+raises on a block through ``whole_rows`` (pooling, union, pruning,
+broadcast, interpolation, instance norm, ``dense``, ``sparse``,
+decomposition, slicing, arithmetic across maps): none computes on the
+block as if it were the cloud.
 """
 
 from __future__ import annotations
@@ -86,6 +103,8 @@ class SparseTensor:
 
     ``device``: where the features and a new manager live.  By default a
     feature tensor stays on its device and host data goes to the card.
+    ``row_block``: the features are this rank's row block of the map
+    (spatial execution; the module docstring says what follows).
     """
 
     def __init__(
@@ -100,6 +119,7 @@ class SparseTensor:
             SparseTensorQuantizationMode.RANDOM_SUBSAMPLE
         ),
         device=None,
+        row_block=None,
     ):
         if coordinates is None and (
             coordinate_map_key is None or coordinate_manager is None
@@ -108,6 +128,8 @@ class SparseTensor:
                 "Either coordinates or (coordinate_map_key, coordinate_manager) "
                 "must be provided"
             )
+        if row_block is not None and coordinates is not None:
+            raise ValueError("a row block attaches features to an existing map, not to coordinates")
         features = as_features(features, device)
         if features.ndim != 2:
             raise ValueError(f"features must be rank-2, got {tuple(features.shape)}")
@@ -147,6 +169,13 @@ class SparseTensor:
             features = quantize_features(
                 features, inverse_map, unique_map.shape[0], quantization_mode, unique_map
             )
+        elif row_block is not None:
+            lo, hi = row_block.bounds(coordinate_manager.size(coordinate_map_key))
+            if features.shape[0] != hi - lo:
+                raise ValueError(
+                    f"features rows ({features.shape[0]}) != rows {lo}..{hi} of the "
+                    f"row block of a {coordinate_manager.size(coordinate_map_key)}-row map"
+                )
         elif features.shape[0] != coordinate_manager.size(coordinate_map_key):
             raise ValueError(
                 f"features rows ({features.shape[0]}) != coordinate map size "
@@ -156,6 +185,7 @@ class SparseTensor:
         self._F = features
         self.coordinate_map_key = coordinate_map_key
         self._manager = coordinate_manager
+        self.row_block = row_block
 
     # ------------------------------------------------------------------
     # basic properties
@@ -184,8 +214,12 @@ class SparseTensor:
 
     @property
     def C(self) -> torch.Tensor:
-        """(N, D+1) int32 coordinates, batch first."""
-        return self._manager.get_coordinates(self.coordinate_map_key)
+        """(N, D+1) int32 coordinates, batch first (a row block's rows)."""
+        C = self._manager.get_coordinates(self.coordinate_map_key)
+        if self.row_block is not None:
+            lo, hi = self.row_block.bounds(C.shape[0])
+            C = C[lo:hi]
+        return C
 
     @property
     def device(self):
@@ -218,6 +252,7 @@ class SparseTensor:
     # are batch-major, so each batch item is one run of rows
     # ------------------------------------------------------------------
     def _batch_runs(self) -> List[int]:
+        whole_rows(self, "batch decomposition")
         _, counts = torch.unique_consecutive(self.C[:, 0], return_counts=True)
         return counts.tolist()
 
@@ -235,10 +270,12 @@ class SparseTensor:
         return self.decomposed_coordinates, self.decomposed_features
 
     def coordinates_at(self, batch_index: int) -> torch.Tensor:
+        whole_rows(self, "coordinates_at")
         C = self.C
         return C[C[:, 0] == batch_index, 1:]
 
     def features_at(self, batch_index: int) -> torch.Tensor:
+        whole_rows(self, "features_at")
         return self._F[(self.C[:, 0] == batch_index).to(self._F.device)]
 
     # ------------------------------------------------------------------
@@ -249,6 +286,7 @@ class SparseTensor:
         on the features' device.  Returns (dense, min_coordinate (D,) int32,
         tensor_stride).  ``shape`` (B, ch, *spatial) fixes the size;
         ``min_coordinate`` the corner, which must not exceed any coordinate."""
+        whole_rows(self, "dense")
         dev = self._F.device
         coords = self.C.to(dev)
         n = coords.shape[0]
@@ -284,6 +322,7 @@ class SparseTensor:
         format.  ``min_coords`` and ``max_coords`` (inclusive) fix the window
         and must be divisible by the tensor stride; ``contract_coords``
         divides the coordinates by it."""
+        whole_rows(self, "sparse")
         dev = self._F.device
         coords = self.C.to(dev).long()
         ts = torch.tensor(self.tensor_stride, dtype=torch.int64, device=dev)
@@ -330,11 +369,13 @@ class SparseTensor:
     # helpers
     # ------------------------------------------------------------------
     def _wrap(self, features: torch.Tensor, key=None) -> "SparseTensor":
-        """New SparseTensor with this coordinate structure (or ``key``)."""
+        """New SparseTensor with this coordinate structure (or ``key``) and
+        row block."""
         return SparseTensor(
             features,
             coordinate_map_key=key or self.coordinate_map_key,
             coordinate_manager=self._manager,
+            row_block=self.row_block,
         )
 
     # ------------------------------------------------------------------
@@ -354,7 +395,10 @@ class SparseTensor:
                 "mixed-coordinate arithmetic"
             )
         if self.coordinate_map_key == other.coordinate_map_key:
+            if self.row_block != other.row_block:
+                raise ValueError("both SparseTensors must hold the same rows (row_block)")
             return self._wrap(op(self._F, other._F))
+        whole_rows(self, "arithmetic across maps")
         keys = [self.coordinate_map_key, other.coordinate_map_key]
         union_key = self._manager.merge(keys)
         n = self._manager.size(union_key)
@@ -399,6 +443,7 @@ class SparseTensor:
 
         if not isinstance(X, TensorField):
             raise TypeError("slice requires a TensorField input")
+        whole_rows(self, "slice")
         feats = take_rows(self._F, X.inverse_mapping(self.coordinate_map_key))
         return X._wrap(feats)
 
@@ -408,6 +453,7 @@ class SparseTensor:
 
         if not isinstance(X, TensorField):
             raise TypeError("cat_slice requires a TensorField input")
+        whole_rows(self, "cat_slice")
         sliced = take_rows(self._F, X.inverse_mapping(self.coordinate_map_key))
         return X._wrap(torch.cat([X.F, sliced], dim=1))
 
@@ -415,6 +461,7 @@ class SparseTensor:
         """(N, ch) features interpolated multilinearly at float query
         coordinates (N, D+1), batch first; a lattice corner absent from the
         map adds 0 (reference: MinkowskiSparseTensor.py:690-718)."""
+        whole_rows(self, "features_at_coordinates")
         rows, weights = self._manager.interpolation_map_weight(
             self.coordinate_map_key, query_coordinates
         )
@@ -434,6 +481,16 @@ class SparseTensor:
             f"channels={self._F.shape[1]}, "
             f"coordinate_map_key={self.coordinate_map_key}, "
             f"device={self.device})"
+        )
+
+
+def whole_rows(x, op: str) -> None:
+    """Raise if ``x`` holds a row block (spatial execution): ``op`` needs
+    every row of the cloud."""
+    if getattr(x, "row_block", None) is not None:
+        raise ValueError(
+            f"{op} needs every row of the cloud, and this tensor holds one row block "
+            "(spatial execution): gather the rows first (parallel.spatial.gather_rows)"
         )
 
 

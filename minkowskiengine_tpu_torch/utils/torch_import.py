@@ -47,15 +47,26 @@ def _conv_biases(model: nn.Module):
     }
 
 
+def _whole(model: nn.Module, named: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """``named`` with each parameter that tensor parallelism cut
+    (``parallel.apply_tensor_parallelism``) gathered whole from the ranks of
+    its model group."""
+    for name, m in model.named_modules():
+        cp = getattr(m, "column_parallel", None)
+        for path, dim in (cp.sharded if cp is not None else ()):
+            key = f"{name}.{path}" if name else path
+            named[key] = cp.whole(named[key], dim)
+    return named
+
+
 def reference_named_params(model: nn.Module) -> Dict[str, torch.Tensor]:
     """Every parameter and buffer of ``model`` under its reference name, in
     the reference's layout: the state dict, with each convolution bias
-    viewed as (C,)."""
+    viewed as (C,).  A tensor-parallel model's cut parameters come whole
+    (a collective over the model group: every rank calls it)."""
     biases = _conv_biases(model)
-    return {
-        k: v.reshape(-1) if k in biases else v
-        for k, v in model.state_dict(keep_vars=True).items()
-    }
+    named = _whole(model, model.state_dict(keep_vars=True))
+    return {k: v.reshape(-1) if k in biases else v for k, v in named.items()}
 
 
 def export_reference_state_dict(model: nn.Module) -> Dict[str, np.ndarray]:

@@ -1,6 +1,6 @@
 """The port's public names against the JAX package's.
 
-Every public name of the JAX package's top level, ``nn``, ``utils``,
+Every public name of the JAX package's top level, ``nn``, ``utils``, ``parallel``,
 ``models`` and ``MinkowskiFunctional`` must exist in the port, except the
 allow-list below: what ROADMAP queue 1 still holds, each name with its
 queue item, which must name it too.  Later slices shrink the list.
@@ -19,14 +19,10 @@ import minkowskiengine_tpu_torch as MT
 ROOT = Path(__file__).resolve().parents[1]
 
 # name -> the ROADMAP queue 1 item that still holds it
-NOT_YET_PORTED = {
-    "parallel": "parallel",
-    "spatial_execution": "parallel",
-    "set_spatial_execution": "parallel",
-}
+NOT_YET_PORTED = {}
 
 
-PATHS = ["", "nn", "utils", "models", "MinkowskiFunctional"]
+PATHS = ["", "nn", "utils", "models", "MinkowskiFunctional", "parallel"]
 
 # run in a fresh interpreter: a module that another test imports (say the
 # JAX package's `cpp`) is bound on its package from then on
