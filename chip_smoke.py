@@ -8,7 +8,8 @@ compute path (MinkUNet34 and MinkowskiFCNN training in bf16),
 MinkowskiSyncBatchNorm on a one-rank NCCL group, training on fresh geometry,
 and the parallel package: the per-device-geometry DDP step on a one-rank
 NCCL group, then two processes sharing the card over gloo for a DDP step,
-the halo-exchange spatial conv and column-parallel convs.
+the halo-exchange spatial conv and column-parallel convs; last, the ported
+examples, indoor.py's MinkUNet34C segmentation chain at full width first.
 
 Run from the root of a checkout, with one CUDA card visible:
 
@@ -238,6 +239,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    and Cout slices) against the unsharded calls', summed over a step's 55
    convs, timed in this process.
 
+38. the examples (``examples_torch/``), as a user runs them: (a)
+   ``indoor.py``'s chain at full width: its synthetic room (200,000
+   points, 163,022 voxels at 2 cm) through a TensorField with
+   UNWEIGHTED_AVERAGE, ``sparse()``, ``MinkUNet34C(3, 20, D=3)`` (weights
+   from torch.Generator seed 0, batch norms calibrated on the scan, eval
+   mode) and ``slice()``; every K1 call of one forward against its plain
+   version (captured as phase 4, with the bound); 3 requests, each with a
+   fresh manager: wall ms from field to per-point logits on the host,
+   points/s, K1 launches; the class histogram and the PLY, written to a
+   temporary directory and read back; the logits against the CPU plain
+   path with the same weights (a float64 run judges where float32 does
+   not agree); a conv with ``convolution_mode=COPY_GEMM`` launches K1/K2
+   as DEFAULT does, bit-equal, each call of both modes held against its
+   plain version.  (b) every other script through its ``main`` on the
+   card at small step counts: K1 launches where its model has a sparse
+   conv (K2 where it trains one), each launch held against its plain
+   version as it runs (``every_call_held``: the 2-D maps, the scripts' own
+   widths, the replayed maps), a finite last loss where it trains, none
+   raising.
+
 Bound of a kernel call: the larger of its useful operations (2 · pairs ·
 Cin · Cout) over the H100's 495 TFLOP/s dense TF32 tensor peak and its
 bytes (each input read once, the output written once) over 3.35 TB/s.  The
@@ -251,13 +272,18 @@ Then a JSON line describing each kernel and, last, the device line.
 
 from __future__ import annotations
 
+import contextlib
+import importlib.util
+import io
 import json
+import math
 import shutil
 import subprocess
 import sys
 import tempfile
 import time
 import warnings
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -270,12 +296,14 @@ from minkowskiengine_tpu_torch.kernels import build
 from minkowskiengine_tpu_torch.kernels.conv_dw import conv_dw, conv_dw_reference
 from minkowskiengine_tpu_torch.kernels.gather_gemm import gather_gemm, gather_gemm_reference
 from minkowskiengine_tpu_torch.models import (
-    VAE, CompletionNet, MinkowskiFCNN, MinkowskiSplatFCNN, MinkUNet34, ResNet18, ResNetBase,
+    VAE, CompletionNet, MinkowskiFCNN, MinkowskiSplatFCNN, MinkUNet34, MinkUNet34C, ResNet18,
+    ResNetBase,
 )
 from minkowskiengine_tpu_torch.modules import SEBasicBlock
 from minkowskiengine_tpu_torch.nn.conv import MinkowskiConvolutionBase, _conv_out_key
 from minkowskiengine_tpu_torch.nn.nonlinearity import MinkowskiDropout
 from minkowskiengine_tpu_torch.nn.norm import MinkowskiBatchNorm, MinkowskiSyncBatchNorm
+from minkowskiengine_tpu_torch.ops import functional as conv_ops
 from minkowskiengine_tpu_torch.parallel import comm, spatial
 from minkowskiengine_tpu_torch.utils import hostengine
 from minkowskiengine_tpu_torch.utils.collation import sparse_collate
@@ -416,18 +444,23 @@ def cuda_ms(fn, warmup=2, iters=10):
     return start.elapsed_time(end) / iters
 
 
-def agree(kernel, plain, args, rtol, label):
-    """A kernel against its plain version on the same CUDA inputs: (max
-    abs err, max rel err); fails beyond ``rtol`` of max|plain|."""
-    got = kernel(*args).float()
-    want = plain(*args).float()
+def held(got, want, rtol, label):
+    """A kernel's output against its plain version's on the same CUDA
+    inputs: (max abs err, max rel err); fails beyond ``rtol`` of
+    max|plain|."""
+    got, want = got.float(), want.float()
     torch.cuda.synchronize()
     abs_err = (got - want).abs().max().item() if want.numel() else 0.0
     scale = want.abs().max().item() if want.numel() else 0.0
     rel = abs_err / scale if scale > 0 else abs_err
     if not (torch.isfinite(got).all() and rel <= rtol):
-        raise AssertionError(f"{label}: {kernel.__name__} disagrees, max rel err {rel:.3e}")
+        raise AssertionError(f"{label} disagrees, max rel err {rel:.3e}")
     return abs_err, rel
+
+
+def agree(kernel, plain, args, rtol, label):
+    """``kernel`` against ``plain`` on the same CUDA inputs, as ``held``."""
+    return held(kernel(*args), plain(*args), rtol, f"{label}: {kernel.__name__}")
 
 
 def check(kernel, plain, args, rtol, label):
@@ -2936,6 +2969,227 @@ def parallel_path(dev, launches, reuse, fresh):
     return {k: [e[0] for e in v] for k, v in par_errs.items()}
 
 
+# phase 38: the ported examples (examples_torch/), as a user runs them
+EXAMPLES = Path(__file__).resolve().parent / "examples_torch"
+INDOOR_POINTS, INDOOR_VOXEL, INDOOR_VOXELS, INDOOR_REQUESTS = 200_000, 0.02, 163_022, 3
+# (script, arguments, its model has a sparse conv: K1 must launch, it
+# trains one: K2 must launch too, it trains: its last loss must be finite)
+EXAMPLE_RUNS = [
+    ("example", ["--steps", "2"], True, True, True),
+    ("sparse_tensor_basic", [], False, False, False),
+    ("convolution", [], True, False, False),
+    ("unet", ["--steps", "2"], True, True, True),
+    ("stack_unet", [], True, False, False),
+    ("minkunet", ["--steps", "2"], True, True, True),
+    ("resnet", [], True, False, False),
+    # PointNet's convs are volume 1: a product, no sparse conv
+    ("pointnet", ["--steps", "2", "--eval_batches", "1"], False, False, True),
+    *[(f"classification_modelnet40:{n}", ["--network", n, "--steps", "2", "--eval_batches", "1"],
+       n != "minkpointnet", n != "minkpointnet", True)
+      for n in ("minkfcnn", "minksplatfcnn", "minkpointnet")],
+    ("completion", ["--steps", "1"], True, True, True),
+    ("vae", ["--steps", "1"], True, True, True),
+    ("reconstruction", ["--steps", "1"], True, True, True),
+    ("training", ["--steps", "2"], True, True, True),
+    ("fresh_geometry_training", ["--steps", "3"], True, True, True),
+]
+
+
+@contextlib.contextmanager
+def every_call_held(errors, tag):
+    """Inside the block, every K1 and K2 launch the sparse conv makes
+    (forward, input gradient and weight gradient, through
+    ``ops.functional``) is held against its plain version on the same
+    inputs as it runs, within KERNEL_RTOL and DW_RTOL: the (abs, rel)
+    errors go to ``errors["gather_gemm"]`` and ``errors["conv_dw"]``.  The
+    launches are the main path's own, counted once; the plain versions
+    launch neither kernel."""
+    real_k1, real_k2 = conv_ops.gather_gemm, conv_ops.conv_dw
+
+    def k1(x, w, idx):
+        out = real_k1(x, w, idx)
+        errors["gather_gemm"].append(held(out, gather_gemm_reference(x, w, idx), KERNEL_RTOL,
+                                          f"{tag} K1 call {len(errors['gather_gemm'])}"))
+        return out
+
+    def k2(x, g, idx):
+        out = real_k2(x, g, idx)
+        errors["conv_dw"].append(held(out, conv_dw_reference(x, g, idx), DW_RTOL,
+                                      f"{tag} K2 call {len(errors['conv_dw'])}"))
+        return out
+
+    conv_ops.gather_gemm, conv_ops.conv_dw = k1, k2
+    try:
+        yield
+    finally:
+        conv_ops.gather_gemm, conv_ops.conv_dw = real_k1, real_k2
+
+
+def example(name):
+    """A script of examples_torch/ by its path, under a module name of its own."""
+    spec = importlib.util.spec_from_file_location(f"chip_smoke_example_{name}", EXAMPLES / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def examples_path(dev, launches):
+    """Phase 38: indoor.py's chain at full width, then every other ported
+    script through its ``main``.  Adds the main-path launches to
+    ``launches``; returns every K1 and K2 call's abs error against its
+    plain version, by kernel."""
+    start = time.perf_counter()
+    indoor = example("indoor")
+
+    # 38a. the synthetic room through field -> sparse -> MinkUNet34C -> slice
+    points, colors = indoor.synthetic_room(n_points=INDOOR_POINTS)
+    model = MinkUNet34C(3, 20, D=3, generator=torch.Generator().manual_seed(0), device=dev)
+    indoor.calibrate(model, points, colors, INDOOR_VOXEL, dev)
+    convs = sparse_convs(model)
+    calls = []
+    hooks = [m.register_forward_hook(lambda m, a, o: calls.append((m, a[0], o))) for m in convs]
+    with torch.no_grad():
+        _, voxels = indoor.segment(points, colors, model, INDOOR_VOXEL, dev)  # warm-up
+    for h in hooks:
+        h.remove()
+    print(f"[38a indoor] synthetic room: {len(points)} points, {voxels} voxels at "
+          f"{INDOOR_VOXEL * 100:g} cm; MinkUNet34C(3, 20, D=3), batch norms calibrated on the "
+          f"scan; {len(calls)} sparse conv calls of one forward")
+    if voxels != INDOOR_VOXELS or len(calls) != len(convs):
+        raise AssertionError(f"indoor: {voxels} voxels, {len(calls)} conv calls")
+    rows, bounds = [], []
+    for i, (m, inp, out) in enumerate(calls):
+        kmap = m._kernel_map(inp, out.coordinate_map_key)
+        row = compare(inp.F, m.kernel.detach(), kmap.in_idx, f"in{i}")
+        idx = kmap.in_idx
+        bounds.append(bound(2.0 * row["pairs"] * row["cin"] * row["cout"],
+                            4 * (inp.F.numel() + m.kernel.numel() + idx.numel()
+                                 + idx.shape[1] * row["cout"]))[0])
+        rows.append(row)
+    del calls
+    print(f"  K1 over one forward's {len(rows)} calls: {sum(r['ms'] for r in rows):.3f} ms, plain "
+          f"{sum(r['plain_ms'] for r in rows):.3f} ms, bound {sum(bounds):.3f} ms; worst rel err "
+          f"{max(r['max_rel_err'] for r in rows):.2e}")
+
+    answers = []
+    zero_counts()
+    for i in range(INDOOR_REQUESTS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            logits = indoor.segment(points, colors, model, INDOOR_VOXEL, dev)[0].cpu()
+        secs = time.perf_counter() - t0
+        answers.append(logits)
+        print(f"[38a indoor] request {i}: {secs * 1e3:.2f} ms field to per-point logits on the "
+              f"host, {len(points) / secs:.0f} points/s, {voxels / secs:.0f} voxels/s")
+        if logits.shape != (len(points), 20) or not torch.isfinite(logits).all():
+            raise AssertionError(f"indoor logits: {tuple(logits.shape)}")
+    got = take_launches(launches)
+    print(f"  launches over {INDOOR_REQUESTS} requests: {got}")
+    if got["gather_gemm"] != INDOOR_REQUESTS * len(convs) or got["conv_dw"]:
+        raise AssertionError(f"indoor launches {got}")
+    pred = answers[-1].argmax(1).numpy()
+    counts = np.bincount(pred, minlength=20)
+    top = ", ".join(f"{indoor.CLASS_LABELS[c]} {counts[c]}" for c in np.argsort(counts)[::-1][:5])
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/prediction.ply"
+        indoor.write_ply(path, points, indoor.CLASS_COLORS[pred])
+        back, _ = indoor.read_ply(path)
+    print(f"  class histogram (top 5): {top}; PLY of {len(back)} points written and read back")
+    if len(back) != len(points):
+        raise AssertionError("indoor: the PLY did not round-trip")
+
+    # the logits against the CPU plain path with the same weights and statistics
+    cpu_model = MinkUNet34C(3, 20, D=3, device="cpu")
+    cpu_model.load_state_dict(model.state_dict())
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        ref = indoor.segment(points, colors, cpu_model.eval(), INDOOR_VOXEL, "cpu")[0]
+    rel = rel_diff(answers[0], ref)
+    print(f"[38a indoor] card vs CPU plain-path per-point logits: max|d|/max|ref| = {rel:.2e} "
+          f"(CPU {time.perf_counter() - t0:.1f} s)")
+    if not rel <= LOGIT_RTOL:
+        # ill-conditioned in float32: both runs against a float64 one
+        with torch.no_grad():
+            ref64 = indoor.segment(points, colors, cpu_model.double(), INDOOR_VOXEL, "cpu")[0]
+        card64, cpu64 = rel_diff(answers[0].double(), ref64), rel_diff(ref.double(), ref64)
+        print(f"  against float64: card {card64:.2e}, CPU float32 {cpu64:.2e}")
+        if not card64 <= GRAD_FACTOR * cpu64:
+            raise AssertionError(f"indoor logits disagree: {rel:.3e}")
+    del cpu_model, ref, answers
+
+    # COPY_GEMM keeps a conv on K1/K2 (it only keeps JAX's off its dense route)
+    x = MT.TensorField(
+        torch.from_numpy(indoor.normalize_color(colors)).to(dev),
+        MT.utils.batched_coordinates([points / INDOOR_VOXEL], dtype=torch.float32).to(dev),
+    ).sparse()
+    outs, mode_errs = {}, dict(gather_gemm=[], conv_dw=[])
+    for mode in (MT.ConvolutionMode.DEFAULT, MT.ConvolutionMode.COPY_GEMM):
+        conv = MT.MinkowskiConvolution(3, 32, kernel_size=3, dimension=3, convolution_mode=mode,
+                                       generator=torch.Generator().manual_seed(0), device=dev)
+        feats = x.F.detach().clone().requires_grad_()
+
+        def run():
+            y = conv(MT.SparseTensor(feats, coordinate_map_key=x.coordinate_map_key,
+                                     coordinate_manager=x.coordinate_manager))
+            y.F.square().sum().backward()
+            return y.F.detach()
+
+        with every_call_held(mode_errs, f"38a {mode.name}"):
+            out, n = counted(launches, run)
+        outs[mode.name] = (out, feats.grad, conv.kernel.grad, n)
+    same = all(torch.equal(a, b) for a, b in zip(outs["DEFAULT"][:3], outs["COPY_GEMM"][:3]))
+    print(f"[38a convolution_mode] COPY_GEMM: {outs['COPY_GEMM'][3]}, DEFAULT: "
+          f"{outs['DEFAULT'][3]}; output and gradients bit-equal: {same}; each mode's K1 and K2 "
+          f"calls against their plain versions: worst rel err K1 "
+          f"{max(e[1] for e in mode_errs['gather_gemm']):.2e}, K2 "
+          f"{max(e[1] for e in mode_errs['conv_dw']):.2e}")
+    if not same or outs["COPY_GEMM"][3] != outs["DEFAULT"][3] or (
+            outs["COPY_GEMM"][3]["gather_gemm"], outs["COPY_GEMM"][3]["conv_dw"]) != (2, 1):
+        raise AssertionError("COPY_GEMM left K1/K2")
+    del x, outs, model
+    torch.cuda.empty_cache()
+
+    # 38b. every other script, as a user runs it, on the card, each of its
+    # K1 and K2 calls held against its plain version as it runs
+    script_errs = dict(gather_gemm=[], conv_dw=[])
+    with tempfile.TemporaryDirectory() as tmp:
+        for case, argv, sparse, trains_conv, trains in EXAMPLE_RUNS:
+            name = case.split(":")[0]
+            argv = argv + (["--ckpt", f"{tmp}/checkpoint.pt"] if name == "training" else [])
+            printed = io.StringIO()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            errs = dict(gather_gemm=[], conv_dw=[])
+            with contextlib.redirect_stdout(printed), every_call_held(errs, f"38b {case}"):
+                result, n = counted(launches, lambda: example(name).main(argv))
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            last = printed.getvalue().strip().splitlines()[-1]
+            loss = result.get("losses", [None])[-1] if trains else None
+            worst_rel = {k: max((e[1] for e in v), default=0.0) for k, v in errs.items()}
+            print(f"[38b {case}] {secs:.2f} s with the holds, gather_gemm {n['gather_gemm']}, "
+                  f"conv_dw {n['conv_dw']}, each held: worst rel err K1 "
+                  f"{worst_rel['gather_gemm']:.2e}, K2 {worst_rel['conv_dw']:.2e}; last loss "
+                  f"{loss}; \"{last}\"")
+            if (sparse and not n["gather_gemm"]) or (trains_conv and not n["conv_dw"]) or (
+                    not sparse and n["gather_gemm"]) or (trains and not math.isfinite(loss)):
+                raise AssertionError(f"{case}: launches {n}, last loss {loss}")
+            if (len(errs["gather_gemm"]), len(errs["conv_dw"])) != (n["gather_gemm"], n["conv_dw"]):
+                raise AssertionError(f"{case}: {n} launches, {len(errs['gather_gemm'])} K1 and "
+                                     f"{len(errs['conv_dw'])} K2 calls held")
+            for k in script_errs:
+                script_errs[k] += errs[k]
+    print(f"  38b's {len(script_errs['gather_gemm'])} K1 and {len(script_errs['conv_dw'])} K2 calls "
+          f"against their plain versions: worst rel err K1 "
+          f"{max(e[1] for e in script_errs['gather_gemm']):.2e} (limit {KERNEL_RTOL}), K2 "
+          f"{max(e[1] for e in script_errs['conv_dw']):.2e} (limit {DW_RTOL})")
+    print(f"[38] {time.perf_counter() - start:.1f} s")
+    errors = {k: [e[0] for e in mode_errs[k] + script_errs[k]] for k in mode_errs}
+    errors["gather_gemm"] += [r["max_abs_err"] for r in rows]
+    return errors
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -2977,13 +3231,15 @@ def main() -> int:
     bf16_bwd = bf16_path(dev, launches, reuse)
     fresh = fresh_geometry(dev, launches, reuse)
     par_errs = parallel_path(dev, launches, reuse, fresh)
+    example_errs = examples_path(dev, launches)
 
     bwd = synth_bwd + real_bwd + fcnn_bwd + gen_rows + completion_bwd + vae_bwd + splat_bwd + shim_bwd
     errors = {
         "gather_gemm": [r["max_abs_err"] for r in rows + real]
         + [r[p]["max_abs_err"] for r in bwd for p in ("fwd", "dx") if p in r]
-        + par_errs["gather_gemm"],
-        "conv_dw": [r["dw"]["max_abs_err"] for r in bwd] + par_errs["conv_dw"],
+        + par_errs["gather_gemm"] + example_errs["gather_gemm"],
+        "conv_dw": [r["dw"]["max_abs_err"] for r in bwd] + par_errs["conv_dw"]
+        + example_errs["conv_dw"],
         "gather_gemm_bf16": [r[p]["max_abs_err"] for r in bf16_bwd for p in ("fwd", "dx") if p in r],
         "conv_dw_bf16": [r["dw"]["max_abs_err"] for r in bf16_bwd],
     }

@@ -31,7 +31,9 @@ import numpy as np
 import torch
 
 from ..kernel_generator import KernelRegion, region_offsets
-from ..types import RegionType, as_tuple, resolve_device
+from ..types import (
+    GPUMemoryAllocatorType, MinkowskiAlgorithm, RegionType, as_tuple, resolve_device,
+)
 from . import keys as K
 from .kernel_map import KernelMap, build_kernel_map, build_stride_map, stride_map_to_kernel_map
 from .lookup import find_rows
@@ -161,12 +163,32 @@ def _origin_coords(coords: torch.Tensor) -> torch.Tensor:
 
 class CoordinateManager:
     """Caches coordinate maps and kernel maps on ``device`` (default: the
-    CUDA card; ``device="cpu"`` for the CPU)."""
+    CUDA card; ``device="cpu"`` for the CPU).
 
-    def __init__(self, D: int, device=None):
+    The reference's backend keywords (MinkowskiCoordinateManager.py:107-160)
+    are taken as the JAX package takes them: ``num_threads``, and
+    ``coordinate_map_type``, ``allocator_type`` and ``minkowski_algorithm``
+    (default ``MinkowskiAlgorithm.DEFAULT``), which are kept as attributes.
+    None of them selects anything: the port has one coordinate engine and
+    one allocator, torch's."""
+
+    def __init__(
+        self,
+        D: int = 0,
+        num_threads: int = -1,
+        coordinate_map_type=None,
+        allocator_type: Optional[GPUMemoryAllocatorType] = None,
+        minkowski_algorithm: Optional[MinkowskiAlgorithm] = None,
+        device=None,
+    ):
         if D < 1:
             raise ValueError(f"Invalid dimension {D}")
         self.D = int(D)
+        self.coordinate_map_type = coordinate_map_type
+        self.allocator_type = allocator_type
+        self.minkowski_algorithm = (
+            MinkowskiAlgorithm.DEFAULT if minkowski_algorithm is None else minkowski_algorithm
+        )
         self.device = resolve_device(device)
         self._maps: Dict[Tuple[Tuple[int, ...], str], CoordinateMap] = {}
         self._field_maps: Dict[Tuple[Tuple[int, ...], str], CoordinateFieldMap] = {}

@@ -13,7 +13,10 @@ that dtype, as JAX's do (nn/conv.py:273-318); the float32 weight goes into
 the conv's autograd Function, which casts it (its gradient stays float32),
 and the volume-1 product and the bias run in the features' dtype.  The
 channelwise conv casts nothing, as in JAX.  The JAX package's dense-grid dispatch is TPU-only and
-is not carried over.
+is not carried over, so ``convolution_mode`` (stored, shown in the repr)
+selects nothing: every mode runs the sparse conv, K1/K2 on the card, as
+COPY_GEMM in JAX still reaches its Pallas kernels (it only keeps a conv
+off the dense route, JAX nn/conv.py:185-194).
 
 Parallel execution (``parallel/``): on a row block (spatial execution) a
 conv runs the halo path (``sparse_conv_kmap``), or, at volume 1, its
@@ -37,7 +40,7 @@ from ..coords.manager import CoordinateManager, CoordinateMapKey
 from ..kernel_generator import KernelGenerator
 from ..ops import functional as F
 from ..sparse_tensor import SparseTensor, whole_rows
-from ..types import RegionType, resolve_device
+from ..types import ConvolutionMode, RegionType, resolve_device
 
 
 def _resolve_out_key(input: SparseTensor, coordinates, out_tensor_stride):
@@ -124,6 +127,7 @@ class MinkowskiConvolutionBase(nn.Module):
         kernel_generator: Optional[KernelGenerator] = None,
         is_transpose: bool = False,
         expand_coordinates: bool = False,
+        convolution_mode: ConvolutionMode = ConvolutionMode.DEFAULT,
         dimension: int = -1,
         generator: Optional[torch.Generator] = None,
         device=None,
@@ -148,6 +152,7 @@ class MinkowskiConvolutionBase(nn.Module):
         self.expand_coordinates = bool(expand_coordinates)
         self.kernel_generator = kernel_generator
         self.dimension = int(dimension)
+        self.convolution_mode = ConvolutionMode(convolution_mode)
 
         # volume-1 stride-1 kernels collapse to a plain product
         # (reference: MinkowskiConvolution.py:262-285)
@@ -232,7 +237,7 @@ class MinkowskiConvolutionBase(nn.Module):
         return (
             f"in={self.in_channels}, out={self.out_channels}, "
             f"kernel_size={kg.kernel_size}, stride={kg.kernel_stride}, "
-            f"dilation={kg.kernel_dilation}"
+            f"dilation={kg.kernel_dilation}, mode={self.convolution_mode.name}"
         )
 
 
@@ -249,6 +254,7 @@ class MinkowskiConvolution(MinkowskiConvolutionBase):
         bias=False,
         kernel_generator=None,
         expand_coordinates=False,
+        convolution_mode=ConvolutionMode.DEFAULT,
         dimension=-1,
         generator: Optional[torch.Generator] = None,
         device=None,
@@ -257,6 +263,7 @@ class MinkowskiConvolution(MinkowskiConvolutionBase):
             in_channels, out_channels, kernel_size, stride, dilation, bias,
             kernel_generator, is_transpose=False,
             expand_coordinates=expand_coordinates,
+            convolution_mode=convolution_mode,
             dimension=dimension,
             generator=generator, device=device,
         )
@@ -276,6 +283,7 @@ class MinkowskiConvolutionTranspose(MinkowskiConvolutionBase):
         bias=False,
         kernel_generator=None,
         expand_coordinates=False,
+        convolution_mode=ConvolutionMode.DEFAULT,
         dimension=-1,
         generator: Optional[torch.Generator] = None,
         device=None,
@@ -284,6 +292,7 @@ class MinkowskiConvolutionTranspose(MinkowskiConvolutionBase):
             in_channels, out_channels, kernel_size, stride, dilation, bias,
             kernel_generator, is_transpose=True,
             expand_coordinates=expand_coordinates,
+            convolution_mode=convolution_mode,
             dimension=dimension,
             generator=generator, device=device,
         )
@@ -305,6 +314,7 @@ class MinkowskiGenerativeConvolutionTranspose(MinkowskiConvolutionBase):
         dilation=1,
         bias=False,
         kernel_generator=None,
+        convolution_mode=ConvolutionMode.DEFAULT,
         dimension=-1,
         generator: Optional[torch.Generator] = None,
         device=None,
@@ -312,7 +322,8 @@ class MinkowskiGenerativeConvolutionTranspose(MinkowskiConvolutionBase):
         super().__init__(
             in_channels, out_channels, kernel_size, stride, dilation, bias,
             kernel_generator, is_transpose=True, expand_coordinates=True,
-            dimension=dimension, generator=generator, device=device,
+            convolution_mode=convolution_mode, dimension=dimension,
+            generator=generator, device=device,
         )
 
 

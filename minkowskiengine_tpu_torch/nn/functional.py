@@ -12,6 +12,7 @@ a key.  The losses take sparse tensors or plain tensors.
 
 from __future__ import annotations
 
+import inspect
 from typing import Optional
 
 import torch
@@ -38,6 +39,13 @@ def _make_unary(fn):
         return input._wrap(fn(input.F, *args, **kwargs))
 
     wrapped.__name__ = getattr(fn, "__name__", "unary").removesuffix("_features")
+    try:  # fn's own parameters after ``input``, for inspect and help()
+        params = list(inspect.signature(fn).parameters.values())
+        wrapped.__signature__ = inspect.Signature(
+            [inspect.Parameter("input", inspect.Parameter.POSITIONAL_OR_KEYWORD)] + params[1:]
+        )
+    except (TypeError, ValueError):  # a builtin without a signature
+        pass
     return wrapped
 
 

@@ -12,6 +12,14 @@ SparseTensor or a TensorField.  bf16 features are normalized in float32 and
 cast back, as JAX's ``_apply`` does (JAX nn/norm.py:88-111); the running
 statistics stay float32.
 
+``axis_name`` (JAX's keyword, nn/norm.py:41): under a ``torch.distributed``
+mesh entered as a context (``with mesh:``; the data-parallel steps enter
+theirs) that has this axis, train-mode statistics are (count, sum, sum of
+squares) in float32 all-reduced over the axis's group and normalized as
+``MinkowskiSyncBatchNorm`` does; elsewhere, and on a group of one rank (as
+``torch.nn.SyncBatchNorm``), it is the plain batch norm, as JAX's is
+outside a ``shard_map`` binding the axis.
+
 Under spatial execution (an input that holds a row block of its cloud,
 ``parallel/spatial.py``) batch norm in train mode takes its statistics
 over every row of the cloud, not over the block: each rank's (count, sum,
@@ -62,9 +70,11 @@ class MinkowskiBatchNorm(nn.Module):
         momentum: float = 0.1,
         affine: bool = True,
         track_running_stats: bool = True,
+        axis_name=None,
         device=None,
     ):
         super().__init__()
+        self.axis_name = axis_name
         self.bn = nn.BatchNorm1d(
             num_features,
             eps=eps,
@@ -82,9 +92,33 @@ class MinkowskiBatchNorm(nn.Module):
                 def reduce(stats):
                     return comm.AllReduceSum.apply(stats, block.group)
             return self._normalize(input, reduce, block)
-        feats = input.F
-        work = torch.promote_types(feats.dtype, torch.float32)  # f32 statistics under bf16
-        return input._wrap(self.bn(feats.to(work)).to(feats.dtype))
+        reduce = self._reduce()
+        if reduce is None:
+            feats = input.F
+            work = torch.promote_types(feats.dtype, torch.float32)  # f32 statistics under bf16
+            return input._wrap(self.bn(feats.to(work)).to(feats.dtype))
+        return self._normalize(input, reduce)
+
+    def _reduce(self):
+        """How this step's (count, sum, sum of squares) are summed over the
+        ranks: a function for ``_normalize``, or None for the plain batch
+        norm.  Here, in train mode, the all-reduce over the group of
+        ``axis_name`` on the mesh entered as a context (``with mesh:``, as
+        the data-parallel steps enter theirs); None outside such a mesh, or
+        on one without that axis, as JAX's is plain outside a ``shard_map``
+        binding the axis, and on a group of one rank, whose sum is its own,
+        as ``torch.nn.SyncBatchNorm`` takes the plain path there."""
+        if self.axis_name is None or not (self.training or not self.bn.track_running_stats):
+            return None
+        if not (dist.is_available() and dist.is_initialized()):
+            return None
+        mesh = comm.current_mesh()
+        if mesh is None or self.axis_name not in (mesh.mesh_dim_names or ()):
+            return None
+        group = mesh.get_group(self.axis_name)
+        if dist.get_world_size(group) == 1:
+            return None
+        return lambda stats: comm.AllReduceSum.apply(stats, group)
 
     def _normalize(self, input, reduce=None, block=None):
         """Normalize with (count, sum, sum of squares) in float32, summed by
@@ -114,6 +148,11 @@ class MinkowskiBatchNorm(nn.Module):
                 w, b = block.replicated(w), block.replicated(b)
             out = out * w + b
         return input._wrap(out.to(feats.dtype))
+
+
+def _own(stats):
+    """This rank's sums, unreduced."""
+    return stats
 
 
 class _AllReduceSum(comm.AllReduceSum):
@@ -157,22 +196,20 @@ class MinkowskiSyncBatchNorm(MinkowskiBatchNorm):
         device=None,
         axis_name: str = "data",
     ):
-        super().__init__(num_features, eps, momentum, affine, track_running_stats, device)
+        super().__init__(num_features, eps, momentum, affine, track_running_stats,
+                         axis_name=axis_name, device=device)
         self.process_group = process_group
-        self.axis_name = axis_name
 
-    def forward(self, input):
-        if getattr(input, "row_block", None) is not None:
-            return super().forward(input)
-        reduce = None
-        if dist.is_available() and dist.is_initialized():
-            group = self.process_group
-            if isinstance(group, DeviceMesh):
-                group = group.get_group(self.axis_name)
-
-            def reduce(stats):
-                return _AllReduceSum.apply(stats, group)
-        return self._normalize(input, reduce)
+    def _reduce(self):
+        """The all-reduce over ``process_group`` (its ``axis_name`` group for
+        a ``DeviceMesh``) once ``torch.distributed`` is initialized, else
+        this rank's own sums: ``_normalize`` in every mode."""
+        if not (dist.is_available() and dist.is_initialized()):
+            return _own
+        group = self.process_group
+        if isinstance(group, DeviceMesh):
+            group = group.get_group(self.axis_name)
+        return lambda stats: _AllReduceSum.apply(stats, group)
 
     @classmethod
     def convert_sync_batchnorm(cls, module: nn.Module, process_group=None,

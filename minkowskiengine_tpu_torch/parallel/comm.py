@@ -34,6 +34,17 @@ def axis(mesh, name: str):
     return group, dist.get_world_size(group), dist.get_rank(group)
 
 
+def current_mesh():
+    """The innermost ``DeviceMesh`` entered as a context (``with mesh:``),
+    or None.  The stack is torch's own; read without a default, so a torch
+    that renames it raises here rather than leaving every
+    ``MinkowskiBatchNorm(axis_name=...)`` quietly unsynced."""
+    from torch.distributed.device_mesh import _mesh_resources
+
+    stack = _mesh_resources.mesh_stack
+    return stack[-1] if stack else None
+
+
 def _count(name: str, t: torch.Tensor) -> None:
     counts[name] += 1
     counts["bytes"] += t.numel() * t.element_size()

@@ -163,13 +163,16 @@ def make_data_parallel_step(
     "model") mesh, over the data axis only), then the optimizer steps.
     Returns ``step(model, optimizer, *batch) -> loss``, the loss averaged
     over the ranks.  ``MinkowskiSyncBatchNorm`` layers built with
-    ``process_group=mesh`` share their statistics over the same axis."""
+    ``process_group=mesh`` share their statistics over the same axis, and
+    so do ``MinkowskiBatchNorm(axis_name=...)`` layers: the step enters the
+    mesh (``with mesh:``), as JAX's ``shard_map`` binds its axis."""
     group = mesh.get_group(axis_name)
 
     def step(model, optimizer, *batch):
         optimizer.zero_grad()
-        loss = loss_fn(model, *batch)
-        loss.backward()
+        with mesh:
+            loss = loss_fn(model, *batch)
+            loss.backward()
         mean_loss = average_gradients(model, group, loss)
         optimizer.step()
         return mean_loss
@@ -202,8 +205,9 @@ def make_per_device_geometry_step(
         if geo.row_shapes is not None:
             geo = squeeze_geometry(geo)
         optimizer.zero_grad()
-        loss = loss_fn(model, geo, *batch)
-        loss.backward()
+        with mesh:
+            loss = loss_fn(model, geo, *batch)
+            loss.backward()
         mean_loss = average_gradients(model, group, loss)
         optimizer.step()
         return mean_loss

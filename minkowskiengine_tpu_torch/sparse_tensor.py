@@ -50,16 +50,31 @@ def as_features(features, device=None) -> torch.Tensor:
     return torch.as_tensor(features, device=resolve_device(device))
 
 
-def default_manager(D: int, device) -> CoordinateManager:
+def default_manager(D: int, device, allocator_type=None, minkowski_algorithm=None) -> CoordinateManager:
     """The manager of a tensor built from raw coordinates: the global one in
-    SHARE_COORDINATE_MANAGER mode, else a new one on ``device``."""
+    SHARE_COORDINATE_MANAGER mode, else a new one on ``device``; a new
+    manager keeps the reference's backend keywords, as JAX's does."""
+    def new():
+        return CoordinateManager(D=D, allocator_type=allocator_type,
+                                 minkowski_algorithm=minkowski_algorithm, device=device)
+
     if sparse_tensor_operation_mode() != SparseTensorOperationMode.SHARE_COORDINATE_MANAGER:
-        return CoordinateManager(D=D, device=device)
+        return new()
     manager = global_coordinate_manager()
     if manager is None:
-        manager = CoordinateManager(D=D, device=device)
+        manager = new()
         set_global_coordinate_manager(manager)
     return manager
+
+
+def as_input_features(features, device, requires_grad) -> torch.Tensor:
+    """``as_features``; ``requires_grad`` (not None) sets the features' flag
+    first, as the reference's tensors do (MinkowskiTensor.py); JAX takes
+    the keyword and ignores it."""
+    features = as_features(features, device)
+    if requires_grad is not None:
+        features.requires_grad_(requires_grad)
+    return features
 
 
 def quantize_features(features, inverse_map, n_out: int, mode, unique_map=None) -> torch.Tensor:
@@ -105,6 +120,9 @@ class SparseTensor:
     feature tensor stays on its device and host data goes to the card.
     ``row_block``: the features are this rank's row block of the map
     (spatial execution; the module docstring says what follows).
+    ``allocator_type`` and ``minkowski_algorithm`` go to a new manager, as
+    in JAX; ``requires_grad`` (not None) sets the features' flag, as the
+    reference does (JAX ignores it).
     """
 
     def __init__(
@@ -118,6 +136,9 @@ class SparseTensor:
         quantization_mode: SparseTensorQuantizationMode = (
             SparseTensorQuantizationMode.RANDOM_SUBSAMPLE
         ),
+        allocator_type=None,
+        minkowski_algorithm=None,
+        requires_grad=None,
         device=None,
         row_block=None,
     ):
@@ -130,7 +151,7 @@ class SparseTensor:
             )
         if row_block is not None and coordinates is not None:
             raise ValueError("a row block attaches features to an existing map, not to coordinates")
-        features = as_features(features, device)
+        features = as_input_features(features, device, requires_grad)
         if features.ndim != 2:
             raise ValueError(f"features must be rank-2, got {tuple(features.shape)}")
         self.quantization_mode = quantization_mode
@@ -160,7 +181,9 @@ class SparseTensor:
                     f"{features.shape[0]} vs {coordinates.shape[0]}"
                 )
             if coordinate_manager is None:
-                coordinate_manager = default_manager(coordinates.shape[1] - 1, features.device)
+                coordinate_manager = default_manager(
+                    coordinates.shape[1] - 1, features.device, allocator_type, minkowski_algorithm
+                )
             coordinate_map_key, (unique_map, inverse_map) = (
                 coordinate_manager.insert_and_map(coordinates, tensor_stride)
             )
@@ -220,6 +243,19 @@ class SparseTensor:
             lo, hi = self.row_block.bounds(C.shape[0])
             C = C[lo:hi]
         return C
+
+    @property
+    def features(self) -> torch.Tensor:
+        return self.F
+
+    @property
+    def coordinates(self) -> torch.Tensor:
+        return self.C
+
+    @property
+    def coordinate_map(self):
+        """The manager's ``CoordinateMap`` at this tensor's key."""
+        return self._manager.get_coordinate_map(self.coordinate_map_key)
 
     @property
     def device(self):

@@ -17,7 +17,9 @@ import torch
 
 from .coords.manager import CoordinateManager, CoordinateMapKey, _interp_corner_coords
 from .ops import functional as F
-from .sparse_tensor import SparseTensor, as_features, default_manager, quantize_features
+from .sparse_tensor import (
+    SparseTensor, as_input_features, default_manager, quantize_features,
+)
 from .types import SparseTensorQuantizationMode, as_tuple
 
 
@@ -26,6 +28,9 @@ class TensorField:
 
     ``device``: where the features and a new manager live.  By default a
     feature tensor stays on its device and host data goes to the card.
+    ``allocator_type`` and ``minkowski_algorithm`` are taken and select
+    nothing, as in JAX (whose TensorField does not hand them to its new
+    manager); ``requires_grad`` sets the features' flag, as ``SparseTensor``.
     """
 
     def __init__(
@@ -39,6 +44,9 @@ class TensorField:
         quantization_mode: SparseTensorQuantizationMode = (
             SparseTensorQuantizationMode.UNWEIGHTED_AVERAGE
         ),
+        allocator_type=None,
+        minkowski_algorithm=None,
+        requires_grad=None,
         device=None,
     ):
         if coordinates is None and (
@@ -48,7 +56,7 @@ class TensorField:
                 "Either coordinates or (coordinate_field_map_key, "
                 "coordinate_manager) must be provided"
             )
-        features = as_features(features, device)
+        features = as_input_features(features, device, requires_grad)
         if features.ndim != 2:
             raise ValueError(f"features must be rank-2, got {tuple(features.shape)}")
         self.quantization_mode = quantization_mode
@@ -89,6 +97,18 @@ class TensorField:
     def C(self) -> torch.Tensor:
         """(N, D+1) float32 coordinates, batch first."""
         return self._manager.get_coordinate_field(self.coordinate_field_map_key)
+
+    @property
+    def features(self) -> torch.Tensor:
+        return self.F
+
+    @property
+    def coordinates(self) -> torch.Tensor:
+        return self.C
+
+    @property
+    def dtype(self):
+        return self._F.dtype
 
     @property
     def size(self) -> int:

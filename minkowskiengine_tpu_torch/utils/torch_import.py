@@ -59,14 +59,16 @@ def _whole(model: nn.Module, named: Dict[str, torch.Tensor]) -> Dict[str, torch.
     return named
 
 
-def reference_named_params(model: nn.Module) -> Dict[str, torch.Tensor]:
-    """Every parameter and buffer of ``model`` under its reference name, in
+def reference_named_params(module: nn.Module, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """Every parameter and buffer of ``module`` under its reference name, in
     the reference's layout: the state dict, with each convolution bias
-    viewed as (C,).  A tensor-parallel model's cut parameters come whole
+    viewed as (C,); each name after ``prefix.`` when ``prefix`` is given, as
+    JAX's takes it.  A tensor-parallel model's cut parameters come whole
     (a collective over the model group: every rank calls it)."""
-    biases = _conv_biases(model)
-    named = _whole(model, model.state_dict(keep_vars=True))
-    return {k: v.reshape(-1) if k in biases else v for k, v in named.items()}
+    biases = _conv_biases(module)
+    named = _whole(module, module.state_dict(keep_vars=True))
+    p = prefix + "." if prefix else ""
+    return {p + k: v.reshape(-1) if k in biases else v for k, v in named.items()}
 
 
 def export_reference_state_dict(model: nn.Module) -> Dict[str, np.ndarray]:

@@ -20,10 +20,14 @@ mean of independent single-device gradients over the ranks' batches.
   mesh.
 - ``average_gradients``: one all-reduce of one buffer; parameters of two
   dtypes are refused.
+- ``MinkowskiBatchNorm(axis_name="data")``: inside the entered mesh, the
+  sync batch norm bit for bit; outside it, plain batch norm.
 
 Tolerance: per tensor, max|Δ| / max|ref| <= 1e-5: float32 sums over a few
 hundred rows per rank, and the mean over the ranks taken in another order.
 """
+
+import contextlib
 
 import numpy as np
 import pytest
@@ -168,6 +172,26 @@ def _cases(world, rank, state):
     mine_rows = slice(8 * rank, 8 * rank + 8)
     y = sync(MT.SparseTensor(torch.from_numpy(rows[mine_rows]), torch.from_numpy(c[mine_rows])))
     out["sync_bn"] = (y.F.detach().numpy(), sync.bn.running_var.numpy().copy())
+
+    # batch norm with JAX's axis_name, inside the entered mesh and outside it,
+    # beside the sync batch norm: forward and backward on this rank's rows
+    g = np.random.RandomState(4).randn(8 * world, 5).astype(np.float32)
+    runs = {}
+    for name, bn, entered in (
+        ("axis", MT.MinkowskiBatchNorm(5, axis_name="data", device="cpu"), True),
+        ("sync", MT.MinkowskiSyncBatchNorm(5, process_group=mesh, axis_name="data", device="cpu"),
+         True),
+        ("outside", MT.MinkowskiBatchNorm(5, axis_name="data", device="cpu"), False),
+        ("plain", MT.MinkowskiBatchNorm(5, device="cpu"), False),
+    ):
+        f = torch.from_numpy(rows[mine_rows]).requires_grad_()
+        with mesh if entered else contextlib.nullcontext():
+            y = bn(MT.SparseTensor(f, torch.from_numpy(c[mine_rows])))
+            y.F.backward(torch.from_numpy(g[mine_rows]))
+        runs[name] = [y.F.detach().numpy(), f.grad.numpy(), bn.bn.running_mean.numpy().copy(),
+                      bn.bn.running_var.numpy().copy(), bn.bn.weight.grad.numpy().copy(),
+                      bn.bn.bias.grad.numpy().copy()]
+    out["axis_bn"] = runs
 
     # one buffer in the parameters' dtype; two dtypes are refused
     lin = torch.nn.Linear(3, 2)
@@ -350,6 +374,23 @@ def test_sync_batch_norm_over_a_mesh_axis(worlds, world):
         out, running_var = got["sync_bn"]
         assert _rel(out, want[8 * r:8 * r + 8]) <= RTOL, r
         assert _rel(running_var, bn.bn.running_var.numpy()) <= RTOL, r
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_batch_norm_with_an_axis_name_is_the_sync_batch_norm_inside_the_mesh(worlds, world):
+    """``MinkowskiBatchNorm(axis_name="data")`` inside the entered mesh
+    equals ``MinkowskiSyncBatchNorm`` over the same axis, bit for bit
+    (output, input gradient, running statistics, this rank's share of the
+    affine gradients); outside any mesh it is batch norm on the rank's own
+    rows, as JAX's is outside a ``shard_map``."""
+    res, _ = worlds
+    for got in res[world]:
+        runs = got["axis_bn"]
+        for a, b in zip(runs["axis"], runs["sync"]):
+            np.testing.assert_array_equal(a, b)
+        for a, b in zip(runs["outside"], runs["plain"]):
+            np.testing.assert_array_equal(a, b)
+        assert not np.array_equal(runs["axis"][0], runs["plain"][0])  # the mesh's rows count
 
 
 @pytest.mark.parametrize("world", WORLDS)

@@ -16,6 +16,8 @@ cancellation costs a few float32 ulps.  bf16 features are normalized in
 float32 by both and rounded once: one bf16 ulp (2^-7).
 """
 
+from functools import partial
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,6 +25,7 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 from flax import nnx
+from torch.distributed.device_mesh import init_device_mesh
 from jax.sharding import PartitionSpec as P
 
 import minkowskiengine_tpu as ME
@@ -83,6 +86,10 @@ def _worker(rank, world, path):
             bn = _make(MinkowskiSyncBatchNorm, w, b)
             res[name] = _step(bn, coords[mine], feats[mine], g[mine], dtype)
         res["all_reduces"] = MinkowskiSyncBatchNorm.all_reduces
+        if world == 1:  # batch norm with JAX's axis_name inside a one-rank mesh
+            with init_device_mesh("cpu", (1,), mesh_dim_names=("data",)):
+                bn = _make(partial(MT.MinkowskiBatchNorm, axis_name="data"), w, b)
+                res["axis_name"] = _step(bn, coords, feats, g, torch.float32)
         torch.save(res, f"{path}/rank{rank}.pt")
     finally:
         dist.destroy_process_group()
@@ -122,8 +129,13 @@ def test_two_ranks_equal_batch_norm_on_all_rows(two_ranks, dtype):
         assert _rel(two_ranks[0][dtype][k] + two_ranks[1][dtype][k], ref[k]) <= RTOL, k
 
 
-def test_one_rank_group_is_bit_equal_to_no_group(tmp_path):
-    (res,) = _spawn(1, tmp_path)
+@pytest.fixture(scope="module")
+def one_rank(tmp_path_factory):
+    return _spawn(1, tmp_path_factory.mktemp("sync1"))[0]
+
+
+def test_one_rank_group_is_bit_equal_to_no_group(one_rank):
+    res = one_rank
     assert res["all_reduces"] == 4
     coords, feats, g, w, b = _data()
     for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
@@ -132,6 +144,16 @@ def test_one_rank_group_is_bit_equal_to_no_group(tmp_path):
         assert MinkowskiSyncBatchNorm.all_reduces == before  # no group: no all-reduce
         for k, v in alone.items():
             assert torch.equal(v, res[name][k]), (name, k)
+
+
+def test_batch_norm_axis_name_on_a_one_rank_group_is_bit_equal_to_no_group(one_rank):
+    """``MinkowskiBatchNorm(axis_name="data")`` inside a one-rank mesh, whose
+    sum over the group is its own, gives the plain batch norm's numbers
+    outside any group, to the bit, in train and eval mode."""
+    coords, feats, g, w, b = _data()
+    alone = _step(_make(MT.MinkowskiBatchNorm, w, b), coords, feats, g, torch.float32)
+    for k, v in alone.items():
+        assert torch.equal(v, one_rank["axis_name"][k]), k
 
 
 def test_two_ranks_match_jax_under_shard_map(two_ranks):

@@ -245,7 +245,7 @@ def _stack_pair(kind, seed):
                    MT.MinkowskiConvolutionTranspose(16, 8, kernel_size=2, stride=2, dimension=3, device="cpu")]
     for j, t in zip(jconvs, tconvs):
         with torch.no_grad():
-            t.kernel.copy_(torch.from_numpy(np.asarray(j.kernel[...])))
+            t.kernel.copy_(torch.from_numpy(np.array(j.kernel[...])))
     junpool = ME.MinkowskiPoolingTranspose(kernel_size=2, stride=2, dimension=3)
     tunpool = MT.MinkowskiPoolingTranspose(kernel_size=2, stride=2, dimension=3)
     if kind == "nested":
@@ -320,3 +320,188 @@ def test_nonlinearities_match_jax(name, kwargs):
     assert _rel(out.F.detach(), want) <= REL
     out.F.backward(torch.from_numpy(cot))
     assert _rel(f.grad, vjp(jnp.asarray(cot))[0]) <= REL
+
+
+# ---------------------------------------------------------------------------
+# the reference's accessors and keywords (ROADMAP queue 3, F1 and F2)
+# ---------------------------------------------------------------------------
+
+
+def test_accessors_match_jax():
+    """``SparseTensor.features``, ``.coordinates`` and ``.coordinate_map`` and
+    ``TensorField.features``, ``.coordinates`` and ``.dtype`` give what JAX's
+    give on one cloud: ``F``, ``C``, the manager's map, the features' dtype."""
+    coords = _coords()
+    jx, tx, feats = _pair(coords, ch=4)
+    assert tx.features is tx.F and tx.coordinates.equal(tx.C)
+    np.testing.assert_array_equal(tx.features.numpy(), np.asarray(jx.features))
+    np.testing.assert_array_equal(tx.coordinates.numpy(), np.asarray(jx.coordinates))
+    jm, tm = jx.coordinate_map, tx.coordinate_map
+    assert tm is tx.coordinate_manager.get_coordinate_map(tx.coordinate_map_key)
+    assert tm.size == jm.size and tm.tensor_stride == tuple(jm.tensor_stride)
+    np.testing.assert_array_equal(tm.coordinates.numpy(), np.asarray(jm.coordinates)[: jm.size])
+
+    pts = np.random.RandomState(1).rand(50, 3).astype(np.float32) * 4
+    fc = np.concatenate([np.zeros((50, 1), np.float32), pts], 1)
+    ff = np.random.RandomState(2).randn(50, 2).astype(np.float32)
+    jf, tf = ME.TensorField(ff, fc), MT.TensorField(torch.from_numpy(ff), torch.from_numpy(fc))
+    assert tf.features is tf.F and tf.coordinates.equal(tf.C)
+    np.testing.assert_array_equal(tf.features.numpy(), np.asarray(jf.features))
+    np.testing.assert_array_equal(tf.coordinates.numpy(), np.asarray(jf.coordinates))
+    assert tf.dtype == torch.float32 and np.dtype(jf.dtype) == np.float32
+    assert MT.TensorField(torch.from_numpy(ff).double(), torch.from_numpy(fc)).dtype == torch.float64
+
+
+_MANAGER_KEYWORDS = [
+    ("allocator_type", "PYTORCH"), ("minkowski_algorithm", "SPEED_OPTIMIZED"),
+    ("minkowski_algorithm", "MEMORY_EFFICIENT"),
+]
+
+
+def _enum(package, keyword, value):
+    cls = {"allocator_type": "GPUMemoryAllocatorType",
+           "minkowski_algorithm": "MinkowskiAlgorithm"}[keyword]
+    return getattr(getattr(package, cls), value)
+
+
+def _manager_state(mgr):
+    return (int(mgr.allocator_type) if mgr.allocator_type is not None else None,
+            int(mgr.minkowski_algorithm), mgr.coordinate_map_type)
+
+
+@pytest.mark.parametrize("cls", ["SparseTensor", "TensorField"])
+@pytest.mark.parametrize("keyword,value", _MANAGER_KEYWORDS)
+def test_tensor_keywords_match_jax(cls, keyword, value):
+    """A tensor built with a backend keyword gives JAX's rows, and its new
+    manager keeps what JAX's keeps: a SparseTensor's keeps the keyword, a
+    TensorField's does not see it."""
+    coords = _coords(seed=3)
+    feats = np.random.RandomState(3).randn(len(coords), 2).astype(np.float32)
+    c = coords if cls == "SparseTensor" else coords.astype(np.float32)
+    j = getattr(ME, cls)(feats, c, **{keyword: _enum(ME, keyword, value)})
+    t = getattr(MT, cls)(torch.from_numpy(feats), torch.from_numpy(c),
+                         **{keyword: _enum(MT, keyword, value)})
+    np.testing.assert_array_equal(t.F.numpy(), np.asarray(j.F))
+    np.testing.assert_array_equal(t.C.numpy(), np.asarray(j.C))
+    assert _manager_state(t.coordinate_manager) == _manager_state(j.coordinate_manager)
+    if cls == "SparseTensor":
+        assert getattr(t.coordinate_manager, keyword) == _enum(MT, keyword, value)
+
+
+@pytest.mark.parametrize("cls", ["SparseTensor", "TensorField"])
+@pytest.mark.parametrize("flag", [True, False, None])
+def test_requires_grad_sets_the_features_flag(cls, flag):
+    """``requires_grad`` sets the features' flag, as the reference's tensors
+    do (JAX takes it and ignores it: ROADMAP queue 3, Kept on purpose);
+    None leaves the flag as it was."""
+    coords = _coords(seed=4)
+    c = torch.from_numpy(coords if cls == "SparseTensor" else coords.astype(np.float32))
+    feats = torch.randn(len(coords), 3, generator=torch.Generator().manual_seed(0))
+    t = getattr(MT, cls)(feats, c, requires_grad=flag)
+    assert t.F.requires_grad is bool(flag) and feats.requires_grad is bool(flag)
+    j = getattr(ME, cls)(feats.detach().numpy(), c.numpy(), requires_grad=flag)
+    np.testing.assert_array_equal(t.F.detach().numpy(), np.asarray(j.F))
+    if flag:  # a gradient reaches the features the caller passed
+        t.F.sum().backward()
+        assert feats.grad is not None and feats.grad.shape == feats.shape
+
+
+@pytest.mark.parametrize("keyword,value", [
+    ("num_threads", 4), ("coordinate_map_type", "CUDA"), *_MANAGER_KEYWORDS,
+])
+def test_coordinate_manager_keywords_match_jax(keyword, value):
+    """``CoordinateManager`` and ``CoordsManager`` take the reference's four
+    backend keywords beside ``device``; the maps they build and the
+    attributes they keep are JAX's."""
+    coords = _coords(seed=5)
+    if keyword in ("allocator_type", "minkowski_algorithm"):
+        jv, tv = _enum(ME, keyword, value), _enum(MT, keyword, value)
+    else:
+        jv = tv = value
+    for name in ("CoordinateManager", "CoordsManager"):
+        jm = getattr(ME, name)(D=3, **{keyword: jv})
+        tm = getattr(MT, name)(D=3, **{keyword: tv}, device="cpu")
+        jkey, _ = jm.insert_and_map(jnp.asarray(coords))
+        tkey, _ = tm.insert_and_map(torch.from_numpy(coords))
+        assert tkey.get_key() == jkey.get_key()
+        np.testing.assert_array_equal(tm.get_coordinates(tkey).numpy(),
+                                      np.asarray(jm.get_coordinates(jkey)))
+        assert _manager_state(tm) == _manager_state(jm)
+
+
+def _conv_pair(name, mode, cin=3, cout=5):
+    """(JAX module, port module with JAX's weights, input stride) of one conv
+    class at ``mode``."""
+    kw = dict(kernel_size=3, stride=1) if name == "MinkowskiConvolution" else dict(
+        kernel_size=2, stride=2)
+    j = getattr(ME, name)(cin, cout, dimension=3, convolution_mode=_enum_mode(ME, mode),
+                          rngs=nnx.Rngs(0), **kw)
+    t = getattr(MT, name)(cin, cout, dimension=3, convolution_mode=_enum_mode(MT, mode),
+                          device="cpu", **kw)
+    with torch.no_grad():
+        t.kernel.copy_(torch.from_numpy(np.array(j.kernel[...])))
+    return j, t, 1 if name == "MinkowskiConvolution" else 2
+
+
+def _enum_mode(package, mode):
+    return getattr(package.ConvolutionMode, mode)
+
+
+CONVS = ["MinkowskiConvolution", "MinkowskiConvolutionTranspose",
+         "MinkowskiGenerativeConvolutionTranspose"]
+
+
+@pytest.mark.parametrize("name", CONVS)
+@pytest.mark.parametrize("mode", ["DEFAULT", "DIRECT_GEMM", "COPY_GEMM"])
+def test_convolution_mode_matches_jax_and_changes_nothing(name, mode):
+    """Every ``convolution_mode`` builds the module JAX builds, is kept and
+    shown in the repr, and gives JAX's output, bit-equal to DEFAULT's: the
+    port has one sparse-conv path (K1/K2 on the card)."""
+    j, t, ts = _conv_pair(name, mode)
+    assert t.convolution_mode == _enum_mode(MT, mode) and f"mode={mode}" in repr(t)
+    coords = _coords(seed=6)
+    coords[:, 1:] *= ts
+    feats = np.random.RandomState(6).randn(len(coords), 3).astype(np.float32)
+    jy = j(ME.SparseTensor(jnp.asarray(feats), jnp.asarray(coords), tensor_stride=ts))
+    x = MT.SparseTensor(torch.from_numpy(feats), torch.from_numpy(coords), tensor_stride=ts)
+    ty = t(x)
+    np.testing.assert_array_equal(ty.C.numpy(), np.asarray(jy.C))
+    assert _rel(ty.F.detach().numpy(), np.asarray(jy.F)) <= REL
+    _, default, _ = _conv_pair(name, "DEFAULT")
+    with torch.no_grad():
+        default.kernel.copy_(t.kernel)
+    assert torch.equal(default(x).F, ty.F)
+
+
+@pytest.mark.parametrize("training", [True, False], ids=["train", "eval"])
+def test_batch_norm_axis_name_outside_a_mesh_matches_jax(training):
+    """``MinkowskiBatchNorm(axis_name=...)`` outside any mesh is batch norm,
+    as JAX's is outside a ``shard_map``; the name is kept (inside a mesh:
+    ``tests/test_torch_parallel_data.py`` and
+    ``tests/test_torch_sync_batchnorm.py``)."""
+    coords = _coords(seed=7)
+    feats = (np.random.RandomState(7).randn(len(coords), 4) + 1.0).astype(np.float32)
+    j, t = ME.MinkowskiBatchNorm(4, axis_name="data"), MT.MinkowskiBatchNorm(
+        4, axis_name="data", device="cpu")
+    assert t.axis_name == j.axis_name == "data"
+    j.train(training)
+    t.train(training)
+    jy = j(ME.SparseTensor(jnp.asarray(feats), jnp.asarray(coords)))
+    ty = t(MT.SparseTensor(torch.from_numpy(feats), torch.from_numpy(coords)))
+    assert _rel(ty.F.detach().numpy(), np.asarray(jy.F)) <= 1e-5
+
+
+def test_reference_named_params_takes_a_prefix_as_jax():
+    """``utils.reference_named_params(module, prefix)`` names every
+    parameter and buffer as JAX's does, after ``prefix.``."""
+    from minkowskiengine_tpu.utils.torch_import import reference_named_params as jnamed
+
+    j = ME.MinkowskiConvolution(3, 4, kernel_size=3, bias=True, dimension=3, rngs=nnx.Rngs(0))
+    t = MT.MinkowskiConvolution(3, 4, kernel_size=3, bias=True, dimension=3, device="cpu")
+    for prefix in ("", "block.conv"):
+        want = jnamed(j, prefix)
+        got = MT.utils.reference_named_params(t, prefix=prefix)
+        assert set(got) == set(want), prefix
+        assert all(k.startswith(prefix + ".") for k in got) if prefix else "kernel" in got
+    named = MT.utils.reference_named_params(t, "p")
+    assert named["p.bias"].shape == (4,) and named["p.kernel"] is t.kernel
