@@ -8,8 +8,9 @@ compute path (MinkUNet34 and MinkowskiFCNN training in bf16),
 MinkowskiSyncBatchNorm on a one-rank NCCL group, training on fresh geometry,
 and the parallel package: the per-device-geometry DDP step on a one-rank
 NCCL group, then two processes sharing the card over gloo for a DDP step,
-the halo-exchange spatial conv and column-parallel convs; last, the ported
-examples, indoor.py's MinkUNet34C segmentation chain at full width first.
+the halo-exchange spatial conv and column-parallel convs; then the ported
+examples, indoor.py's MinkUNet34C segmentation chain at full width first;
+last, a 7-D sparse U-Net (multi-word coordinate keys) and a 16-D conv.
 
 Run from the root of a checkout, with one CUDA card visible:
 
@@ -258,6 +259,32 @@ Phases, in order; any failure raises and the script exits non-zero:
    version as it runs (``every_call_held``: the 2-D maps, the scripts' own
    widths, the replayed maps), a finite last loss where it trains, none
    raising.
+
+39. the coordinate engine above D = 6 (multi-word keys): a 7-D cloud is
+   four frames of the room of phase 5 (100,000 points each, its own seed,
+   moved a few voxels), each point lifted to (x, y, z in 5 cm voxels, its
+   three colors times 8, t): ~118k voxels.  ``HighDimUNet(3, 20, D=7)``
+   (conv k = 2, a cube of 128 offsets, 3 -> 32; conv k = 2 s = 2 32 -> 64;
+   a HYPER_CROSS k = 3 conv, 15 offsets, 64 -> 64; a transposed conv k = 2
+   s = 2 64 -> 32; each with batch norm and ReLU; ``cat`` with the first
+   level; a k = 1 conv with bias 64 -> 20), weights from torch.Generator
+   seed 0.  (a) 3 requests from the raw points: ``TensorField`` ->
+   ``sparse()`` -> the net (eval) -> ``slice()`` to per-point logits on the
+   host, wall ms, 4 K1 launches each, each map's rows, K and share of -1
+   slots, the logits against the CPU plain path as phase 6 judges them;
+   (b) the K1 and K2 calls of one training step on a two-cloud batch
+   (~236k rows, voxelized by ``sparse_quantize`` over 7-wide rows) against
+   their plain versions, with the bound; then 4 SGD steps (lr 0.01), every
+   K1 and K2 call held against its plain version as it runs, exactly 7 K1
+   and 4 K2 launches per step, peak memory; step 0 judged as phase 10;
+   (c) the coordinate phase recorded on batch 0, a ``GeometryReplayer``
+   warmed on two batches, then two fresh batches: deferred and
+   ``CompiledReplayer.run`` (one CUDA graph) bit-equal to the eager
+   manager, host ms and syncs of each (compiled: one), and a step through
+   the compiled geometry bit-equal to the eager step; (d) D = 16: a
+   HYPER_CROSS k = 3 conv (33 offsets) 3 -> 32 forward and backward on
+   ~52k rows (phase 5's first scan twice, each row given 13 coordinates in
+   {0, 1}), its K1 and K2 calls held.
 
 Bound of a kernel call: the larger of its useful operations (2 · pairs ·
 Cin · Cout) over the H100's 495 TFLOP/s dense TF32 tensor peak and its
@@ -3190,6 +3217,326 @@ def examples_path(dev, launches):
     return errors
 
 
+# phase 39: the coordinate engine above D = 6.  A cloud is HIGH_D_FRAMES
+# frames of the room of ``scan`` (each its own seed, moved a few voxels),
+# each point lifted to (x, y, z in 5 cm voxels, its colors in [0, 8), t):
+# ~100k 7-D rows, inside the ±1024 budget of D = 7
+HIGH_D_FRAMES, HIGH_D_POINTS, HIGH_D_VOXEL, HIGH_D_REQUESTS = 4, 100_000, 0.05, 3
+# two clouds per batch: four training batches, two to warm the replayer,
+# two fresh ones
+HIGH_D_TRAIN = ((0, 1), (2, 3), (4, 5), (6, 7))
+HIGH_D_WARM, HIGH_D_FRESH = ((8, 9), (10, 11)), ((12, 13), (14, 15))
+HIGH_D_CONVS = 4  # K > 1 sparse convs: conv1, conv2, conv3, up
+# per step: K1 forward on all four, input gradient on all but conv1; K2 on all
+HIGH_D_STEP_LAUNCHES = (2 * HIGH_D_CONVS - 1, HIGH_D_CONVS)
+# the D = 16 cloud: the voxels of two room scans, each row given 13 more
+# coordinates in {0, 1}
+HIGH_D16, HIGH_D16_SEED = 16, 0
+
+
+class HighDimUNet(torch.nn.Module):
+    """A small sparse U-Net for any D, from the port's public modules, at
+    MinkUNet's first two widths: conv k = 2 (2^D offsets), conv k = 2 s = 2,
+    a HYPER_CROSS k = 3 conv (2D + 1 offsets), a transposed conv k = 2 s = 2,
+    each followed by batch norm and ReLU; ``cat`` with the first level and
+    a k = 1 conv with bias."""
+
+    def __init__(self, cin, cout, D, generator=None, device=None):
+        super().__init__()
+        kw = dict(dimension=D, generator=generator, device=device)
+        cross = MT.KernelGenerator(kernel_size=3, region_type=MT.RegionType.HYPER_CROSS,
+                                   dimension=D)
+        self.conv1 = MT.MinkowskiConvolution(cin, 32, kernel_size=2, **kw)
+        self.bn1 = MT.MinkowskiBatchNorm(32, device=device)
+        self.conv2 = MT.MinkowskiConvolution(32, 64, kernel_size=2, stride=2, **kw)
+        self.bn2 = MT.MinkowskiBatchNorm(64, device=device)
+        self.conv3 = MT.MinkowskiConvolution(64, 64, kernel_size=3, kernel_generator=cross, **kw)
+        self.bn3 = MT.MinkowskiBatchNorm(64, device=device)
+        self.up = MT.MinkowskiConvolutionTranspose(64, 32, kernel_size=2, stride=2, **kw)
+        self.bn4 = MT.MinkowskiBatchNorm(32, device=device)
+        self.final = MT.MinkowskiConvolution(64, cout, kernel_size=1, bias=True, **kw)
+        self.relu = MT.MinkowskiReLU()
+
+    def forward(self, x):
+        a = self.relu(self.bn1(self.conv1(x)))
+        b = self.relu(self.bn2(self.conv2(a)))
+        b = self.relu(self.bn3(self.conv3(b)))
+        u = self.relu(self.bn4(self.up(b)))
+        return self.final(MT.cat(u, a))
+
+
+def lifted_points(seed):
+    """One 7-D cloud as raw points: (float coordinates (N, 8): batch 0, x,
+    y, z in voxels, the three colors times 8, t; colors (N, 3), centred at
+    0).  The colors are a function of the point, as ``room_points`` makes
+    them."""
+    coords, colors = [], []
+    for t in range(HIGH_D_FRAMES):
+        s = HIGH_D_FRAMES * seed + t
+        pts = make_room_scan(n_points=HIGH_D_POINTS, extent=(2.0, 2.0, 2.2), n_objects=4, seed=s)
+        col = np.stack([pts[:, 2] / 2.5, 0.5 + 0.5 * np.sin(pts[:, 0] * 2.1),
+                        0.5 + 0.5 * np.cos(pts[:, 1] * 1.7)], 1).clip(0, 0.999)
+        moved = pts / HIGH_D_VOXEL + np.random.RandomState(s).randint(-3, 4, 3)
+        coords.append(np.concatenate(
+            [np.zeros((len(pts), 1)), moved, 8 * col, np.full((len(pts), 1), t)], 1))
+        colors.append(col - 0.5)
+    return np.concatenate(coords).astype(np.float32), np.concatenate(colors).astype(np.float32)
+
+
+def lifted_voxels(seed):
+    """The cloud voxelized on the host (``sparse_quantize`` over 7-wide
+    rows): (int32 coordinates (N, 7), colors of each voxel's first point)."""
+    pts, colors = lifted_points(seed)
+    return MT.utils.sparse_quantize(pts[:, 1:], colors)
+
+
+def cloud16(seed):
+    """(coordinates (N, 17) with batch 0, features (N, 3)): the voxels of
+    ``scan(seed)`` twice, each copy's rows given 13 more coordinates in
+    {0, 1}, unique rows."""
+    coords, feats = scan(seed)
+    rng = np.random.RandomState(seed)
+    rows = np.concatenate([np.concatenate(
+        [coords, rng.randint(0, 2, (len(coords), HIGH_D16 - 3))], 1) for _ in range(2)])
+    rows, first = np.unique(rows.astype(np.int32), axis=0, return_index=True)
+    return rows, np.concatenate([feats, feats])[first]
+
+
+def empty_share(km):
+    return 1 - (km.in_idx >= 0).sum().item() / max(1, km.in_idx.numel())
+
+
+def high_dimensional(dev, launches):
+    """Phase 39: the 7-D U-Net from raw lifted points to per-point logits,
+    its training, its coordinate phase replayed, and a D = 16 conv.  Adds
+    the main-path launches to ``launches``; returns (every K1 and K2
+    call's abs error against its plain version, by kernel; the kernel rows
+    of one 7-D training step)."""
+    start = time.perf_counter()
+    net = HighDimUNet(3, 20, 7, generator=torch.Generator().manual_seed(0), device=dev)
+    init = {k: v.detach().cpu().clone() for k, v in net.state_dict().items()}
+    errors = dict(gather_gemm=[], conv_dw=[])
+
+    # 39a. requests: raw 7-D points -> TensorField -> sparse() -> net -> slice()
+    points, colors = lifted_points(0)
+
+    def request(model, d):
+        with torch.no_grad():
+            field = MT.TensorField(torch.from_numpy(colors).to(d), torch.from_numpy(points).to(d),
+                                   device=d)
+            x = field.sparse()
+            return model(x).slice(field).F.cpu(), x
+
+    net.eval()
+    request(net, dev)  # warm-up: allocator, cuBLAS
+    answers = []
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    for i in range(HIGH_D_REQUESTS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, x = request(net, dev)
+        secs = time.perf_counter() - t0
+        answers.append(logits)
+        print(f"[39a 7-D request] {i}: {len(points)} points, {x.size} voxels, {secs * 1e3:.2f} ms "
+              f"from raw points to per-point logits on the host, {len(points) / secs:.0f} points/s")
+        if logits.shape != (len(points), 20) or not torch.isfinite(logits).all():
+            raise AssertionError(f"7-D logits {tuple(logits.shape)}")
+    got = take_launches(launches)
+    if (got["gather_gemm"], got["conv_dw"]) != (HIGH_D_REQUESTS * HIGH_D_CONVS, 0):
+        raise AssertionError(f"7-D requests launched {got}")
+    print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    mgr = x.coordinate_manager
+    for km_key, km in mgr._kernel_maps.items():
+        print(f"  map {km_key[0][0][0]}->{km_key[1][0][0]} K={km.kernel_volume}: rows "
+              f"{km.n_in}->{km.n_out}, -1 slots {empty_share(km):.2%}")
+    cpu_net = HighDimUNet(3, 20, 7, device="cpu")
+    cpu_net.load_state_dict(net.state_dict())
+    t0 = time.perf_counter()
+    ref, _ = request(cpu_net.eval(), "cpu")
+    rel = rel_diff(answers[0], ref)
+    print(f"  launches {got}; card vs CPU plain-path per-point logits {rel:.2e} "
+          f"(CPU {time.perf_counter() - t0:.1f} s)")
+    if not rel <= LOGIT_RTOL:
+        ref64, _ = request(cpu_net.double(), "cpu")
+        card64, cpu64 = rel_diff(answers[0].double(), ref64), rel_diff(ref.double(), ref64)
+        print(f"  against float64: card {card64:.2e}, CPU float32 {cpu64:.2e}")
+        if not card64 <= GRAD_FACTOR * cpu64:
+            raise AssertionError(f"7-D logits disagree: {rel:.3e}")
+    del answers, ref, cpu_net, x, mgr
+
+    # 39b. training: the kernels on one step's maps, then four steps, each
+    # K1 and K2 call held against its plain version as it runs
+    t0 = time.perf_counter()
+    clouds = {s: lifted_voxels(s) for b in HIGH_D_TRAIN + HIGH_D_WARM + HIGH_D_FRESH for s in b}
+    batches = [sparse_collate([clouds[a][0], clouds[b][0]], [clouds[a][1], clouds[b][1]])
+               for a, b in HIGH_D_TRAIN + HIGH_D_WARM + HIGH_D_FRESH]
+    print(f"[39b 7-D training] {len(clouds)} clouds voxelized on the host in "
+          f"{time.perf_counter() - t0:.1f} s; batches of {[len(c) for c, _ in batches]} rows")
+    labels = [labels_for(i, len(c)) for i, (c, _) in enumerate(batches)]
+    net.load_state_dict({k: v.to(dev) for k, v in init.items()})
+    net.train().zero_grad(set_to_none=True)
+    convs = sparse_convs(net)
+    calls, grads, (loss, _) = capture_step(
+        convs, lambda: train_step(net, None, *batches[0], labels[0], dev))
+    if len(calls) != HIGH_D_CONVS or len(grads) != HIGH_D_CONVS:
+        raise AssertionError(f"captured {len(calls)} calls and {len(grads)} output gradients")
+    rows = []
+    for i, (m, inp, out) in enumerate(calls):
+        kmap = m._kernel_map(inp, out.coordinate_map_key)
+        rows.append(backward_rows(
+            inp.F.detach(), m.kernel.detach(), grads[i].contiguous(), kmap.in_idx,
+            kmap.out_idx_t, ("conv1", "conv2", "conv3", "up")[i], with_dx=inp.F.requires_grad))
+    print_sums(step_sums(rows))
+    del calls, grads, loss
+
+    net.load_state_dict({k: v.to(dev) for k, v in init.items()})
+    net.zero_grad(set_to_none=True)
+    opt = torch.optim.SGD(net.parameters(), lr=LR)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    with every_call_held(errors, "39b"):
+        for step in range(len(HIGH_D_TRAIN)):
+            before = counts_now()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, out = train_step(net, opt, *batches[step], labels[step], dev)
+            if step == 0:
+                loss0 = loss.item()
+                grads0 = {k: p.grad.detach().cpu().clone() for k, p in net.named_parameters()}
+            opt.step()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            n = tuple(counts_now()[k] - before[k] for k in ("gather_gemm", "conv_dw"))
+            print(f"[39b 7-D training] step {step}: {len(batches[step][0])} rows, "
+                  f"{secs * 1e3:.2f} ms, loss {loss.item():.6f}, {n[0]} gather_gemm and "
+                  f"{n[1]} conv_dw launches")
+            if n != HIGH_D_STEP_LAUNCHES or not torch.isfinite(loss):
+                raise AssertionError(f"7-D step {step}: launches {n}, loss {loss.item()}")
+            if step == 0:
+                stats0 = {k: v.cpu().clone() for k, v in net.state_dict().items() if "running" in k}
+            del loss, out
+    got = take_launches(launches)
+    print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+          f"{len(errors['gather_gemm'])} K1 and {len(errors['conv_dw'])} K2 calls held, worst rel "
+          f"err K1 {max(e[1] for e in errors['gather_gemm']):.2e}, K2 "
+          f"{max(e[1] for e in errors['conv_dw']):.2e}")
+    if (len(errors["gather_gemm"]), len(errors["conv_dw"])) != (got["gather_gemm"], got["conv_dw"]):
+        raise AssertionError(f"7-D steps: {got} launches, {len(errors['gather_gemm'])} K1 and "
+                             f"{len(errors['conv_dw'])} K2 calls held")
+
+    def cpu_step(dtype):
+        cpu_net = HighDimUNet(3, 20, 7, device="cpu").train()
+        cpu_net.load_state_dict(init)
+        cpu_net.to(dtype)
+        coords, feats = batches[0]
+        loss, _ = train_step(cpu_net, None, coords, feats.to(dtype), labels[0], "cpu")
+        return loss, cpu_net, len(coords)
+
+    judge_step("39b parity", loss0, grads0, stats0, cpu_steps(cpu_step, "39b parity", "rows"))
+
+    # 39c. the coordinate phase recorded on batch 0 and replayed on fresh
+    # batches: maps bit-equal to eager, one host sync compiled, and a step
+    # through the graph's geometry bit-equal to the eager step
+    def on_card(batch):
+        return batch[0].to(dev), batch[1].to(dev)
+
+    recorder = HighDimUNet(3, 20, 7, device=dev).eval()
+    c, f = on_card(batches[0])
+    x = MT.SparseTensor(f, c)
+    with torch.no_grad():
+        recorder(x)
+    log = x.coordinate_manager.oplog()
+    replayer = MT.GeometryReplayer(x.coordinate_manager)
+    for batch in batches[len(HIGH_D_TRAIN):len(HIGH_D_TRAIN) + len(HIGH_D_WARM)]:
+        replayer(on_card(batch)[0])
+    compiled = MT.CompiledReplayer(x.coordinate_manager).adopt(replayer)
+    compiled.run(*on_card(batches[0]))  # the capture
+    print(f"[39c 7-D replay] oplog of {len(log)} entries; floors "
+          f"{ {k[0][0]: v for k, v in replayer.cap_floors.items() if k[0] != 'kmax'} }")
+    for i, batch in enumerate(batches[-len(HIGH_D_FRESH):]):
+        c, f = on_card(batch)
+        clock = CoordinateClock()
+        with clock:
+            x = MT.SparseTensor(f, c)
+            with torch.no_grad():
+                recorder(x)
+        eager = x.coordinate_manager
+        deferred, d_ms, d_syncs = host_phase(lambda: replayer(c).export_geometry())
+        (geo, fp, ok), c_ms, c_syncs = host_phase(lambda: compiled.run(c, f))
+        if not ok:
+            raise AssertionError(f"7-D batch {i}: compiled replay ok {ok}")
+        same_geometry(f"39c batch {i} deferred", deferred, eager)
+        same_geometry(f"39c batch {i} compiled", geo, eager)
+        print(f"  fresh batch {i}: {len(c)} rows; host ms / syncs of the coordinate phase: eager "
+              f"{clock.ms:.2f} / {clock.syncs}, deferred {d_ms:.2f} / {d_syncs}, compiled "
+              f"{c_ms:.2f} / {c_syncs}; graphs captured {compiled.captures}, recoveries "
+              f"{compiled.recoveries}")
+        if c_syncs != 1 or compiled.recoveries:
+            raise AssertionError(f"7-D compiled replay: {c_syncs} syncs, "
+                                 f"{compiled.recoveries} recoveries")
+    del recorder, x, eager, deferred
+
+    def step_on(geo_step):
+        net.load_state_dict({k: v.to(dev) for k, v in init.items()})
+        net.zero_grad(set_to_none=True)
+        loss = geo_step()
+        loss.backward()
+        return loss.item(), {k: p.grad.detach().cpu().clone() for k, p in net.named_parameters()}
+
+    c, f = on_card(batches[-1])
+    lab = labels[-1].to(dev)
+    eager_step = step_on(lambda: torch.nn.functional.cross_entropy(net(MT.SparseTensor(f, c)).F, lab))
+
+    def compiled_step():
+        geo, fp, ok = compiled.run(c, f)
+        view = MT.CoordinateManager.from_geometry(geo)
+        out = net(MT.SparseTensor(fp, coordinate_map_key=geo.entry_key, coordinate_manager=view))
+        return torch.nn.functional.cross_entropy(out.F, lab)
+
+    graph_step = step_on(compiled_step)
+    same = eager_step[0] == graph_step[0] and all(
+        torch.equal(graph_step[1][k], g) for k, g in eager_step[1].items())
+    print(f"  a step through the compiled geometry: loss {graph_step[0]:.6f} (eager "
+          f"{eager_step[0]:.6f}), {len(eager_step[1])} gradients bit-equal: {same}")
+    if not same:
+        raise AssertionError("7-D step through the compiled geometry differs from eager")
+    del compiled, clouds, batches
+    torch.cuda.empty_cache()
+
+    # 39d. D = 16: a HYPER_CROSS k = 3 conv (33 offsets), forward and backward
+    coords16, feats16 = cloud16(HIGH_D16_SEED)
+    conv16 = MT.MinkowskiConvolution(
+        3, 32, kernel_size=3, dimension=HIGH_D16, generator=torch.Generator().manual_seed(0),
+        kernel_generator=MT.KernelGenerator(kernel_size=3, region_type=MT.RegionType.HYPER_CROSS,
+                                            dimension=HIGH_D16), device=dev)
+
+    def conv16_step():
+        x = MT.SparseTensor(torch.from_numpy(feats16).to(dev).requires_grad_(),
+                            torch.from_numpy(coords16).to(dev))
+        y = conv16(x)
+        y.F.square().sum().backward()
+        torch.cuda.synchronize()
+        return x, y
+
+    errs16 = dict(gather_gemm=[], conv_dw=[])
+    with every_call_held(errs16, "39d"):
+        (x, y), n = counted(launches, conv16_step)
+    km = x.coordinate_manager.kernel_map(x.coordinate_map_key, y.coordinate_map_key,
+                                         kernel_size=3, region_type=MT.RegionType.HYPER_CROSS)
+    print(f"[39d D = 16] {x.size} rows, key words "
+          f"{tuple(x.coordinate_manager.get_coordinate_map(x.coordinate_map_key).keys.shape)}, "
+          f"K={km.kernel_volume}, -1 slots {empty_share(km):.2%}; launches {n}; K1 and K2 held: "
+          f"worst rel err {max(e[1] for e in errs16['gather_gemm']):.2e}, "
+          f"{max(e[1] for e in errs16['conv_dw']):.2e}")
+    if (n["gather_gemm"], n["conv_dw"]) != (2, 1) or km.kernel_volume != 2 * HIGH_D16 + 1:
+        raise AssertionError(f"D = 16 conv: launches {n}, K {km.kernel_volume}")
+    for k in errors:
+        errors[k] += errs16[k]
+    print(f"[39] {time.perf_counter() - start:.1f} s")
+    return {k: [e[0] for e in v] for k, v in errors.items()}, rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -3232,20 +3579,22 @@ def main() -> int:
     fresh = fresh_geometry(dev, launches, reuse)
     par_errs = parallel_path(dev, launches, reuse, fresh)
     example_errs = examples_path(dev, launches)
+    high_errs, high_rows = high_dimensional(dev, launches)
 
-    bwd = synth_bwd + real_bwd + fcnn_bwd + gen_rows + completion_bwd + vae_bwd + splat_bwd + shim_bwd
+    bwd = (synth_bwd + real_bwd + fcnn_bwd + gen_rows + completion_bwd + vae_bwd + splat_bwd
+           + shim_bwd + high_rows)
     errors = {
         "gather_gemm": [r["max_abs_err"] for r in rows + real]
         + [r[p]["max_abs_err"] for r in bwd for p in ("fwd", "dx") if p in r]
-        + par_errs["gather_gemm"] + example_errs["gather_gemm"],
+        + par_errs["gather_gemm"] + example_errs["gather_gemm"] + high_errs["gather_gemm"],
         "conv_dw": [r["dw"]["max_abs_err"] for r in bwd] + par_errs["conv_dw"]
-        + example_errs["conv_dw"],
+        + example_errs["conv_dw"] + high_errs["conv_dw"],
         "gather_gemm_bf16": [r[p]["max_abs_err"] for r in bf16_bwd for p in ("fwd", "dx") if p in r],
         "conv_dw_bf16": [r["dw"]["max_abs_err"] for r in bf16_bwd],
     }
-    # per training step of MinkUNet34, MinkowskiFCNN, CompletionNet, the VAE
-    # and MinkowskiSplatFCNN, on their real maps
-    sums = step_sums(real_bwd + fcnn_bwd + completion_bwd + vae_bwd + splat_bwd)
+    # per training step of MinkUNet34, MinkowskiFCNN, CompletionNet, the VAE,
+    # MinkowskiSplatFCNN and the 7-D U-Net, on their real maps
+    sums = step_sums(real_bwd + fcnn_bwd + completion_bwd + vae_bwd + splat_bwd + high_rows)
     # and per bf16 training step of MinkUNet34 and MinkowskiFCNN (phase 28)
     sums16 = step_sums(bf16_bwd)
     timing = {

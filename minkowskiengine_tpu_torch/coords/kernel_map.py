@@ -67,9 +67,10 @@ class KernelMap:
 
 
 def _build_queries(out_coords: torch.Tensor, offsets: torch.Tensor):
-    """Probe keys (K, N_out) and their overflow mask, built from the output
-    rows' keys and the offsets' key deltas: the (K, N_out, D+1) query
-    coordinates are never formed."""
+    """Probe keys, (K, N_out) or (K, N_out, L) words, and their (K, N_out)
+    overflow mask, built from the output rows' keys and the offsets' key
+    deltas word by word: the (K, N_out, D+1) query coordinates are never
+    formed."""
     keys = K.pack(out_coords)[None, :] + K.pack_offsets(offsets)[:, None]
     return keys, K.overflow_mask_of_sum(out_coords, offsets)
 

@@ -154,6 +154,15 @@ def _interp_corner_coords(samples: torch.Tensor, tensor_stride):
     return coords, w.prod(dim=-1)
 
 
+def _overflow_message(D: int) -> str:
+    (blo, bhi), (lo, hi) = K.field_ranges(D)[:2]
+    return (
+        f"Coordinate out of packed-key range for dimension {D}: the batch index "
+        f"must lie in [{blo}, {bhi}] and each coordinate in [{lo}, {hi}] "
+        "(coords/keys.py field_ranges)"
+    )
+
+
 def _origin_coords(coords: torch.Tensor) -> torch.Tensor:
     """(b, 0, ..., 0) for every row."""
     out = torch.zeros_like(coords)
@@ -354,10 +363,7 @@ class CoordinateManager:
             coords = coords[valid]
         res, u_coords, overflow = unique_coordinates(coords)
         if bool(overflow):
-            raise ValueError(
-                "Coordinate out of packed-key range for dimension "
-                f"{self.D}; see coords/keys.py field_ranges"
-            )
+            raise ValueError(_overflow_message(self.D))
         self._maps[key.get_key()] = CoordinateMap(u_coords, res.sorted_keys, tensor_stride)
         self._ratchet(key.get_key(), u_coords.shape[0])
         return key, res.unique_map, res.inverse_map
@@ -550,7 +556,7 @@ class CoordinateManager:
         sid = self._unique_string_id(in_map.tensor_stride, "pruned")
         new_key = CoordinateMapKey(in_map.tensor_stride, sid)
         self._maps[new_key.get_key()] = CoordinateMap(
-            in_map.coordinates[out_from_in.long()], in_map.keys[out_from_in.long()],
+            in_map.coordinates[out_from_in.long()], K.gather_keys(in_map.keys, out_from_in.long()),
             in_map.tensor_stride,
         )
         return new_key, in_to_out, out_from_in
@@ -917,10 +923,7 @@ class CoordinateManager:
         kmax = {ck: next(it) for ck, _ in d["kmax"]}
         n_in = {k: (next(it) if isinstance(n, torch.Tensor) else None) for k, n in d["inserts"]}
         if any(overflow):
-            raise ValueError(
-                "Coordinate out of packed-key range for dimension "
-                f"{self.D}; see coords/keys.py field_ranges"
-            )
+            raise ValueError(_overflow_message(self.D))
         over = [k for k, n in counts.items() if n > self._maps[k].capacity]
         over += [ck[:2] for ck, r in kmax.items() if r > self._cap_floors[("kmax", ck)]]
         if over:

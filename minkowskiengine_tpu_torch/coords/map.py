@@ -34,7 +34,8 @@ class CoordinateMap:
 
     Attributes:
       coordinates: (N, D+1) int32, batch-first rows in ascending key order.
-      keys: (N,) int64 packed keys (coords/keys.py), ascending and unique.
+      keys: packed int64 keys (coords/keys.py), ascending and unique: (N,)
+        for D <= 6, (N, L) words compared lexicographically for D >= 7.
       tensor_stride: D-tuple of ints.
     """
 
@@ -69,9 +70,9 @@ class PaddedCoordinateMap(CoordinateMap):
     """A map at a fixed capacity, only inside geometry replay.
 
     The first ``count`` rows are the map; the tail holds ``PAD_KEY`` keys
-    and zero coordinates.  ``count`` is a 0-d int64 tensor on the device
-    and may exceed the capacity (the floor did not hold: the replay's
-    check reports it).  ``size`` raises: reading the count is a host sync.
+    (in every word) and zero coordinates.  ``count`` is a 0-d int64 tensor
+    on the device and may exceed the capacity (the floor did not hold: the
+    replay's check reports it).  ``size`` raises: reading the count is a host sync.
 
     Attributes (beyond CoordinateMap's):
       count: () int64 device tensor, the unique rows found.

@@ -1,8 +1,9 @@
 """Sort-based unique / inverse-map construction.
 
 Counterpart of ``minkowskiengine_tpu/coords/unique.py``.  One stable sort of
-the packed int64 keys gives the unique rows in canonical key order,
-``unique_map`` (the first input row of each unique key) and
+the packed int64 keys (``(N,)`` for D <= 6, ``(N, L)`` words above, sorted
+lexicographically by ``keys.sort_keys``) gives the unique rows in canonical
+key order, ``unique_map`` (the first input row of each unique key) and
 ``inverse_map`` (the unique row of each input row), with the reference's
 contract (src/coordinate_map_cpu.hpp:340-352)::
 
@@ -29,7 +30,7 @@ class UniqueResult(NamedTuple):
     Attributes:
       unique_map: (U,) int64, input row of each unique key's first occurrence.
       inverse_map: (N,) int64, unique row of each input row.
-      sorted_keys: (U,) int64, ascending unique keys.
+      sorted_keys: (U,) or (U, L) int64, ascending unique keys.
     """
 
     unique_map: torch.Tensor
@@ -38,10 +39,10 @@ class UniqueResult(NamedTuple):
 
 
 def unique_from_keys(keys: torch.Tensor) -> UniqueResult:
-    """Unique + inverse over packed int64 keys."""
-    s_keys, order = torch.sort(keys, stable=True)
-    is_new = torch.ones_like(s_keys, dtype=torch.bool)
-    is_new[1:] = s_keys[1:] != s_keys[:-1]
+    """Unique + inverse over packed int64 keys, (N,) or (N, L)."""
+    s_keys, order = K.sort_keys(keys)
+    is_new = torch.ones(order.shape, dtype=torch.bool, device=order.device)
+    is_new[1:] = K.keys_differ(s_keys)
     seg_id = torch.cumsum(is_new, 0) - 1
     inverse = torch.empty_like(order)
     inverse[order] = seg_id
@@ -64,7 +65,8 @@ class PaddedUniqueResult(NamedTuple):
     """Unique/inverse maps at a fixed capacity, all on the device.
 
     Attributes:
-      sorted_keys: (capacity,) int64, ascending unique keys, then PAD_KEY.
+      sorted_keys: (capacity,) or (capacity, L) int64, ascending unique
+        keys, then PAD_KEY rows.
       unique_map: (capacity,) int64, first input row of each unique key;
         -1 past ``count``.
       inverse_map: (N,) int64, unique row of each valid input row; -1 for
@@ -84,18 +86,18 @@ def unique_padded(keys: torch.Tensor, valid: torch.Tensor, capacity: int) -> Pad
     rows by a scatter in place of a boolean-mask compaction, so nothing
     waits on the host.  Invalid rows sort last as ``PAD_KEY``; on the first
     ``count`` rows the result equals ``unique_from_keys`` index for index."""
-    keys = torch.where(valid, keys, K.PAD_KEY)
-    s_keys, order = torch.sort(keys, stable=True)
-    real = s_keys != K.PAD_KEY
+    s_keys, order = K.sort_keys(K.mask_keys(keys, valid))
+    real = ~K.is_pad(s_keys)
     is_new = torch.ones_like(real)
-    is_new[1:] = s_keys[1:] != s_keys[:-1]
+    is_new[1:] = K.keys_differ(s_keys)
     is_new &= real
     seg_id = torch.cumsum(is_new, 0) - 1
     inverse = torch.empty_like(order)
     inverse[order] = torch.where(real, seg_id, -1)
     tgt = torch.where(is_new & (seg_id < capacity), seg_id, capacity)
     unique_map = order.new_full((capacity + 1,), -1).scatter_(0, tgt, order)[:capacity]
-    sorted_keys = s_keys.new_full((capacity + 1,), K.PAD_KEY).scatter_(0, tgt, s_keys)[:capacity]
+    rows = tgt.view((-1,) + (1,) * (s_keys.dim() - 1)).expand_as(s_keys)
+    sorted_keys = K.pad_keys(s_keys, capacity + 1).scatter_(0, rows, s_keys)[:capacity]
     return PaddedUniqueResult(sorted_keys, unique_map, inverse, is_new.sum())
 
 

@@ -37,7 +37,9 @@ _INIT = ("torch idiom: the in-place initializer takes a tensor, not JAX's (key, 
 
 # (class or function, keyword) -> why the port does not take it
 KEYWORDS_NOT_TAKEN = {
-    ("CoordinateMap", "key_lanes"): "ROADMAP queue 1 item 2: keys for D > 6",
+    ("CoordinateMap", "key_lanes"): (
+        "JAX's uint32 lane tuple has no counterpart: the port's keys are int64 words "
+        "(coords/keys.py): ROADMAP queue 1, Not ported, on purpose"),
     ("CoordinateMap", "size_arr"): _PADDED,
     ("CoordinateMap", "_size_host"): _PADDED,
     ("Geometry", "dense_plans"): "ROADMAP queue 1 item 5: the dense-grid conv route",

@@ -193,8 +193,3 @@ def test_overflow_raises_like_jax(row, bad):
         _, (ju, _) = ME.CoordinateManager(D=3).insert_and_map(c)
         _, (tu, _) = CoordinateManager(D=3, device="cpu").insert_and_map(torch.from_numpy(c))
         np.testing.assert_array_equal(np.asarray(ju), tu.numpy())
-
-
-def test_dimension_beyond_one_word_key_raises():
-    with pytest.raises(NotImplementedError):
-        tkeys.bit_allocation(7)

@@ -76,7 +76,17 @@ per step ``CompiledReplayer.run`` (one CUDA graph, one host sync) ->
     device busy, the idle share and the replay's host time, beside step
     6's eager step;
 
-and, last, one JSON line with the numbers of all eight.
+Then ``chip_smoke.py``'s 7-D U-Net (phase 39: ``HighDimUNet(3, 20, D=7)``
+on its first training batch, two room scans lifted to (x, y, z, r, g, b,
+t), ~238k rows, two-word keys):
+
+13. five training steps, one profiled step as in 6, then its largest
+    kernel map (K = 128 at stride 1) built piece by piece, each timed with
+    CUDA events: the query keys, the overflow mask, the search (the
+    multi-word lower bound), the inverse map; and, for scale, the same
+    queries' first words searched alone with ``torch.searchsorted``;
+
+and, last, one JSON line with the numbers of all nine.
 """
 
 from __future__ import annotations
@@ -87,6 +97,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
@@ -95,10 +106,16 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import minkowskiengine_tpu_torch as MT  # noqa: E402
 from chip_smoke import (  # noqa: E402
-    CLASSES, FCNN_LR, FCNN_MOMENTUM, FCNN_WD, FCNN_WIDTHS, GEN_WIDTHS,
-    answer, bce, classify, collate, completion_input, fcnn_step, field, gen_batch, gen_sgd,
-    labels_for, scan, shapes, splat_fcnn, train_step,
+    CLASSES, FCNN_LR, FCNN_MOMENTUM, FCNN_WD, FCNN_WIDTHS, GEN_WIDTHS, HIGH_D_TRAIN,
+    HighDimUNet, answer, bce, classify, collate, completion_input, cuda_ms, fcnn_step, field,
+    gen_batch, gen_sgd, labels_for, lifted_voxels, scan, shapes, splat_fcnn, train_step,
 )
+from minkowskiengine_tpu_torch.coords import keys as K  # noqa: E402
+from minkowskiengine_tpu_torch.coords.kernel_map import (  # noqa: E402
+    _build_queries, _invert_matching,
+)
+from minkowskiengine_tpu_torch.coords.lookup import find_rows  # noqa: E402
+from minkowskiengine_tpu_torch.utils.collation import sparse_collate  # noqa: E402
 from minkowskiengine_tpu_torch.coords.manager import CoordinateManager  # noqa: E402
 from minkowskiengine_tpu_torch.models import CompletionNet, MinkowskiFCNN, MinkUNet34  # noqa: E402
 from minkowskiengine_tpu_torch.utils.datasets import CoordinateTransformation  # noqa: E402
@@ -247,6 +264,60 @@ def profile_fresh_geometry(dev, eager):
     return {"voxels": len(coords), "step_ms": steps, "replay_host_ms": replay,
             "profiled_replay_host_ms": replay_s * 1e3, "graphs_captured": compiled.captures,
             "recoveries": compiled.recoveries, **{f"profiled_{k}": v for k, v in split.items()}}
+
+
+def profile_high_dim(dev):
+    """Step 13: chip_smoke.py phase 39's 7-D training step, and its
+    largest kernel map built piece by piece."""
+    model = HighDimUNet(3, 20, 7, generator=torch.Generator().manual_seed(0), device=dev).train()
+    opt = torch.optim.SGD(model.parameters(), lr=0.01)
+    clouds = [lifted_voxels(s) for s in HIGH_D_TRAIN[0]]
+    coords, feats = sparse_collate([c for c, _ in clouds], [f for _, f in clouds])
+    labels = labels_for(0, len(coords))
+
+    def step():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_step(model, opt, coords, feats, labels, dev)
+        opt.step()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    step()  # warm-up
+    steps = [step() * 1e3 for _ in range(REPEATS)]
+    print(f"[13 7-D training steps] {len(coords)} rows, ms: {', '.join(f'{t:.2f}' for t in steps)}")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        secs = step()
+    split = device_split(prof, secs)
+    report("13 profiled 7-D step", split, prof)
+
+    mgr = CoordinateManager(D=7, device=dev)
+    key, _ = mgr.insert_and_map(coords.to(dev))
+    cmap = mgr.get_coordinate_map(key)
+    region = MT.KernelGenerator(kernel_size=2, dimension=7).get_kernel((1,) * 7, False)
+    offs = np.zeros((region.volume, 8), np.int64)
+    offs[:, 1:] = region.offsets
+    offs = K.device_constant(offs, device=dev)
+    queries, invalid = _build_queries(cmap.coordinates, offs)
+    rows = find_rows(cmap.keys, queries)
+    first, first_q = cmap.keys[:, 0].contiguous(), queries[..., 0].contiguous()
+    pieces = {
+        "insert_and_map (unique over two-word keys)":
+            lambda: CoordinateManager(D=7, device=dev).insert_and_map(coords.to(dev)),
+        "query keys": lambda: K.pack(cmap.coordinates)[None] + K.pack_offsets(offs)[:, None],
+        "overflow mask": lambda: K.overflow_mask_of_sum(cmap.coordinates, offs),
+        "search, two words": lambda: find_rows(cmap.keys, queries),
+        "search, first word alone (searchsorted)": lambda: find_rows(first, first_q),
+        "inverse map": lambda: _invert_matching(rows, cmap.size),
+    }
+    split_ms = {name: cuda_ms(fn, warmup=1, iters=3) for name, fn in pieces.items()}
+    print(f"[13 7-D kernel map, K = {region.volume} on {cmap.size} rows, "
+          f"{queries.shape[0] * queries.shape[1]} queries, "
+          f"{int((rows >= 0).sum())} found] CUDA-event ms: "
+          + "; ".join(f"{k} {v:.3f}" for k, v in split_ms.items()))
+    del invalid
+    return {"rows": len(coords), "step_ms": steps, "kernel_map_ms": split_ms,
+            **{f"profiled_{k}": v for k, v in split.items()}}
 
 
 def report(tag, split, prof):
@@ -504,11 +575,13 @@ def main() -> int:
     splat = profile_splat(dev)
     bf16_train = profile_bf16_train(dev)
     fresh = profile_fresh_geometry(dev, train)
+    high_dim = profile_high_dim(dev)
     print(json.dumps({
         "request": request, "train_step": train,
         "fcnn_batch": fcnn_batch, "fcnn_train_step": fcnn_train,
         "completion_train_step": completion, "splat_fcnn_train_step": splat,
         "bf16_train_step": bf16_train, "fresh_geometry_train_step": fresh,
+        "high_dim_train_step": high_dim,
     }))
     return 0
 
