@@ -10,7 +10,9 @@ and the parallel package: the per-device-geometry DDP step on a one-rank
 NCCL group, then two processes sharing the card over gloo for a DDP step,
 the halo-exchange spatial conv and column-parallel convs; then the ported
 examples, indoor.py's MinkUNet34C segmentation chain at full width first;
-last, a 7-D sparse U-Net (multi-word coordinate keys) and a 16-D conv.
+a 7-D sparse U-Net (multi-word coordinate keys) and a 16-D conv; last, the
+multi-process examples on one NCCL rank and on two gloo ranks sharing the
+card.
 
 Run from the root of a checkout, with one CUDA card visible:
 
@@ -286,6 +288,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    ~52k rows (phase 5's first scan twice, each row given 13 coordinates in
    {0, 1}), its K1 and K2 calls held.
 
+40. the multi-process examples (``examples_torch/multigpu.py``,
+   ``multigpu_ddp.py``, ``spatial_sharding.py``, ``tensor_parallel.py``)
+   through their own launcher (``common.py::run_world``), every K1 and K2
+   call held against its plain version as it runs: (a) ``multigpu.py``
+   (``MinkUNet14A(3, 10)`` with sync batch norm, 5 steps on the shared
+   600-point cloud) and ``multigpu_ddp.py`` (``MinkUNet14A(3, 4)``, 4
+   steps, each rank a fresh 2000-point cloud through the replayer) through
+   their ``main`` on one NCCL rank in this process: ms per step, each
+   step's launches equal to one single-process ``MinkUNet14A`` step's,
+   one all-reduce of the gradients per step beside sync batch norm's,
+   finite losses; (b) one spawned gloo world of two ranks sharing cuda:0
+   runs the four scripts' rank functions in turn at their own sizes: each
+   rank prints its transport, collectives, bytes and launches; both ranks'
+   parameters bit-equal after every step of the two data-parallel
+   scripts; ``spatial_sharding.py`` on its 150,000-point scan drops no
+   pair, its halo is this process's measure of the map, and its loss,
+   weight gradient and input gradient agree with the single-process conv
+   on the card within 1e-4 of max|ref|; ``tensor_parallel.py`` within
+   1e-4 of max|single|.
+
 Bound of a kernel call: the larger of its useful operations (2 · pairs ·
 Cin · Cout) over the H100's 495 TFLOP/s dense TF32 tensor peak and its
 bytes (each input read once, the output written once) over 3.35 TB/s.  The
@@ -299,6 +321,7 @@ Then a JSON line describing each kernel and, last, the device line.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import importlib.util
 import io
@@ -323,8 +346,8 @@ from minkowskiengine_tpu_torch.kernels import build
 from minkowskiengine_tpu_torch.kernels.conv_dw import conv_dw, conv_dw_reference
 from minkowskiengine_tpu_torch.kernels.gather_gemm import gather_gemm, gather_gemm_reference
 from minkowskiengine_tpu_torch.models import (
-    VAE, CompletionNet, MinkowskiFCNN, MinkowskiSplatFCNN, MinkUNet34, MinkUNet34C, ResNet18,
-    ResNetBase,
+    VAE, CompletionNet, MinkowskiFCNN, MinkowskiSplatFCNN, MinkUNet14A, MinkUNet34, MinkUNet34C,
+    ResNet18, ResNetBase,
 )
 from minkowskiengine_tpu_torch.modules import SEBasicBlock
 from minkowskiengine_tpu_torch.nn.conv import MinkowskiConvolutionBase, _conv_out_key
@@ -3026,12 +3049,15 @@ EXAMPLE_RUNS = [
 def every_call_held(errors, tag):
     """Inside the block, every K1 and K2 launch the sparse conv makes
     (forward, input gradient and weight gradient, through
-    ``ops.functional``) is held against its plain version on the same
+    ``ops.functional``, and the spatial conv's on its windows, through
+    ``parallel.spatial``) is held against its plain version on the same
     inputs as it runs, within KERNEL_RTOL and DW_RTOL: the (abs, rel)
     errors go to ``errors["gather_gemm"]`` and ``errors["conv_dw"]``.  The
     launches are the main path's own, counted once; the plain versions
     launch neither kernel."""
     real_k1, real_k2 = conv_ops.gather_gemm, conv_ops.conv_dw
+    if (spatial.gather_gemm, spatial.conv_dw) != (real_k1, real_k2):
+        raise AssertionError("ops.functional and parallel.spatial bind other kernels")
 
     def k1(x, w, idx):
         out = real_k1(x, w, idx)
@@ -3045,11 +3071,12 @@ def every_call_held(errors, tag):
                                       f"{tag} K2 call {len(errors['conv_dw'])}"))
         return out
 
-    conv_ops.gather_gemm, conv_ops.conv_dw = k1, k2
+    conv_ops.gather_gemm, conv_ops.conv_dw = spatial.gather_gemm, spatial.conv_dw = k1, k2
     try:
         yield
     finally:
-        conv_ops.gather_gemm, conv_ops.conv_dw = real_k1, real_k2
+        conv_ops.gather_gemm, conv_ops.conv_dw = spatial.gather_gemm, spatial.conv_dw = (
+            real_k1, real_k2)
 
 
 def example(name):
@@ -3537,6 +3564,173 @@ def high_dimensional(dev, launches):
     return {k: [e[0] for e in v] for k, v in errors.items()}, rows
 
 
+
+# phase 40: the multi-process examples (examples_torch/), through their
+# own launcher (common.py's run_world): 40a one NCCL rank in this process,
+# 40b one spawned gloo world of two ranks sharing the card
+MULTI_EXAMPLES = ("multigpu", "multigpu_ddp", "spatial_sharding", "tensor_parallel")
+
+
+def held_worst(errs):
+    return {k: max((e[1] for e in v), default=0.0) for k, v in errs.items()}
+
+
+def rank_examples(rank, world, args):
+    """Phase 40b on one rank: the four scripts' rank functions in turn, at
+    their own sizes, every K1 and K2 call of this rank held against its
+    plain version as it runs."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cpu") if args.cpu else torch.device("cuda", torch.cuda.current_device())
+    probe = torch.ones(1, device=dev)
+    torch.distributed.all_reduce(probe)
+    out = dict(probe=probe.device == dev and float(probe) == world)
+    for name in MULTI_EXAMPLES:
+        mod = example(name)
+        errs = dict(gather_gemm=[], conv_dw=[])
+        printed = io.StringIO()
+        sync(dev)
+        t0, before = time.perf_counter(), counts_now()
+        with contextlib.redirect_stdout(printed), every_call_held(errs, f"40b {name} rank {rank}"):
+            res = mod.run_rank(rank, world, mod.arguments(["--backend", "gloo"] + args.argv))
+        sync(dev)
+        res.update(secs=time.perf_counter() - t0, total=counts_since(before),
+                   held={k: [e[0] for e in v] for k, v in errs.items()},
+                   held_worst=held_worst(errs), printed=printed.getvalue())
+        out[name] = res
+    return out
+
+
+def multi_process_examples(dev, launches):
+    """Phase 40: the four multi-process examples on the card.  Adds the
+    main-path launches (this process's and the spawned ranks') to
+    ``launches``; returns every K1 and K2 call's abs error against its
+    plain version, by kernel."""
+    start = time.perf_counter()
+    common = example("common")
+    errors = dict(gather_gemm=[], conv_dw=[])
+    cpu = torch.device(dev).type == "cpu"  # a CPU rehearsal: gloo, and the scripts' --cpu
+    argv = ["--cpu"] if cpu else []
+
+    # the launches of one single-process MinkUNet14A step on the same cloud
+    coords, feats, _ = common.random_cloud(**example("multigpu").CLOUD)
+    net = MinkUNet14A(3, 10, D=3, generator=torch.Generator().manual_seed(0), device=dev)
+    x = MT.SparseTensor(torch.from_numpy(feats).to(dev), torch.from_numpy(coords).to(dev))
+    before = counts_now()
+    torch.nn.functional.cross_entropy(net(x).F, torch.zeros(x.size, dtype=torch.long, device=dev)
+                                      ).backward()
+    sync(dev)
+    single = {k: v for k, v in counts_since(before).items() if k in ("gather_gemm", "conv_dw")}
+    del net, x
+
+    # 40a. multigpu.py and multigpu_ddp.py through their main, one NCCL rank here
+    for name in ("multigpu", "multigpu_ddp"):
+        errs = dict(gather_gemm=[], conv_dw=[])
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed), every_call_held(errs, f"40a {name}"):
+            res, n = counted(launches, lambda: example(name).main(
+                ["--world", "1", "--backend", "gloo" if cpu else "nccl"] + argv))
+        worst_rel = held_worst(errs)
+        grads_reduces = [c["all_reduce"] - bn for c, bn in zip(res["collectives"],
+                                                              res["bn_all_reduces"])]
+        print(f"[40a {name}, one NCCL rank] {len(res['losses'])} steps: ms per step "
+              + ", ".join(f"{v:.2f}" for v in res["ms"]) + f"; losses "
+              + ", ".join(f"{v:.4f}" for v in res["losses"]) + f"; launches per step "
+              f"{res['launches']} (one single-process MinkUNet14A step: {single}); all-reduces per "
+              f"step: gradients {grads_reduces}, sync batch norm {res['bn_all_reduces']}; bytes "
+              f"per step {res['collectives'][0]['bytes']:,}; every K1/K2 call held: {n}, worst "
+              f"rel err K1 {worst_rel['gather_gemm']:.2e}, K2 {worst_rel['conv_dw']:.2e}")
+        if not (all(step == single for step in res["launches"])
+                and all(g == 1 for g in grads_reduces)
+                and all(math.isfinite(v) for v in res["losses"])
+                and (len(errs["gather_gemm"]), len(errs["conv_dw"])) == (n["gather_gemm"],
+                                                                         n["conv_dw"])
+                and sum(s["gather_gemm"] for s in res["launches"]) <= n["gather_gemm"]):
+            raise AssertionError(f"40a {name}: launches {res['launches']} against {single}, "
+                                 f"all-reduces {grads_reduces}, losses {res['losses']}, held {n}")
+        for k in errors:
+            errors[k] += [e[0] for e in errs[k]]
+
+    # 40b. one gloo world of two ranks on cuda:0 runs the four scripts in turn
+    t0 = time.perf_counter()
+    ranks = common.run_world(Path(__file__), "rank_examples", argparse.Namespace(
+        cpu=cpu, world=PARALLEL_WORLD, backend="gloo", argv=argv))
+    spawn_s = time.perf_counter() - t0
+
+    # the single-process conv of spatial_sharding.py on the card
+    sp = example("spatial_sharding")
+    sp_args = sp.arguments(argv)
+    c, f = room_scan_voxels(voxel_size=sp_args.voxel_size, n_points=sp_args.n_points, seed=0)
+    x = MT.SparseTensor(torch.from_numpy(f).to(dev), torch.from_numpy(c).to(dev))
+    mgr, key = x.coordinate_manager, x.coordinate_map_key
+    km = mgr.kernel_map(key, mgr.stride(key, 1), kernel_size=3, stride=1)
+    fx = x.F.clone().requires_grad_()
+    w = sp.weight(dev).requires_grad_()
+    out = conv_ops.sparse_conv_kmap(fx, w, km)
+    loss = (out * out).sum()
+    loss.backward()
+    ref = dict(loss=loss.item(), d_weight=w.grad.cpu(), d_feats=fx.grad.cpu(), rows=x.size,
+               halo=spatial.required_halo(km, PARALLEL_WORLD))
+    del x, mgr, km, fx, w, out
+
+    for r, res in enumerate(ranks):
+        for name in MULTI_EXAMPLES:
+            part = res[name]
+            for k in launches:  # every launch of the script's run on this rank, the bf16 ones none
+                launches[k] += part["total"][k]
+            for k in errors:
+                errors[k] += part["held"][k]
+            if part["total"]["gather_gemm_bf16"] or part["total"]["conv_dw_bf16"] or any(
+                    part["total"][k] != len(part["held"][k]) for k in errors):
+                raise AssertionError(f"40b {name} rank {r}: launches {part['total']}, held "
+                                     f"{len(part['held']['gather_gemm'])} + "
+                                     f"{len(part['held']['conv_dw'])}")
+        a, b, s, t = (res[n] for n in MULTI_EXAMPLES)
+        for name, part in (("multigpu", a), ("multigpu_ddp", b)):
+            same = all(q[name]["digests"] == part["digests"] for q in ranks)
+            print(f"[40b {name}, rank {r} of {PARALLEL_WORLD}] transport: {TRANSPORT} (CUDA tensors "
+                  f"taken: {res['probe']}); {len(part['losses'])} steps in {part['secs']:.1f} s with "
+                  f"the holds, ms per step " + ", ".join(f"{v:.1f}" for v in part["ms"])
+                  + f"; averaged losses " + ", ".join(f"{v:.4f}" for v in part["losses"])
+                  + f"; parameters bit-equal on both ranks after every step: {same}; collectives "
+                  f"per step {part['collectives'][0]}; launches per step {part['launches'][0]}; "
+                  f"K1/K2 held: worst rel err {part['held_worst']['gather_gemm']:.2e}, "
+                  f"{part['held_worst']['conv_dw']:.2e}")
+            if not (same and all(math.isfinite(v) for v in part["losses"])
+                    and all(step == single for step in part["launches"])):
+                raise AssertionError(f"40b {name} rank {r}: ranks differ or launches "
+                                     f"{part['launches']} against {single}")
+        rel = dict(loss=abs(s["loss"] - ref["loss"]) / abs(ref["loss"]),
+                   d_weight=rel_diff(s["d_weight"], ref["d_weight"]))
+        if r == 0:
+            rel["d_feats"] = rel_diff(s["d_feats"], ref["d_feats"])
+        print(f"[40b spatial_sharding, rank {r}] one scan of {s['rows']} voxels, rows "
+              f"{s['block'][0]}..{s['block'][1]} here; halo (forward, input gradient) {s['halo']} "
+              f"(this process on the whole map: {ref['halo']}); dropped {s['dropped']}; forward "
+              f"and backward {s['ms']:.1f} ms; against the single-process conv on the card: "
+              + ", ".join(f"{k} {v:.2e}" for k, v in rel.items()) + f"; collectives "
+              f"{s['collectives']}; launches {s['launches']}; K1/K2 held: worst rel err "
+              f"{s['held_worst']['gather_gemm']:.2e}, {s['held_worst']['conv_dw']:.2e}")
+        print(f"[40b tensor_parallel, rank {r}] {t['cut']} layers cut by Cout; {t['rows']} "
+              f"voxels; max|tp - single| {t['err']:.2e} = {t['err'] / t['scale']:.2e} of "
+              f"max|single| (limit {SHARDED_RTOL}); forward {t['ms']:.1f} ms; collectives "
+              f"{t['collectives']}; launches {t['launches']}; K1 held: worst rel err "
+              f"{t['held_worst']['gather_gemm']:.2e}")
+        if not (res["probe"] and s["dropped"] == 0 and s["rows"] == ref["rows"]
+                and tuple(s["halo"]) == tuple(ref["halo"])
+                and all(v <= SHARDED_RTOL for v in rel.values())
+                and t["err"] <= SHARDED_RTOL * t["scale"]
+                and s["launches"]["gather_gemm"] and s["launches"]["conv_dw"]
+                and t["launches"]["gather_gemm"]):
+            raise AssertionError(f"phase 40b, rank {r}: the examples disagree")
+    print(json.dumps(dict(
+        phase=40, single_step_launches=single, spawn_s=spawn_s,
+        ranks=[{n: {k: res[n][k] for k in ("ms", "collectives", "launches")}
+                for n in MULTI_EXAMPLES} for res in ranks])))
+    print(f"  phase 40's K1/K2 calls against their plain versions: {len(errors['gather_gemm'])} K1, "
+          f"{len(errors['conv_dw'])} K2; the two ranks {spawn_s:.1f} s")
+    print(f"[40] {time.perf_counter() - start:.1f} s")
+    return errors
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -3580,15 +3774,17 @@ def main() -> int:
     par_errs = parallel_path(dev, launches, reuse, fresh)
     example_errs = examples_path(dev, launches)
     high_errs, high_rows = high_dimensional(dev, launches)
+    multi_errs = multi_process_examples(dev, launches)
 
     bwd = (synth_bwd + real_bwd + fcnn_bwd + gen_rows + completion_bwd + vae_bwd + splat_bwd
            + shim_bwd + high_rows)
     errors = {
         "gather_gemm": [r["max_abs_err"] for r in rows + real]
         + [r[p]["max_abs_err"] for r in bwd for p in ("fwd", "dx") if p in r]
-        + par_errs["gather_gemm"] + example_errs["gather_gemm"] + high_errs["gather_gemm"],
+        + par_errs["gather_gemm"] + example_errs["gather_gemm"] + high_errs["gather_gemm"]
+        + multi_errs["gather_gemm"],
         "conv_dw": [r["dw"]["max_abs_err"] for r in bwd] + par_errs["conv_dw"]
-        + example_errs["conv_dw"] + high_errs["conv_dw"],
+        + example_errs["conv_dw"] + high_errs["conv_dw"] + multi_errs["conv_dw"],
         "gather_gemm_bf16": [r[p]["max_abs_err"] for r in bf16_bwd for p in ("fwd", "dx") if p in r],
         "conv_dw_bf16": [r["dw"]["max_abs_err"] for r in bf16_bwd],
     }

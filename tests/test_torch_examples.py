@@ -269,10 +269,13 @@ def test_script_runs_on_the_cpu(case, tmp_path, capsys):
 
 
 def test_every_script_has_a_case_and_imports_no_jax():
-    """Each script of ``examples_torch/`` is run above, and none imports
-    jax, flax, optax, orbax or the JAX package."""
+    """Each script of ``examples_torch/`` is run above, or, for the
+    multi-process ones, in ``test_torch_examples_parallel.py``'s world; none
+    imports jax, flax, optax, orbax or the JAX package."""
     scripts = {p.stem for p in EXAMPLES.glob("*.py")} - {"common"}
-    assert scripts == {c.split("[")[0] for c in SCRIPTS}
+    parallel = _load(Path(__file__).with_name("test_torch_examples_parallel.py"),
+                     "examples_torch_parallel_cases").SCRIPTS
+    assert scripts == {c.split("[")[0] for c in SCRIPTS} | set(parallel)
     for path in EXAMPLES.glob("*.py"):
         for node in ast.walk(ast.parse(path.read_text())):
             names = ([a.name for a in node.names] if isinstance(node, ast.Import)
