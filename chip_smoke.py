@@ -10,9 +10,10 @@ and the parallel package: the per-device-geometry DDP step on a one-rank
 NCCL group, then two processes sharing the card over gloo for a DDP step,
 the halo-exchange spatial conv and column-parallel convs; then the ported
 examples, indoor.py's MinkUNet34C segmentation chain at full width first;
-a 7-D sparse U-Net (multi-word coordinate keys) and a 16-D conv; last, the
+a 7-D sparse U-Net (multi-word coordinate keys) and a 16-D conv; the
 multi-process examples on one NCCL rank and on two gloo ranks sharing the
-card.
+card; last, the dense bbox grid: the row-grid probe against the key search
+and the dense-grid conv route against K1 and K2, with its gate refit.
 
 Run from the root of a checkout, with one CUDA card visible:
 
@@ -308,6 +309,33 @@ Phases, in order; any failure raises and the script exits non-zero:
    on the card within 1e-4 of max|ref|; ``tensor_parallel.py`` within
    1e-4 of max|single|.
 
+41. the dense bbox grid, on MinkUNet34's maps of phase 9's batch 0 (two
+   surface-26k scans): (a) the probe: each map's grid (shape, cells,
+   bytes, the row grid's build), every kernel map of an eager forward
+   built again through the row grids and through the key search,
+   bit-equal to each other and to the manager's, both timed (CUDA
+   events); the stride maps between the levels and an interpolation map
+   on each level, the same way; the eager coordinate phase (host ms and
+   syncs, as phase 33 counts them) on three fresh batches with the grid on
+   and off (off: the manager's cell cap patched to 0), equal maps, no more
+   syncs with the grid; the compiled replay with grids on those batches:
+   one graph, one sync, maps bit-equal to eager, plans at the grid
+   floors.  (b) the dense-grid route (one cuDNN conv over the bbox grid)
+   against K1 and K2 on each stride-1 conv shape of the model on its real
+   map: forward, input gradient and weight gradient timed both ways, the
+   route held to the plain path within KERNEL_RTOL (forward, dX) and
+   DW_RTOL (dW), K1 and K2 held as everywhere, with each part's bound.
+   (c) the gate: its cost model fitted to (a) and (b), beside the
+   constants in ``ops/dense_conv.py``, and each conv's decision, map cached
+   or not; a training step under DEFAULT dispatch (the dense-routed convs
+   counted, every K1 and K2 call held, loss and gradients judged against
+   phase 10's CPU runs as phase 10 judges them, its logits against a CPU
+   forward in float32 and float64 as phase 14c judges logits); the same
+   step with the stem forced onto the route: the route's output and weight
+   gradient held against the plain sparse conv on their own inputs
+   (KERNEL_RTOL, DW_RTOL), the loss against the CPU's (LOSS_RTOL); one
+   bf16 step under DEFAULT, judged as phase 30's.
+
 Bound of a kernel call: the larger of its useful operations (2 · pairs ·
 Cin · Cout) over the H100's 495 TFLOP/s dense TF32 tensor peak and its
 bytes (each input read once, the output written once) over 3.35 TB/s.  The
@@ -341,7 +369,13 @@ import torch.multiprocessing as mp
 
 import minkowskiengine_tpu_torch as MT
 from minkowskiengine_tpu_torch import parallel
-from minkowskiengine_tpu_torch.coords.kernel_map import _invert_matching
+import minkowskiengine_tpu_torch.coords.manager as TM
+import minkowskiengine_tpu_torch.nn.conv as conv_mod
+import minkowskiengine_tpu_torch.ops.dense_conv as DC
+from minkowskiengine_tpu_torch.coords.kernel_map import (
+    _invert_matching, build_kernel_map, build_stride_map,
+)
+from minkowskiengine_tpu_torch.coords.manager import region_offsets_for
 from minkowskiengine_tpu_torch.kernels import build
 from minkowskiengine_tpu_torch.kernels.conv_dw import conv_dw, conv_dw_reference
 from minkowskiengine_tpu_torch.kernels.gather_gemm import gather_gemm, gather_gemm_reference
@@ -354,6 +388,7 @@ from minkowskiengine_tpu_torch.nn.conv import MinkowskiConvolutionBase, _conv_ou
 from minkowskiengine_tpu_torch.nn.nonlinearity import MinkowskiDropout
 from minkowskiengine_tpu_torch.nn.norm import MinkowskiBatchNorm, MinkowskiSyncBatchNorm
 from minkowskiengine_tpu_torch.ops import functional as conv_ops
+from minkowskiengine_tpu_torch.ops.dense_conv import build_row_grid, dense_conv
 from minkowskiengine_tpu_torch.parallel import comm, spatial
 from minkowskiengine_tpu_torch.utils import hostengine
 from minkowskiengine_tpu_torch.utils.collation import sparse_collate
@@ -2208,7 +2243,7 @@ def bf16_path(dev, launches, reuse):
     print(f"[30 parity] CPU plain-path bf16 step, {len(c0)} voxels: {time.perf_counter() - t0:.1f} s")
     del cpu_net
     judge_bf16("30 parity", card0, cpu16, reuse["unet_cpu"][torch.float64])
-    unet_cpu16 = cpu16
+    unet_cpu16 = reuse["unet_cpu16"] = cpu16
 
     # 31. MinkowskiFCNN: one bf16 training step on phase 13's first batch,
     # dropout off; its global pools and linears run in bf16
@@ -2305,7 +2340,7 @@ def bf16_path(dev, launches, reuse):
 # the coordinate manager's building calls, timed in an eager forward
 COORDINATE_CALLS = (
     "insert_and_map", "stride", "stride_region", "origin", "origin_map", "kernel_map",
-    "stride_map", "merge",
+    "stride_map", "merge", "dense_plan",
 )
 # phase 33's batches: two to warm the replayer, six fresh ones
 WARM_SEEDS, FRESH_SEEDS = (100, 102), (104, 106, 108, 110, 112, 114)
@@ -3051,8 +3086,9 @@ def every_call_held(errors, tag):
     (forward, input gradient and weight gradient, through
     ``ops.functional``, and the spatial conv's on its windows, through
     ``parallel.spatial``) is held against its plain version on the same
-    inputs as it runs, within KERNEL_RTOL and DW_RTOL: the (abs, rel)
-    errors go to ``errors["gather_gemm"]`` and ``errors["conv_dw"]``.  The
+    inputs as it runs, within KERNEL_RTOL (K1_BF16_RTOL for bf16) and
+    DW_RTOL: the (abs, rel) errors go to ``errors["gather_gemm"]`` and
+    ``errors["conv_dw"]`` (``"gather_gemm_bf16"``, ``"conv_dw_bf16"``).  The
     launches are the main path's own, counted once; the plain versions
     launch neither kernel."""
     real_k1, real_k2 = conv_ops.gather_gemm, conv_ops.conv_dw
@@ -3061,14 +3097,17 @@ def every_call_held(errors, tag):
 
     def k1(x, w, idx):
         out = real_k1(x, w, idx)
-        errors["gather_gemm"].append(held(out, gather_gemm_reference(x, w, idx), KERNEL_RTOL,
-                                          f"{tag} K1 call {len(errors['gather_gemm'])}"))
+        bf16 = x.dtype == torch.bfloat16
+        name = "gather_gemm_bf16" if bf16 else "gather_gemm"
+        errs = errors.setdefault(name, [])
+        errs.append(held(out, gather_gemm_reference(x, w, idx), K1_BF16_RTOL if bf16 else KERNEL_RTOL,
+                         f"{tag} K1 call {len(errs)}"))
         return out
 
     def k2(x, g, idx):
         out = real_k2(x, g, idx)
-        errors["conv_dw"].append(held(out, conv_dw_reference(x, g, idx), DW_RTOL,
-                                      f"{tag} K2 call {len(errors['conv_dw'])}"))
+        errs = errors.setdefault("conv_dw_bf16" if x.dtype == torch.bfloat16 else "conv_dw", [])
+        errs.append(held(out, conv_dw_reference(x, g, idx), DW_RTOL, f"{tag} K2 call {len(errs)}"))
         return out
 
     conv_ops.gather_gemm, conv_ops.conv_dw = spatial.gather_gemm, spatial.conv_dw = k1, k2
@@ -3731,6 +3770,422 @@ def multi_process_examples(dev, launches):
     print(f"[40] {time.perf_counter() - start:.1f} s")
     return errors
 
+# phase 41: the dense bbox grid.  The stride-1 convs of MinkUNet34: its
+# stem and the distinct block convs (SLICE_SHAPES with equal strides)
+DENSE_SHAPES = [s for s in SLICE_SHAPES if s[4] == s[5]]
+# the scans of phase 41a's eager coordinate phases, grid on and off
+GRID_SEEDS = FRESH_SEEDS[:3]
+
+
+def rebuild_kernel_map(mgr, cache_key, probe):
+    """A cached kernel map built again from its two maps, through the row
+    grids (``probe``) or the key search."""
+    in_k, out_k, ks, _, dil, rtype, is_t, _, _ = cache_key
+    a, b = (out_k, in_k) if is_t else (in_k, out_k)  # the probed map first
+    am, bm = mgr._maps[a], mgr._maps[b]
+    offs = region_offsets_for(rtype, ks, dil, am.tensor_stride, None)
+    pa = mgr._probe_grid_for(MT.CoordinateMapKey(*a)) if probe else None
+    pb = mgr._probe_grid_for(MT.CoordinateMapKey(*b)) if probe else None
+    km = build_kernel_map(am, bm, offs, probe=pa, probe_out=pb)
+    return km.swap() if is_t else km
+
+
+def same_map(a, b):
+    return torch.equal(a.in_idx, b.in_idx) and torch.equal(a.out_idx_t, b.out_idx_t)
+
+
+def probe_tables(mgr):
+    """41a's per-map tables: each map's grid (cells, bytes, row grid built
+    in ms), each kernel map, stride map and interpolation map built through
+    the grids and through the search, bit-equal, both timed.  Returns the
+    kernel maps' (K, rows, grid ms)."""
+    print("  coordinate maps: rows, grid shape, cells, int32 row grid, its build (CUDA events)")
+    levels = {}
+    for key_t, m in mgr._maps.items():
+        key = MT.CoordinateMapKey(*key_t)
+        plan = mgr.dense_plan(key)
+        if plan is None:
+            continue
+        levels[key_t] = key
+        ms = cuda_ms(lambda: build_row_grid(plan.flat_idx, plan.cells))
+        print(f"    {str(key_t):>18} {m.size:>6} rows, grid {plan.grid_shape} = {plan.cells:,} "
+              f"cells, {4 * (plan.cells + 1) / 2**20:.2f} MiB, built in {ms:.4f} ms")
+    print("  kernel maps: K, rows out, grid build ms / search build ms, bit-equal")
+    builds = []
+    for ck, km in mgr._kernel_maps.items():
+        grid, search = rebuild_kernel_map(mgr, ck, True), rebuild_kernel_map(mgr, ck, False)
+        if not (same_map(grid, search) and same_map(grid, km)):
+            raise AssertionError(f"41a: kernel map {ck[:4]} differs between the grid and the search")
+        g_ms = cuda_ms(lambda: rebuild_kernel_map(mgr, ck, True))
+        s_ms = cuda_ms(lambda: rebuild_kernel_map(mgr, ck, False))
+        builds.append((km.kernel_volume, km.n_out, g_ms))
+        print(f"    {str(ck[0][0]) + '->' + str(ck[1][0]):>22} k={ck[2][0]} s={ck[3][0]}"
+              f"{' T' if ck[6] else '  '} K={km.kernel_volume:<3} rows {km.n_out:>6}: "
+              f"{g_ms:.4f} / {s_ms:.4f} ms")
+    print("  stride maps between levels and interpolation maps on each level: grid / search ms")
+    keys = [k for k in levels if k[1] == ""]
+    for fine, coarse in zip(keys, keys[1:]):
+        fm, cm = mgr._maps[fine], mgr._maps[coarse]
+        pg = mgr._probe_grid_for(levels[coarse])
+        grid = build_stride_map(fm, cm, cm.tensor_stride, probe=pg)
+        search = build_stride_map(fm, cm, cm.tensor_stride)
+        if not torch.equal(grid, search):
+            raise AssertionError(f"41a: stride map {fine[0]}->{coarse[0]} differs")
+        g_ms = cuda_ms(lambda: build_stride_map(fm, cm, cm.tensor_stride, probe=pg))
+        s_ms = cuda_ms(lambda: build_stride_map(fm, cm, cm.tensor_stride))
+        samples = fm.coordinates.float() + 0.5 * fm.tensor_stride[0]
+        samples[:, 0] = fm.coordinates[:, 0].float()
+        interp = lambda: mgr.interpolation_map_weight(levels[coarse], samples)  # noqa: E731
+        ig = interp()
+        cap, TM._MAX_GRID_CELLS = TM._MAX_GRID_CELLS, 0
+        try:  # the interpolation map through the search
+            isearch = interp()
+            i_s_ms = cuda_ms(interp)
+        finally:
+            TM._MAX_GRID_CELLS = cap
+        if not all(torch.equal(a, b) for a, b in zip(ig, isearch)):
+            raise AssertionError(f"41a: interpolation map on {coarse[0]} differs")
+        i_g_ms = cuda_ms(interp)
+        print(f"    stride {fine[0]}->{coarse[0]} ({fm.size} rows): {g_ms:.4f} / {s_ms:.4f} ms; "
+              f"interpolation on {coarse[0]} ({len(samples)} samples x 8 corners): "
+              f"{i_g_ms:.4f} / {i_s_ms:.4f} ms")
+    return builds
+
+
+def route_row(mgr, name, K, cin, cout, ts, gen, dev):
+    """41b: one stride-1 conv on its real map, the route against K1 and K2:
+    forward, input gradient and weight gradient, each held against the plain
+    path and timed (CUDA events); the route's parts are the differences of
+    forward+part and forward timings."""
+    key = MT.CoordinateMapKey((ts,) * 3, "")
+    ks = round(K ** (1 / 3))
+    km = mgr.kernel_map(key, key, kernel_size=ks)
+    plan = mgr.dense_plan(key)
+    n = mgr.size(key)
+    x = torch.randn(n, cin, device=dev, generator=gen)
+    w = torch.randn(K, cin, cout, device=dev, generator=gen) / (K * cin) ** 0.5
+    g = torch.randn(n, cout, device=dev, generator=gen)
+    wt = w.transpose(1, 2).contiguous()
+    size, dil = (ks,) * 3, (1,) * 3
+    xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+
+    def fwd():
+        with torch.no_grad():
+            return dense_conv(x, w, plan, size, dil)
+
+    def fwd_dx():
+        return torch.autograd.grad(dense_conv(xr, w, plan, size, dil), xr, g)[0]
+
+    def fwd_dw():
+        return torch.autograd.grad(dense_conv(x, wr, plan, size, dil), wr, g)[0]
+
+    ref = {
+        "fwd": gather_gemm_reference(x, w, km.in_idx),
+        "dx": gather_gemm_reference(g, wt, km.out_idx_t),
+        "dw": conv_dw_reference(x, g, km.in_idx),
+    }
+    row = dict(label=name, K=K, cin=cin, cout=cout, ts=ts, rows=n, cells=plan.cells,
+               grid=plan.grid_shape, pairs=pairs(km.in_idx, n))
+    route_total = cuda_ms(fwd)
+    row["route"] = {"fwd": dict(ms=route_total)}
+    for part, fn in (("dx", fwd_dx), ("dw", fwd_dw)):
+        row["route"][part] = dict(ms=cuda_ms(fn) - route_total)
+    for part, fn in (("fwd", fwd), ("dx", fwd_dx), ("dw", fwd_dw)):
+        rtol = DW_RTOL if part == "dw" else KERNEL_RTOL
+        row["route"][part]["max_abs_err"], row["route"][part]["max_rel_err"] = held(
+            fn(), ref[part], rtol, f"41b {name} route {part}")
+    row["k1k2"] = {
+        "fwd": check(gather_gemm, gather_gemm_reference, (x, w, km.in_idx), KERNEL_RTOL, name),
+        "dx": check(gather_gemm, gather_gemm_reference, (g, wt, km.out_idx_t), KERNEL_RTOL,
+                    name + " dX"),
+        "dw": check(conv_dw, conv_dw_reference, (x, g, km.in_idx), DW_RTOL, name + " dW"),
+    }
+    flop = 2 * row["pairs"] * cin * cout
+    nbytes = {
+        "fwd": 4 * (n * cin + K * cin * cout + K * n + n * cout),
+        "dx": 4 * (n * cout + K * cin * cout + K * n + n * cin),
+        "dw": 4 * (n * cin + n * cout + K * n + K * cin * cout),
+    }
+    row["bound"] = {p: bound(flop, nbytes[p]) for p in nbytes}
+    return row
+
+
+def fit_gate(rows, builds):
+    """Least squares (relative residuals, coefficients >= 0) of the gate's
+    cost model (ops/dense_conv.py) to 41b's times: the route's fwd + dX +
+    dW against its fixed cost, cells x K and cells x K x Cin x Cout; K1 +
+    K1 + K2 against a fixed cost and rows x K x Cin32 x Cout32; the kernel
+    map's build (41a, through the grid) against a fixed cost and rows x K;
+    and the route's largest measured / fitted time, the margin by which
+    the gate's prediction must win."""
+    def nnls(A, y):
+        A, y = A / y[:, None], np.ones_like(y)
+        best = None
+        for mask in range(1, 2 ** A.shape[1]):
+            cols = [j for j in range(A.shape[1]) if mask >> j & 1]
+            coef = np.linalg.lstsq(A[:, cols], y, rcond=None)[0]
+            if (coef < 0).any():
+                continue
+            res = float(((A[:, cols] @ coef - y) ** 2).sum())
+            if best is None or res < best[0]:
+                full = np.zeros(A.shape[1])
+                full[cols] = coef
+                best = (res, full)
+        return best[1]
+
+    t32 = lambda c: -(-c // 32) * 32  # noqa: E731
+    A = np.array([[1.0, r["cells"] * r["K"], r["cells"] * r["K"] * r["cin"] * r["cout"]]
+                  for r in rows])
+    y = np.array([1e3 * sum(r["route"][p]["ms"] for p in r["route"]) for r in rows])
+    dense = nnls(A, y)
+    sparse = nnls(np.array([[1.0, r["rows"] * r["K"] * t32(r["cin"]) * t32(r["cout"])]
+                            for r in rows]),
+                  np.array([1e3 * sum(r["k1k2"][p]["ms"] for p in r["k1k2"]) for r in rows]))
+    kmap = nnls(np.array([[1.0, K * n] for K, n, _ in builds]),
+                np.array([1e3 * ms for _, _, ms in builds]))
+    return {
+        "_DENSE_US_FIXED": dense[0], "_DENSE_US_PER_CELL_OFFSET": dense[1],
+        "_DENSE_US_PER_MAC": dense[2], "_DENSE_WORST_RATIO": float((y / (A @ dense)).max()),
+        "_SPARSE_US_FIXED": sparse[0],
+        "_SPARSE_US_PER_MAC": sparse[1], "_KMAP_BUILD_US_FIXED": kmap[0],
+        "_KMAP_BUILD_US_PER_PAIR": kmap[1],
+    }
+
+
+def dense_grid(dev, launches, reuse):
+    """Phase 41: the dense bbox grid on MinkUNet34's maps: the probe against
+    the search (41a), the dense-grid route against K1 and K2 (41b), the
+    gate refit and a training step under DEFAULT dispatch (41c).  Returns
+    the K1 and K2 errors of the calls it held."""
+    start = time.perf_counter()
+    init, raw, labels = reuse["unet_init"], reuse["raw"], reuse["labels"]
+    smi = reuse["smi"]
+    coords, feats = collate(raw[0])
+    recorder = unet_from(init, dev, False)
+    x = MT.SparseTensor(feats.to(dev), coords.to(dev))
+    with torch.no_grad():
+        recorder(x)
+    mgr = x.coordinate_manager
+
+    # 41a. the probe against the search, map by map, then the eager
+    # coordinate phase with the grid on and off
+    print(f"[41a grid probe] phase 9's batch 0, {len(coords)} voxels; {smi}")
+    builds = probe_tables(mgr)
+
+    def eager_phase(c, f):
+        clock = CoordinateClock()
+        with clock:
+            xe = MT.SparseTensor(f, c)
+            with torch.no_grad():
+                recorder(xe)
+        return xe.coordinate_manager, clock
+
+    def grid_off(fn, *args):
+        cap, TM._MAX_GRID_CELLS = TM._MAX_GRID_CELLS, 0
+        try:
+            return fn(*args)
+        finally:
+            TM._MAX_GRID_CELLS = cap
+
+    fresh = [[scan(s), scan(s + 1)] for s in GRID_SEEDS]
+    eager = []
+    for i, scans in enumerate(fresh):
+        c, f = (t.to(dev) for t in collate(scans))
+        if i == 0:  # each mode's first use (its device constants) out of the count
+            eager_phase(c, f)
+            grid_off(eager_phase, c, f)
+        on, clock_on = eager_phase(c, f)
+        off, clock_off = grid_off(eager_phase, c, f)
+        same_geometry(f"41a batch {i} grid off", off.export_geometry(), on)
+        eager.append((c, f, on))
+        print(f"  batch {i}: {len(c)} voxels; eager coordinate phase host ms / syncs: grid on "
+              f"{clock_on.ms:.2f} / {clock_on.syncs}, grid off {clock_off.ms:.2f} / "
+              f"{clock_off.syncs}; {len(on._row_grids)} row grids, "
+              f"{sum(g.numel() for g in on._row_grids.values()) * 4 / 2**20:.1f} MiB")
+        if clock_on.syncs > clock_off.syncs:
+            raise AssertionError(f"41a: the grid added host syncs ({clock_on.syncs} > {clock_off.syncs})")
+    replayer = MT.GeometryReplayer(mgr)
+    for s in WARM_SEEDS:
+        replayer(collate([scan(s), scan(s + 1)])[0].to(dev))
+    compiled = MT.CompiledReplayer(mgr).adopt(replayer)
+    for i, (c, f, want) in enumerate(eager):
+        (geo, fp, ok), ms, syncs = host_phase(lambda: compiled.run(c, f))
+        if not ok or syncs != 1 or compiled.captures != 1:
+            raise AssertionError(f"41a compiled replay: ok {ok}, syncs {syncs}, "
+                                 f"captures {compiled.captures}")
+        same_geometry(f"41a compiled batch {i}", geo, want)
+        if any(p.grid_shape != compiled.grid_floors[k] for k, p in geo.dense_plans.items()):
+            raise AssertionError("41a: the compiled plans are not at the grid floors")
+        print(f"  compiled replay with grids, batch {i}: {ms:.2f} ms host, {syncs} sync, one "
+              f"graph, maps bit-equal to eager, {len(geo.dense_plans)} plans at the grid floors")
+    del compiled, replayer, eager
+
+    # 41b. the dense-grid route against K1 and K2 on each stride-1 conv
+    print(f"[41b route against K1] stride-1 convs on phase 9's batch 0 maps; ms route / K1-K2 "
+          f"(CUDA events), bound by useful pairs; {smi}")
+    gen = torch.Generator(device=dev).manual_seed(41)
+    rows = []
+    errors = {"gather_gemm": [], "conv_dw": []}
+    for name, K, cin, cout, ts, _ in DENSE_SHAPES:
+        r = route_row(mgr, name, K, cin, cout, ts, gen, dev)
+        rows.append(r)
+        for p, kernel in (("fwd", "gather_gemm"), ("dx", "gather_gemm"), ("dw", "conv_dw")):
+            errors[kernel].append((r["k1k2"][p]["max_abs_err"], r["k1k2"][p]["max_rel_err"]))
+        route, k1 = r["route"], r["k1k2"]
+        print(f"  {name:>8} K={K:<3} {cin:>3}->{cout:<3} ts {ts:>2}: {r['rows']:>6} rows, "
+              f"{r['cells']:>9,} cells ({r['pairs']:,} pairs); " + ", ".join(
+                  f"{p} {route[p]['ms']:.4f} / {k1[p]['ms']:.4f} (plain {k1[p]['plain_ms']:.4f}, "
+                  f"bound {r['bound'][p][0]:.4f} {r['bound'][p][1]}; route err "
+                  f"{route[p]['max_rel_err']:.1e})" for p in ("fwd", "dx", "dw")))
+    total = {w: sum(sum(r[w][p]["ms"] for p in r[w]) for r in rows) for w in ("route", "k1k2")}
+    print(f"  over the {len(rows)} shapes: route {total['route']:.3f} ms, K1 + K2 "
+          f"{total['k1k2']:.3f} ms")
+
+    # 41c. the gate: refit, decisions, and a training step under DEFAULT
+    fit = fit_gate(rows, builds)
+    print(f"[41c gate] constants fitted to this run / in ops/dense_conv.py; {smi}")
+    for k, v in fit.items():
+        print(f"  {k} = {v:.4g} / {getattr(DC, k):.4g}")
+    committed = {k: getattr(DC, k) for k in fit}
+
+    def picks(r, constants):
+        plan = mgr.dense_plan(MT.CoordinateMapKey((r["ts"],) * 3, ""))
+        for k, v in constants.items():
+            setattr(DC, k, v)
+        try:
+            return ["dense" if DC.dense_conv_beneficial(
+                plan, r["rows"], r["K"], r["cin"], r["cout"], map_cached=cached) else "sparse"
+                for cached in (True, False)]
+        finally:
+            for k, v in committed.items():
+                setattr(DC, k, v)
+
+    for r in rows:
+        route = sum(r["route"][p]["ms"] for p in r["route"])
+        k1 = sum(r["k1k2"][p]["ms"] for p in r["k1k2"])
+        print(f"  {r['label']:>8}: route {route:.3f} ms, K1 + K2 {k1:.3f} ms -> gate with the map "
+              "cached / without: {} / {} (committed constants), {} / {} (this run's fit)".format(
+                  *picks(r, committed), *picks(r, fit)))
+    del mgr, recorder, x
+    routed = []
+    real_route = conv_mod.dense_conv
+
+    def counted_route(feats, *a):
+        routed.append(feats.requires_grad)
+        return real_route(feats, *a)
+
+    def default_step(tag, prepare=None):
+        net = unet_from(init, dev, True)
+        if prepare is not None:
+            prepare(net)
+        c, f = collate(raw[0])
+        routed.clear()
+        conv_mod.dense_conv = counted_route
+        zero_counts()
+        try:
+            with every_call_held(errors, tag):
+                loss, out = train_step(net, None, c, f, labels[0], dev)
+                torch.cuda.synchronize()
+        finally:
+            conv_mod.dense_conv = real_route
+        n = take_launches(launches)
+        return net, loss, out, n, len(c)
+
+    net, loss, out, n, n_vox = default_step("41c")
+    want = (MIN_LAUNCHES + MIN_DX_LAUNCHES - len(routed) - sum(routed), MIN_LAUNCHES - len(routed))
+    print(f"  training step under DEFAULT dispatch, {n_vox} voxels: {len(routed)} convs on the "
+          f"dense route, {n['gather_gemm']} K1 and {n['conv_dw']} K2 launches, each call held")
+    if (n["gather_gemm"], n["conv_dw"]) != want or out.F.shape != (n_vox, 20):
+        raise AssertionError(f"41c: launches {n}, expected {want}")
+    judge_step("41c parity", loss.item(),
+               {k: p.grad.detach().cpu() for k, p in net.named_parameters()},
+               {k: v.cpu() for k, v in net.state_dict().items() if "running" in k},
+               reuse["unet_cpu"])
+    # the step's logits against the CPU plain path's (train mode, the same
+    # weights and batch), in float32 and float64, by PERF.md's rule
+    c, f = collate(raw[0])
+    cpu_logits = {}
+    for dtype in (torch.float32, torch.float64):
+        cpu_net = unet_from(init, "cpu", True).to(dtype)
+        with torch.no_grad():
+            cpu_logits[dtype] = cpu_net(MT.SparseTensor(f.to(dtype), c, device="cpu")).F.double()
+    card = out.F.detach().double().cpu()
+    vs32, card64 = rel_diff(card, cpu_logits[torch.float32]), rel_diff(card, cpu_logits[torch.float64])
+    cpu64 = rel_diff(cpu_logits[torch.float32], cpu_logits[torch.float64])
+    print(f"  logits ({n_vox}, 20) against the CPU float32 run {vs32:.2e}; against float64: card "
+          f"{card64:.2e}, CPU float32 {cpu64:.2e}")
+    if not (vs32 <= LOGIT_RTOL or card64 <= GRAD_FACTOR * cpu64):
+        raise AssertionError(f"41c: logits disagree with the CPU plain path, {vs32:.3e}")
+    del net, loss, out, cpu_net, cpu_logits
+    # the stem forced onto the route (the gate keeps it sparse): the same
+    # step with the stem's conv through cuDNN.  The route's calls are held
+    # as every K1 and K2 call is, against the plain sparse conv on their
+    # own inputs: its output (KERNEL_RTOL) and its weight gradient
+    # (DW_RTOL); the loss against the CPU's (LOSS_RTOL).  Downstream, the
+    # train-mode gradients amplify the stem's float32 rounding, whatever
+    # computes it (phase 10's float64 yardstick), so they are printed
+    # against the CPU runs, and phase 41c's DEFAULT step holds them.
+    stem = {}
+
+    def hook_stem(net):
+        def capture(m, a, o):
+            stem.update(x=a[0], out=o)
+            o.F.register_hook(lambda g: stem.__setitem__("g", g))
+        net.conv0p1s1.register_forward_hook(capture)
+
+    real_gate = conv_mod.dense_conv_beneficial
+    conv_mod.dense_conv_beneficial = lambda plan, rows, K, *a, **k: K == 125
+    try:
+        net, loss, out, n, _ = default_step("41c stem routed", hook_stem)
+    finally:
+        conv_mod.dense_conv_beneficial = real_gate
+    x_in = stem["x"]
+    km = x_in.coordinate_manager.kernel_map(x_in.coordinate_map_key, x_in.coordinate_map_key,
+                                            kernel_size=5)
+    xs, w = x_in.F.detach(), net.conv0p1s1.kernel.detach()
+    route_fwd = held(stem["out"].F.detach(), gather_gemm_reference(xs, w, km.in_idx), KERNEL_RTOL,
+                     "41c stem route forward")
+    route_dw = held(net.conv0p1s1.kernel.grad, conv_dw_reference(xs, stem["g"], km.in_idx),
+                    DW_RTOL, "41c stem route dW")
+    loss32, grads32, _ = reuse["unet_cpu"][torch.float32]
+    grads64 = reuse["unet_cpu"][torch.float64][1]
+    loss_rel = abs(loss.item() - loss32) / abs(loss32)
+    card64 = {k: rel_diff(p.grad.detach().double().cpu(), grads64[k])
+              for k, p in net.named_parameters()}
+    cpu64 = {k: rel_diff(g.double(), grads64[k]) for k, g in grads32.items()}
+    worst = max(card64, key=card64.get)
+    print(f"  the same step with the stem forced onto the route: {len(routed)} conv on the route, "
+          f"{n['gather_gemm']} K1 and {n['conv_dw']} K2 launches, each call held; the route's "
+          f"forward {route_fwd[1]:.2e} and weight gradient {route_dw[1]:.2e} of max|plain|; loss "
+          f"{loss.item():.7f} vs {loss32:.7f} (CPU), rel {loss_rel:.2e}; gradients against "
+          f"float64: median {median(card64):.2e} (CPU float32 {median(cpu64):.2e}), worst "
+          f"{worst} {card64[worst]:.2e} (CPU float32 {cpu64[worst]:.2e})")
+    if len(routed) != 1 or (n["gather_gemm"], n["conv_dw"]) != (
+            MIN_LAUNCHES + MIN_DX_LAUNCHES - 1, MIN_LAUNCHES - 1):
+        raise AssertionError(f"41c stem routed: {len(routed)} routed, launches {n}")
+    if not (loss_rel <= LOSS_RTOL and all(torch.isfinite(p.grad).all() for p in net.parameters())):
+        raise AssertionError(f"41c stem routed: loss rel {loss_rel:.2e}, or a gradient not finite")
+    del net, loss, out, stem, x_in, km
+    MT.set_compute_dtype(torch.bfloat16)
+    try:
+        net, loss, out, n, _ = default_step("41c bf16")
+        card = bf16_step_record(loss, net)
+    finally:
+        MT.set_compute_dtype(None)
+    want = (MIN_LAUNCHES + MIN_DX_LAUNCHES - len(routed) - sum(routed), MIN_LAUNCHES - len(routed))
+    print(f"  bf16 training step under DEFAULT dispatch: {len(routed)} convs on the dense route, "
+          f"{n['gather_gemm_bf16']} bf16 K1 and {n['conv_dw_bf16']} bf16 K2 launches, each call held")
+    if (out.F.dtype != torch.bfloat16 or n["gather_gemm"] or n["conv_dw"]
+            or (n["gather_gemm_bf16"], n["conv_dw_bf16"]) != want):
+        raise AssertionError(f"41c bf16: logits {out.F.dtype}, launches {n}, expected {want}")
+    judge_bf16("41c bf16 parity", card, reuse["unet_cpu16"], reuse["unet_cpu"][torch.float64])
+    del net, loss, out
+    print("  phase 41's K1/K2 calls against their plain versions: " + ", ".join(
+        f"{len(v)} {k}, worst rel err {max(e[1] for e in v):.2e}" for k, v in errors.items() if v))
+    print(f"[41] {time.perf_counter() - start:.1f} s")
+    return errors
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -3775,6 +4230,8 @@ def main() -> int:
     example_errs = examples_path(dev, launches)
     high_errs, high_rows = high_dimensional(dev, launches)
     multi_errs = multi_process_examples(dev, launches)
+    reuse["smi"] = smi
+    dense_errs = dense_grid(dev, launches, reuse)
 
     bwd = (synth_bwd + real_bwd + fcnn_bwd + gen_rows + completion_bwd + vae_bwd + splat_bwd
            + shim_bwd + high_rows)
@@ -3782,11 +4239,14 @@ def main() -> int:
         "gather_gemm": [r["max_abs_err"] for r in rows + real]
         + [r[p]["max_abs_err"] for r in bwd for p in ("fwd", "dx") if p in r]
         + par_errs["gather_gemm"] + example_errs["gather_gemm"] + high_errs["gather_gemm"]
-        + multi_errs["gather_gemm"],
+        + multi_errs["gather_gemm"] + [e[0] for e in dense_errs["gather_gemm"]],
         "conv_dw": [r["dw"]["max_abs_err"] for r in bwd] + par_errs["conv_dw"]
-        + example_errs["conv_dw"] + high_errs["conv_dw"] + multi_errs["conv_dw"],
-        "gather_gemm_bf16": [r[p]["max_abs_err"] for r in bf16_bwd for p in ("fwd", "dx") if p in r],
-        "conv_dw_bf16": [r["dw"]["max_abs_err"] for r in bf16_bwd],
+        + example_errs["conv_dw"] + high_errs["conv_dw"] + multi_errs["conv_dw"]
+        + [e[0] for e in dense_errs["conv_dw"]],
+        "gather_gemm_bf16": [r[p]["max_abs_err"] for r in bf16_bwd for p in ("fwd", "dx") if p in r]
+        + [e[0] for e in dense_errs.get("gather_gemm_bf16", [])],
+        "conv_dw_bf16": [r["dw"]["max_abs_err"] for r in bf16_bwd]
+        + [e[0] for e in dense_errs.get("conv_dw_bf16", [])],
     }
     # per training step of MinkUNet34, MinkowskiFCNN, CompletionNet, the VAE,
     # MinkowskiSplatFCNN and the 7-D U-Net, on their real maps

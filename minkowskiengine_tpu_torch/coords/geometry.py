@@ -24,7 +24,10 @@ without the model, and the result is handed to the step as a
 
 A Geometry's maps hold exact row counts, like every map the model sees;
 the padded capacities live only inside the replay.  It is a plain
-dataclass, not a pytree: the step takes it as an argument as it is.
+dataclass, not a pytree: the step takes it as an argument as it is.  Its
+dense plans (``ops/dense_conv.py``) serve the dense-grid conv route in a
+step on a frozen view, and the replayers ratchet each map's grid shape
+(``grid_floors``) as they ratchet its capacity.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from ..ops.dense_conv import DensePlan
 from .kernel_map import KernelMap
 from .keys import PAD_KEY
 from .manager import CoordinateManager, CoordinateMapKey, UntraceableReplay
@@ -43,17 +47,20 @@ from .map import CoordinateMap, bucket_capacity
 
 @dataclasses.dataclass
 class Geometry:
-    """Snapshot of a manager's coordinate maps, kernel maps and stride maps.
+    """Snapshot of a manager's coordinate maps, kernel maps, stride maps
+    and dense plans (None for an empty map).
 
     ``origin_keys`` maps a key tuple to its origin map's key tuple.
     ``row_shapes`` is set on a stacked Geometry only (``stack_geometries``):
-    each tensor's shape in each stacked geometry, by its place in the dicts.
+    each tensor's shape in each stacked geometry, by its place in the dicts,
+    and each dense plan's grid shape.
     """
 
     D: int
     maps: Dict[tuple, CoordinateMap]
     kernel_maps: Dict[tuple, KernelMap]
     stride_maps: Dict[tuple, torch.Tensor]
+    dense_plans: Dict[tuple, Optional[DensePlan]]
     origin_keys: Dict[tuple, tuple]
     entry_key_tuple: Optional[Tuple[Tuple[int, ...], str]] = None
     row_shapes: Optional[Dict[tuple, List[tuple]]] = None
@@ -83,11 +90,21 @@ def _tensors(geo: Geometry):
         out += [(("kernel_maps", k, 0), km.in_idx, -1), (("kernel_maps", k, 1), km.out_idx_t, -1)]
     for k, sm in geo.stride_maps.items():
         out.append((("stride_maps", k, 0), sm, -1))
+    for k, p in geo.dense_plans.items():
+        if p is not None:
+            out += [(("dense_plans", k, 0), p.flat_idx, -1), (("dense_plans", k, 1), p.mins, 0)]
     return out
 
 
-def _with_tensors(geo: Geometry, t: dict, row_shapes=None) -> Geometry:
-    """``geo`` with its tensors replaced by ``t`` (by place)."""
+def _grid_place(k):
+    """The place under which a stacked Geometry keeps a plan's grid shapes."""
+    return ("dense_plans", k, "grid_shape")
+
+
+def _with_tensors(geo: Geometry, t: dict, row_shapes=None, grid_shapes=None) -> Geometry:
+    """``geo`` with its tensors replaced by ``t`` (by place), and its plans'
+    grid shapes by ``grid_shapes`` where given."""
+    grid_shapes = grid_shapes or {}
     return Geometry(
         D=geo.D,
         maps={k: CoordinateMap(t[("maps", k, 0)], t[("maps", k, 1)], m.tensor_stride)
@@ -98,6 +115,11 @@ def _with_tensors(geo: Geometry, t: dict, row_shapes=None) -> Geometry:
             for k in geo.kernel_maps
         },
         stride_maps={k: t[("stride_maps", k, 0)] for k in geo.stride_maps},
+        dense_plans={
+            k: None if p is None else DensePlan(
+                t[("dense_plans", k, 0)], grid_shapes.get(k, p.grid_shape), t[("dense_plans", k, 1)])
+            for k, p in geo.dense_plans.items()
+        },
         origin_keys=dict(geo.origin_keys),
         entry_key_tuple=geo.entry_key_tuple,
         row_shapes=row_shapes,
@@ -108,7 +130,7 @@ def _structure(geo: Geometry):
     return (
         geo.D, sorted(map(repr, geo.maps)), sorted(map(repr, geo.kernel_maps)),
         sorted(map(repr, geo.stride_maps)), sorted(map(repr, geo.origin_keys.items())),
-        geo.entry_key_tuple,
+        sorted(repr((k, p is None)) for k, p in geo.dense_plans.items()), geo.entry_key_tuple,
     )
 
 
@@ -119,7 +141,8 @@ def stack_geometries(geometries: List[Geometry]) -> Geometry:
     padded to the largest shape among them (``PAD_KEY`` in keys, -1 in
     index maps, 0 in coordinates) and ``row_shapes`` keeps each one's
     shape; ``index_geometry`` cuts them back.  Geometries with different
-    keys raise ``ValueError``.
+    keys raise ``ValueError``.  Dense plans may differ in grid shape:
+    ``row_shapes`` keeps each one's.
     """
     first = geometries[0]
     if any(_structure(g) != _structure(first) for g in geometries[1:]):
@@ -133,6 +156,9 @@ def stack_geometries(geometries: List[Geometry]) -> Geometry:
         for i, p in enumerate(parts):
             out[(i,) + tuple(slice(0, s) for s in p.shape)] = p
         stacked[place], row_shapes[place] = out, [tuple(p.shape) for p in parts]
+    for k, p in first.dense_plans.items():
+        if p is not None:
+            row_shapes[_grid_place(k)] = [g.dense_plans[k].grid_shape for g in geometries]
     return _with_tensors(first, stacked, row_shapes)
 
 
@@ -140,10 +166,11 @@ def index_geometry(geo: Geometry, i: int) -> Geometry:
     """Geometry ``i`` of a stacked one, each tensor cut to its own shape."""
     if geo.row_shapes is None:
         raise ValueError("index_geometry takes a stacked Geometry (stack_geometries)")
+    grids = {k: geo.row_shapes[_grid_place(k)][i] for k, p in geo.dense_plans.items() if p is not None}
     return _with_tensors(geo, {
         p: t[(i,) + tuple(slice(0, s) for s in geo.row_shapes[p][i])].contiguous()
         for p, t, _ in _tensors(geo)
-    })
+    }, grid_shapes=grids)
 
 
 def slice_geometry(geo: Geometry, lo: int, hi: int) -> Geometry:
@@ -182,13 +209,16 @@ class GeometryReplayer:
     def __init__(self, recorded_manager: CoordinateManager):
         self.oplog = recorded_manager.oplog()
         self.cap_floors = dict(recorded_manager._cap_floors)
+        self.grid_floors = dict(recorded_manager._grid_floors)
         self.device = recorded_manager.device
 
     def __call__(self, coordinates, tensor_stride=1) -> CoordinateManager:
         mgr = CoordinateManager.replay(
-            self.oplog, coordinates, tensor_stride, cap_floors=self.cap_floors, device=self.device
+            self.oplog, coordinates, tensor_stride, cap_floors=self.cap_floors,
+            grid_floors=self.grid_floors, device=self.device,
         )
         self.cap_floors.update(mgr._cap_floors)
+        self.grid_floors.update(mgr._grid_floors)
         return mgr
 
 
@@ -216,6 +246,7 @@ class CompiledReplayer:
     def __init__(self, recorded_manager: CoordinateManager, quantization_mode=None):
         self.oplog = recorded_manager.oplog()
         self.cap_floors = dict(recorded_manager._cap_floors)
+        self.grid_floors = dict(recorded_manager._grid_floors)
         self.device = recorded_manager.device
         self.quantization_mode = quantization_mode
         self._version = 0
@@ -232,6 +263,7 @@ class CompiledReplayer:
         captured under older floors are dropped."""
         self.oplog = list(replayer.oplog)
         self.cap_floors = dict(replayer.cap_floors)
+        self.grid_floors = dict(replayer.grid_floors)
         self._invalidate()
         return self
 
@@ -239,8 +271,8 @@ class CompiledReplayer:
         """The replay with no host sync: (manager holding padded maps,
         reduced padded features or None, 0-d device bool ``ok``)."""
         mgr = CoordinateManager.replay(
-            self.oplog, coords_padded, cap_floors=self.cap_floors, traced=True,
-            n_valids=[n_valid], device=self.device,
+            self.oplog, coords_padded, cap_floors=self.cap_floors, grid_floors=self.grid_floors,
+            traced=True, n_valids=[n_valid], device=self.device,
         )
         fp = None
         if feats_padded is not None:
@@ -249,7 +281,7 @@ class CompiledReplayer:
 
     def _outputs(self, static):
         mgr, fp, ok = self.trace(static.coords, static.n, static.feats)
-        return mgr, fp, torch.stack(mgr._pending_scalars() + [ok.to(torch.int64)])
+        return mgr, fp, torch.cat([mgr._pending_scalars(), ok.to(torch.int64).reshape(1)])
 
     def _capture(self, static):
         """Warm the replay on a side stream, then capture it."""
@@ -308,10 +340,11 @@ class CompiledReplayer:
         """Replay a batch whose floors did not hold in sync mode, ratchet
         the floors and drop the stale graphs; returns (Geometry, features)."""
         mgr = CoordinateManager.replay(
-            self.oplog, coordinates, cap_floors=self.cap_floors, deferred=True,
-            overprovision=1.3, device=self.device,
+            self.oplog, coordinates, cap_floors=self.cap_floors, grid_floors=self.grid_floors,
+            deferred=True, overprovision=1.3, device=self.device,
         )
         self.cap_floors.update(mgr._cap_floors)
+        self.grid_floors.update(mgr._grid_floors)
         self._invalidate()
         self.recoveries += 1
         geo = mgr.export_geometry()

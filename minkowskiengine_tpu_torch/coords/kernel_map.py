@@ -17,6 +17,20 @@ Pooling with stride == kernel size takes the stride-map fast path: a
 many-to-one stride map (``build_stride_map``) wrapped as a kernel map whose
 rows are collision slots, not offsets (``stride_map_to_kernel_map``).
 
+Every lookup has two routes to one answer.  The search route looks the
+query keys up in the map's sorted keys (``lookup.find_rows``).  The grid
+route gathers the query's cell from the probed map's dense bbox row grid
+(``grid_lookup``; ``ops/dense_conv.py::build_row_grid``), which the manager
+passes as ``probe`` for every map whose grid fits.  The inverse matching
+``out_idx_t`` is then a probe of the output map with the offsets negated,
+in place of ``_invert_matching``.  The grid route gathers each (offset,
+row) query's own cell and checks its bounds per query, so it needs no
+shifted grid and no padding of the grid (JAX's ``_pads_for_offsets``): a
+base below or above the probed bbox (a misaligned strided minimum, a
+coarse transpose base) finds its rows like any other.  JAX's shifted-stack
+and window-slice builds of the same answer are XLA tactics for the TPU and
+are not carried over.
+
 Every map-building function also takes padded maps
 (``PaddedCoordinateMap``, geometry replay): an output row past the map's
 count pairs with nothing (-1 in every slot), and a padded input row is
@@ -27,6 +41,7 @@ map index for index.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Tuple
 
 import numpy as np
@@ -87,6 +102,54 @@ def _build_in_idx(
     return rows.masked_fill_(invalid, -1)
 
 
+def _grid_rows(row_grid, mins, grid_shape, tensor_stride, columns) -> torch.Tensor:
+    """Rows of query coordinates given as D+1 int32 columns (batch first,
+    broadcastable to one shape) in a row grid: -1 where the query is off
+    the map's lattice, out of its grid, or an empty cell."""
+    cells = math.prod(grid_shape)
+    b = columns[0] - mins[0]
+    ok = (b >= 0) & (b < grid_shape[0])
+    flat = b
+    for d, (c, t, e) in enumerate(zip(columns[1:], tensor_stride, grid_shape[1:])):
+        rel = c - mins[1 + d]
+        if t != 1:
+            ok = ok & (torch.remainder(rel, t) == 0)
+            rel = torch.div(rel, t, rounding_mode="floor")
+        ok = ok & (rel >= 0) & (rel < e)
+        flat = flat * e + rel
+    flat = torch.where(ok, flat, cells)  # the sentinel cell holds -1
+    return row_grid.index_select(0, flat.reshape(-1)).view(flat.shape)
+
+
+def grid_lookup(row_grid, mins, grid_shape, tensor_stride, q: torch.Tensor) -> torch.Tensor:
+    """(...,) int32 rows of (..., D+1) int32 query coordinates in a map,
+    through its dense bbox row grid: one gather per query, no search
+    (JAX ``grid_lookup``; the reference's hash probes,
+    src/coordinate_map_gpu.cu:320-359).
+
+    ``row_grid``: (cells + 1,) int32 from ``ops.dense_conv.build_row_grid``;
+    ``mins``: (D+1,) int32 device bbox minima; ``grid_shape``: (B,
+    E_1..E_D); ``tensor_stride``: the map's, a D-tuple.  -1 where absent.
+    """
+    return _grid_rows(row_grid, mins, grid_shape, tensor_stride, q.unbind(-1))
+
+
+def _build_in_idx_grid(probe, base_coords: torch.Tensor, offsets: np.ndarray, base_valid=None):
+    """``_build_in_idx`` through a row grid: rows[k, o] = row of
+    (base_coords[o] + offsets[k]) in the probed map, or -1.  A direct
+    (K, N) gather: each query's coordinates are formed per axis, never as
+    one (K, N, D+1) tensor.  ``probe`` = (row_grid, mins, grid_shape,
+    tensor_stride) of the probed map; a query outside the packed-key range
+    is outside its grid too, so both routes answer -1."""
+    row_grid, mins, grid_shape, ts = probe
+    offs = K.device_constant(offsets, torch.int32, base_coords.device)
+    columns = [base_coords[None, :, d] + offs[:, d, None] for d in range(base_coords.shape[1])]
+    rows = _grid_rows(row_grid, mins, grid_shape, ts, columns)
+    if base_valid is not None:
+        rows.masked_fill_(~base_valid[None, :], -1)
+    return rows
+
+
 def _invert_matching(in_idx: torch.Tensor, n_in: int) -> torch.Tensor:
     """out_idx_t[k, i] = o where in_idx[k, o] == i, else -1.
 
@@ -106,42 +169,57 @@ def _invert_matching(in_idx: torch.Tensor, n_in: int) -> torch.Tensor:
 
 
 def build_kernel_map(
-    in_map: CoordinateMap, out_map: CoordinateMap, offsets: np.ndarray
+    in_map: CoordinateMap, out_map: CoordinateMap, offsets: np.ndarray, probe=None, probe_out=None
 ) -> KernelMap:
     """Dense kernel map for absolute coordinate ``offsets`` ((K, D) or
     (K, D+1) with a leading batch delta).
 
     Same semantics as the reference's CPU kernel-map construction
     (src/coordinate_map_cpu.hpp:569-670): for every output coordinate and
-    offset, probe ``out_coord + offset`` in the input map.
+    offset, probe ``out_coord + offset`` in the input map.  ``probe``: the
+    input map's grid probe (row_grid, mins, grid_shape, tensor_stride), in
+    place of the key search; ``probe_out``: the output map's, which builds
+    ``out_idx_t`` as the rows of ``in_coord - offset`` in the output map
+    (the rows are unique, so in_idx[k, o] == i exactly when that row is
+    o).  Every route gives the same maps index for index.
     """
     offsets = np.asarray(offsets, dtype=np.int64)
     if offsets.shape[1] == in_map.dimension:  # prepend batch delta 0
         offsets = np.concatenate(
             [np.zeros((offsets.shape[0], 1), np.int64), offsets], axis=1
         )
-    offs = K.device_constant(offsets, device=out_map.device)
-    in_idx = _build_in_idx(in_map.keys, out_map.coordinates, offs, out_map.valid_mask())
-    out_idx_t = _invert_matching(in_idx, in_map.rows)
+    if probe is not None:
+        in_idx = _build_in_idx_grid(probe, out_map.coordinates, offsets, out_map.valid_mask())
+    else:
+        offs = K.device_constant(offsets, device=out_map.device)
+        in_idx = _build_in_idx(in_map.keys, out_map.coordinates, offs, out_map.valid_mask())
+    if probe_out is not None:
+        out_idx_t = _build_in_idx_grid(probe_out, in_map.coordinates, -offsets, in_map.valid_mask())
+    else:
+        out_idx_t = _invert_matching(in_idx, in_map.rows)
     return KernelMap(in_idx, out_idx_t, in_map.rows, out_map.rows)
 
 
 def build_stride_map(
-    in_map: CoordinateMap, out_map: CoordinateMap, out_tensor_stride
+    in_map: CoordinateMap, out_map: CoordinateMap, out_tensor_stride, probe=None
 ) -> torch.Tensor:
     """(N_in,) int32: the output row of each input row's strided voxel, or -1.
 
     Counterpart of ``build_stride_map`` in
     ``minkowskiengine_tpu/coords/kernel_map.py`` (reference: ``stride_map``,
-    src/coordinate_map_cpu.hpp:672-722).
+    src/coordinate_map_cpu.hpp:672-722).  ``probe``: the output map's grid
+    probe, in place of the key search (JAX ``_stride_in_to_out_grid``).
     """
     c = in_map.coordinates
     stride = K.device_constant(out_tensor_stride, torch.int32, c.device)
     spatial = torch.div(c[:, 1:], stride, rounding_mode="floor") * stride
     queries = torch.cat([c[:, :1], spatial], dim=1)
+    in_valid = in_map.valid_mask()
+    if probe is not None:
+        rows = grid_lookup(*probe, queries)
+        return rows if in_valid is None else rows.masked_fill_(~in_valid, -1)
     rows = find_rows(out_map.keys, K.pack(queries))
     invalid = K.overflow_mask(queries)
-    in_valid = in_map.valid_mask()
     if in_valid is not None:
         invalid |= ~in_valid
     return rows.masked_fill_(invalid, -1)

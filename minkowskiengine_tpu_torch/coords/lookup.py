@@ -5,8 +5,10 @@ lower-bound search of query keys in a map's ascending unique keys.  One-word
 keys (D <= 6) take ``torch.searchsorted``; multi-word keys (D >= 7) take
 the JAX package's ``find_lower_bound``: ⌈log₂(M+1)⌉ fixed steps of gather
 and lexicographic compare, with no host sync, so that a CUDA graph can
-capture it.  The JAX package's tile-join and grid-probe lookups are TPU
-strategies for the same answer and are not ported.
+capture it.  The other route to the same answer, a gather from a map's
+dense bbox row grid, is ``kernel_map.py::grid_lookup``; the manager takes
+it for every map whose grid fits.  The JAX package's tile join is a TPU
+strategy for the same answer and is not ported.
 """
 
 from __future__ import annotations

@@ -17,8 +17,19 @@ deferred (each map at its ratcheted capacity floor with its count on the
 device, then one host transfer reads every count and cuts the maps to
 exact rows) and traced (no host sync at all: the caller reads
 ``traced_ok()`` with the counts, and ``CompiledReplayer`` captures the
-whole replay in one CUDA graph).  The JAX package's slab, grid and join
-floors and its grid probes are TPU machinery and are not carried over.
+whole replay in one CUDA graph).
+
+Each map's bounding box is read in the same host transfer as its row count
+(``_register_unique``, ``prune``).  From it the manager builds the map's
+dense plan and row grid (``dense_plan``, ``ops/dense_conv.py``), recorded
+in the oplog as JAX records it, and looks coordinates up in any map whose
+grid holds at most ``_MAX_GRID_CELLS`` cells by one gather from the grid
+(``_probe_grid_for``): kernel maps, stride maps, origin, union and
+field-to-sparse maps, interpolation.  This holds on the CPU and on the
+card, as in JAX; the maps equal the search's index for index.  Replay
+carries the grid floors (each map's grid shape) as it carries the capacity
+floors.  The JAX package's slab and join floors are TPU machinery and are
+not carried over.
 """
 
 from __future__ import annotations
@@ -35,10 +46,19 @@ from ..types import (
     GPUMemoryAllocatorType, MinkowskiAlgorithm, RegionType, as_tuple, resolve_device,
 )
 from . import keys as K
-from .kernel_map import KernelMap, build_kernel_map, build_stride_map, stride_map_to_kernel_map
+from .kernel_map import (
+    KernelMap, build_kernel_map, build_stride_map, grid_lookup, stride_map_to_kernel_map,
+)
 from .lookup import find_rows
 from .map import CoordinateFieldMap, CoordinateMap, PaddedCoordinateMap, bucket_capacity
 from .unique import unique_coordinates, unique_coordinates_padded
+from ..ops.dense_conv import (
+    DensePlan, bbox_values, build_dense_plan, build_dense_plan_traced, build_row_grid,
+)
+
+# row grids above this many cells leave their map to the key search (64 MB
+# of int32 cells); the grids of real scans lie far below it
+_MAX_GRID_CELLS = 1 << 24
 
 
 class UntraceableReplay(RuntimeError):
@@ -219,8 +239,15 @@ class CoordinateManager:
         # for each map (by (tensor_stride, string id)), and the most inputs
         # per voxel of each pooling fast-path map (by ("kmax", cache key))
         self._cap_floors: Dict[tuple, int] = {}
+        # the grid shape of each map's dense plan, ratcheted the same way
+        self._grid_floors: Dict[tuple, tuple] = {}
         self._overprovision = 1.0  # > 1 while recovering from a violated floor
         self._deferred: Optional[dict] = None  # deferred/traced replay state
+        # per map: its host bbox (read with its row count), its dense plan
+        # (None for an empty map) and its row grid
+        self._bboxes: Dict[tuple, np.ndarray] = {}
+        self._dense_plans: Dict[tuple, Optional[DensePlan]] = {}
+        self._row_grids: Dict[tuple, torch.Tensor] = {}
 
     def _record(self, *entry) -> None:
         if not self._frozen:
@@ -295,6 +322,9 @@ class CoordinateManager:
         self._origin_keys.clear()
         self._field_to_sparse.clear()
         self._insert_results.clear()
+        self._bboxes.clear()
+        self._dense_plans.clear()
+        self._row_grids.clear()
 
     def get_coordinates(self, key: CoordinateMapKey) -> torch.Tensor:
         return self._get_map(key).coordinates
@@ -306,7 +336,12 @@ class CoordinateManager:
         self, key: CoordinateMapKey, coords: torch.Tensor, valid=None
     ) -> torch.Tensor:
         """Row of each integer query coordinate in a map, or -1 (int32); -1
-        too where ``valid`` is false."""
+        too where ``valid`` is false.  One gather from the map's row grid
+        when it has one, else a search of its sorted keys."""
+        pg = self._probe_grid_for(key)
+        if pg is not None:
+            rows = grid_lookup(*pg, coords)
+            return rows if valid is None else rows.masked_fill_(~valid, -1)
         rows = find_rows(self._get_map(key).keys, K.pack(coords))
         invalid = K.overflow_mask(coords)
         if valid is not None:
@@ -349,10 +384,10 @@ class CoordinateManager:
             res, u_coords, overflow = unique_coordinates_padded(
                 coords, valid, self._cap_floors[key.get_key()]
             )
-            self._maps[key.get_key()] = PaddedCoordinateMap(
-                u_coords, res.sorted_keys, tensor_stride, res.count
-            )
+            cmap = PaddedCoordinateMap(u_coords, res.sorted_keys, tensor_stride, res.count)
+            self._maps[key.get_key()] = cmap
             d["maps"].append((key.get_key(), overflow))
+            d["bboxes"][key.get_key()] = bbox_values(u_coords, cmap.valid_mask()).view(2, -1)
             return key, res.unique_map, res.inverse_map
         if d is not None and d["traced"]:
             raise UntraceableReplay(
@@ -362,8 +397,11 @@ class CoordinateManager:
         if valid is not None:
             coords = coords[valid]
         res, u_coords, overflow = unique_coordinates(coords)
-        if bool(overflow):
+        # the overflow flag and the bbox in one transfer
+        values = torch.cat([overflow.reshape(1).to(torch.int64), bbox_values(u_coords)]).tolist()
+        if values[0]:
             raise ValueError(_overflow_message(self.D))
+        self._bboxes[key.get_key()] = np.asarray(values[1:]).reshape(2, -1)
         self._maps[key.get_key()] = CoordinateMap(u_coords, res.sorted_keys, tensor_stride)
         self._ratchet(key.get_key(), u_coords.shape[0])
         return key, res.unique_map, res.inverse_map
@@ -551,14 +589,23 @@ class CoordinateManager:
         keep = torch.as_tensor(keep, device=in_map.device).to(torch.bool)
         if keep.shape != (in_map.size,):
             raise ValueError(f"keep mask of shape {tuple(keep.shape)} for {in_map.size} rows")
-        out_from_in = keep.nonzero().flatten().to(torch.int32)
+        n = in_map.size
         in_to_out = torch.where(keep, torch.cumsum(keep, 0, dtype=torch.int32) - 1, -1).to(torch.int32)
+        # the kept count and the kept rows' bbox in one transfer
+        values = torch.cat([
+            keep.sum().reshape(1), bbox_values(in_map.coordinates, keep)
+        ]).tolist()
+        n_kept = values[0]
+        tgt = torch.where(keep, in_to_out, n_kept).long()
+        rows = torch.arange(n, dtype=torch.int32, device=keep.device)
+        out_from_in = rows.new_empty(n_kept + 1).scatter_(0, tgt, rows)[:n_kept]
         sid = self._unique_string_id(in_map.tensor_stride, "pruned")
         new_key = CoordinateMapKey(in_map.tensor_stride, sid)
         self._maps[new_key.get_key()] = CoordinateMap(
             in_map.coordinates[out_from_in.long()], K.gather_keys(in_map.keys, out_from_in.long()),
             in_map.tensor_stride,
         )
+        self._bboxes[new_key.get_key()] = np.asarray(values[1:]).reshape(2, -1)
         return new_key, in_to_out, out_from_in
 
     def merge(self, keys) -> CoordinateMapKey:
@@ -757,7 +804,9 @@ class CoordinateManager:
                 offs = region_offsets_for(
                     region_type, ks, dil, in_map.tensor_stride, region_offsets
                 )
-                kmap = build_kernel_map(in_map, out_map, offs)
+                pg = self._probe_grid_for(in_key)
+                pg_out = self._probe_grid_for(out_key)
+                kmap = build_kernel_map(in_map, out_map, offs, probe=pg, probe_out=pg_out)
         else:
             swapped_key = (
                 out_key.get_key(), in_key.get_key(), ks, s, dil,
@@ -775,7 +824,9 @@ class CoordinateManager:
                 offs = region_offsets_for(
                     region_type, ks, dil, out_map.tensor_stride, region_offsets
                 )
-                kmap = build_kernel_map(out_map, in_map, offs).swap()
+                pg = self._probe_grid_for(out_key)  # the probed (first) map
+                pg_out = self._probe_grid_for(in_key)
+                kmap = build_kernel_map(out_map, in_map, offs, probe=pg, probe_out=pg_out).swap()
         self._kernel_maps[cache_key] = kmap
         self._record(
             "kernel_map", in_key.get_key(), out_key.get_key(), s, ks, dil, int(region_type),
@@ -809,10 +860,70 @@ class CoordinateManager:
             self._check_not_frozen("a stride map")
             out_map = self._get_map(out_key)
             self._stride_maps[ck] = build_stride_map(
-                self._get_map(in_key), out_map, out_map.tensor_stride
+                self._get_map(in_key), out_map, out_map.tensor_stride,
+                probe=self._probe_grid_for(out_key),
             )
             self._record("stride_map", in_key.get_key(), out_key.get_key())
         return self._stride_maps[ck]
+
+    # ------------------------------------------------------------------
+    # dense bbox grids
+    # ------------------------------------------------------------------
+    def dense_plan(self, key: CoordinateMapKey) -> Optional[DensePlan]:
+        """The map's dense plan (``ops/dense_conv.py``), built once and
+        cached; None for an empty map.  Its grid shape ratchets the map's
+        grid floor.  In a deferred replay a map with a grid floor gets its
+        plan at the floor's shape with no host sync, and the check that
+        the map fits goes with the counts; a map without one gets its plan
+        after the one transfer.  A traced replay needs the floor: without
+        it, ``UntraceableReplay``."""
+        key_t = key.get_key()
+        if key_t in self._dense_plans:
+            return self._dense_plans[key_t]
+        self._check_not_frozen("a dense plan")
+        d = self._deferred
+        if d is not None:
+            floor = self._grid_floors.get(key_t)
+            bbox_dev = d["bboxes"].get(key_t)
+            if d["traced"] and (floor is None or bbox_dev is None):
+                raise UntraceableReplay(f"no dense-grid floor for map {key_t}")
+            if floor is None or bbox_dev is None:
+                if key_t not in d["plans"]:
+                    d["plans"].append(key_t)
+                    self._record("dense_plan", key_t)
+                return None  # built in _finalized
+            plan, ok = build_dense_plan_traced(self._get_map(key), bbox_dev, floor)
+            d["grid_checks"].append((key_t, ok))
+        else:
+            plan = build_dense_plan(
+                self._get_map(key), bbox=self._bboxes.get(key_t),
+                extent_floor=self._grid_floors.get(key_t), margin=self._overprovision,
+            )
+            if plan is not None:
+                self._grid_floors[key_t] = plan.grid_shape
+        self._dense_plans[key_t] = plan
+        self._record("dense_plan", key_t)
+        return plan
+
+    def _probe_grid_for(self, key: CoordinateMapKey):
+        """The map's grid probe, (row_grid, mins, grid_shape, tensor_stride),
+        or None: no plan yet (a deferred replay without its floor), an
+        empty map, or a grid over ``_MAX_GRID_CELLS`` (huge sparse extents),
+        where the key search serves.  A traced replay asks for no plan the
+        sync pass did not floor within the cap."""
+        key_t = key.get_key()
+        floor = self._grid_floors.get(key_t)
+        if self._deferred is not None and self._deferred["traced"] and (
+            floor is None or math.prod(floor) > _MAX_GRID_CELLS
+        ):
+            return None
+        plan = self.dense_plan(key)
+        if plan is None or plan.cells > _MAX_GRID_CELLS:
+            return None
+        grid = self._row_grids.get(key_t)
+        if grid is None:
+            grid = self._row_grids[key_t] = build_row_grid(plan.flat_idx, plan.cells)
+        return grid, plan.mins, plan.grid_shape, self._get_map(key).tensor_stride
 
     # ------------------------------------------------------------------
     # quantized features of an insert
@@ -842,9 +953,8 @@ class CoordinateManager:
     # ------------------------------------------------------------------
     def export_geometry(self):
         """The cached coordinate state as a ``Geometry``: maps, kernel maps,
-        stride and origin maps, origin keys and the entry key.  The JAX
-        package's ``dense_plans`` do not exist here: its dense route is
-        not ported."""
+        stride and origin maps, dense plans, origin keys and the entry
+        key."""
         from .geometry import Geometry
 
         if self._deferred is not None:
@@ -854,6 +964,7 @@ class CoordinateManager:
             maps=dict(self._maps),
             kernel_maps=dict(self._kernel_maps),
             stride_maps=dict(self._stride_maps),
+            dense_plans=dict(self._dense_plans),
             origin_keys={k: v.get_key() for k, v in self._origin_keys.items()},
             entry_key_tuple=self._entry_key.get_key() if self._entry_key else None,
         )
@@ -868,6 +979,7 @@ class CoordinateManager:
         mgr._maps = dict(geometry.maps)
         mgr._kernel_maps = dict(geometry.kernel_maps)
         mgr._stride_maps = dict(geometry.stride_maps)
+        mgr._dense_plans = dict(geometry.dense_plans)
         mgr._origin_keys = {k: CoordinateMapKey(*v) for k, v in geometry.origin_keys.items()}
         if geometry.entry_key_tuple is not None:
             mgr._entry_key = CoordinateMapKey(*geometry.entry_key_tuple)
@@ -877,8 +989,9 @@ class CoordinateManager:
     def traced_ok(self) -> torch.Tensor:
         """0-d device bool: every floor of this traced replay held (each
         map's count within its capacity, no coordinate out of the key
-        range, each pooling map's Kmax within its floor).  Read it once per
-        batch; on False, replay the batch in sync mode, which ratchets."""
+        range, each pooling map's Kmax and each dense grid's extents within
+        their floors).  Read it once per batch; on False, replay the batch
+        in sync mode, which ratchets."""
         d = self._deferred
         checks = [torch.ones((), dtype=torch.bool, device=self.device)]
         if d is not None:
@@ -887,27 +1000,36 @@ class CoordinateManager:
                 checks.append((m.count <= m.capacity) & ~overflow)
             for cache_key, max_rank in d["kmax"]:
                 checks.append(max_rank <= self._cap_floors[("kmax", cache_key)])
+            checks += [ok for _, ok in d["grid_checks"]]
         return torch.stack(checks).all()
 
     def _begin_deferred(self, traced: bool) -> None:
-        self._deferred = {"maps": [], "kmax": [], "inserts": [], "traced": traced}
+        self._deferred = {
+            "maps": [], "kmax": [], "inserts": [], "traced": traced,
+            # per map its device bbox; maps whose plan waits for the
+            # transfer; (map, device bool) of each plan built at its floor
+            "bboxes": {}, "plans": [], "grid_checks": [],
+        }
 
-    def _pending_scalars(self) -> List[torch.Tensor]:
-        """The device scalars ``_finalized`` reads, in its order: each
-        padded map's count and overflow flag, each floored Kmax, each
-        traced insert's valid rows."""
+    def _pending_scalars(self) -> torch.Tensor:
+        """(n,) int64 device tensor of what ``_finalized`` reads, in its
+        order: each padded map's count and overflow flag, each floored
+        Kmax, each traced insert's valid rows, each map's bbox (minima then
+        maxima) and each floored grid's check."""
         d = self._deferred
         out = [self._maps[k].count for k, _ in d["maps"]]
         out += [ovf for _, ovf in d["maps"]]
         out += [r for _, r in d["kmax"]]
         out += [n for _, n in d["inserts"] if isinstance(n, torch.Tensor)]
-        return [t.to(torch.int64).reshape(()) for t in out]
+        out += list(d["bboxes"].values())
+        out += [ok for _, ok in d["grid_checks"]]
+        if not out:
+            return torch.zeros(0, dtype=torch.int64, device=self.device)
+        return torch.cat([t.to(torch.int64).reshape(-1) for t in out])
 
     def _finalize_deferred(self) -> "CoordinateManager":
-        """One host transfer of every pending count, then ``_finalized``."""
-        scalars = self._pending_scalars()
-        values = torch.stack(scalars).tolist() if scalars else []
-        return self._finalized(values)
+        """One host transfer of every pending value, then ``_finalized``."""
+        return self._finalized(self._pending_scalars().tolist())
 
     def _finalized(self, values: Sequence[int]) -> "CoordinateManager":
         """A new exact manager from this deferred one, given the host values
@@ -922,10 +1044,14 @@ class CoordinateManager:
         overflow = [next(it) for _ in d["maps"]]
         kmax = {ck: next(it) for ck, _ in d["kmax"]}
         n_in = {k: (next(it) if isinstance(n, torch.Tensor) else None) for k, n in d["inserts"]}
+        width = 2 * (self.D + 1)
+        bboxes = {k: np.asarray([next(it) for _ in range(width)]).reshape(2, -1) for k in d["bboxes"]}
+        grid_ok = {k: next(it) for k, _ in d["grid_checks"]}
         if any(overflow):
             raise ValueError(_overflow_message(self.D))
         over = [k for k, n in counts.items() if n > self._maps[k].capacity]
         over += [ck[:2] for ck, r in kmax.items() if r > self._cap_floors[("kmax", ck)]]
+        over += [k for k, ok in grid_ok.items() if not ok]
         if over:
             raise CapacityFloorExceeded(f"floors too small for {over}")
 
@@ -936,6 +1062,8 @@ class CoordinateManager:
         new._entry_key = self._entry_key
         new._origin_keys = dict(self._origin_keys)
         new._cap_floors = dict(self._cap_floors)
+        new._grid_floors = dict(self._grid_floors)
+        new._bboxes = {**self._bboxes, **bboxes}
         new._overprovision = self._overprovision
         rows = {}
         for k, m in self._maps.items():
@@ -962,6 +1090,18 @@ class CoordinateManager:
                 rows_in = im.shape[0] if n_in[k] is None else n_in[k]
                 um, im = um[: counts[k]].clone(), im[:rows_in].clone()
             new._insert_results[k] = (um, im)
+        for k, plan in self._dense_plans.items():
+            if plan is not None and k in counts:
+                plan = DensePlan(plan.flat_idx[: counts[k]].clone(), plan.grid_shape, plan.mins.clone())
+            new._dense_plans[k] = plan
+        for k in d["plans"]:  # the plans that waited for the bboxes
+            plan = build_dense_plan(
+                new._maps[k], bbox=new._bboxes.get(k), extent_floor=new._grid_floors.get(k),
+                margin=new._overprovision,
+            )
+            new._dense_plans[k] = plan
+            if plan is not None:
+                new._grid_floors[k] = plan.grid_shape
         return new
 
     @classmethod
@@ -971,6 +1111,7 @@ class CoordinateManager:
         coordinates,
         tensor_stride=1,
         cap_floors: Optional[Dict[tuple, int]] = None,
+        grid_floors: Optional[Dict[tuple, tuple]] = None,
         deferred: Optional[bool] = None,
         traced: bool = False,
         n_valids=None,
@@ -994,27 +1135,32 @@ class CoordinateManager:
         ``insert``.  ``n_valids``: per insert, a 0-d device tensor counting
         the valid leading rows of a padded array (traced convention).
         ``tensor_stride`` is taken from the recipe and kept for the JAX
-        signature.  ``device``: where the maps go; by default the
-        coordinates' device, or the card for host data.
+        signature.  ``grid_floors``: each map's dense grid shape, ratcheted
+        as the capacities are.  ``device``: where the maps go; by default
+        the coordinates' device, or the card for host data.
         """
         if traced:
-            return cls._replay_once(oplog, coordinates, cap_floors, "traced", n_valids, 1.0, device)
+            return cls._replay_once(
+                oplog, coordinates, cap_floors, "traced", n_valids, 1.0, device, grid_floors
+            )
         if deferred is None:
             deferred = bool(cap_floors)
         if deferred:
             try:
                 return cls._replay_once(
-                    oplog, coordinates, cap_floors, True, n_valids, overprovision, device
+                    oplog, coordinates, cap_floors, True, n_valids, overprovision, device,
+                    grid_floors,
                 )
             except CapacityFloorExceeded:
                 pass  # the sync replay below ratchets the floors
         return cls._replay_once(
-            oplog, coordinates, cap_floors, False, n_valids, overprovision, device
+            oplog, coordinates, cap_floors, False, n_valids, overprovision, device, grid_floors
         )
 
     @classmethod
     def _replay_once(
-        cls, oplog, coordinates, cap_floors, mode, n_valids, overprovision, device
+        cls, oplog, coordinates, cap_floors, mode, n_valids, overprovision, device,
+        grid_floors=None,
     ) -> "CoordinateManager":
         if not isinstance(coordinates, (list, tuple)):
             coordinates = [coordinates]
@@ -1035,6 +1181,7 @@ class CoordinateManager:
                     mgr = cls(D=int(c.shape[1]) - 1, device=dev)
                     mgr._overprovision = float(overprovision)
                     mgr._cap_floors.update(cap_floors or {})
+                    mgr._grid_floors.update(grid_floors or {})
                     if mode:
                         mgr._begin_deferred(traced=mode == "traced")
                 key, _ = mgr.insert_and_map(
@@ -1074,6 +1221,8 @@ class CoordinateManager:
                 mgr.stride_map(CoordinateMapKey(*in_k), CoordinateMapKey(*out_k))
             elif op == "merge":
                 mgr.merge([CoordinateMapKey(*k) for k in entry[1]])
+            elif op == "dense_plan":
+                mgr.dense_plan(CoordinateMapKey(*entry[1]))
             else:
                 raise RuntimeError(f"unknown oplog entry {op!r}")
         if mgr is None:

@@ -12,11 +12,17 @@ kernel map as the modules and run the same ``sparse_conv_kmap``.  Under
 that dtype, as JAX's do (nn/conv.py:273-318); the float32 weight goes into
 the conv's autograd Function, which casts it (its gradient stays float32),
 and the volume-1 product and the bias run in the features' dtype.  The
-channelwise conv casts nothing, as in JAX.  The JAX package's dense-grid dispatch is TPU-only and
-is not carried over, so ``convolution_mode`` (stored, shown in the repr)
-selects nothing: every mode runs the sparse conv, K1/K2 on the card, as
-COPY_GEMM in JAX still reaches its Pallas kernels (it only keeps a conv
-off the dense route, JAX nn/conv.py:185-194).
+channelwise conv casts nothing, as in JAX.
+
+The dense-grid route (``ops/dense_conv.py``): a stride-1 HYPER_CUBE conv
+whose output is its input map may run as one cuDNN conv over the map's
+bbox grid, when the gate (``dense_conv_beneficial``, fitted on the H100)
+says it costs less than K1 and K2.  ``_dense_dispatch`` keeps JAX's
+conditions (JAX nn/conv.py:177-240), with "the backend is a TPU" read as
+"the features are on the card": on the CPU the port never routes dense,
+as JAX on the CPU does not.  ``ConvolutionMode.COPY_GEMM`` keeps a conv
+off the route and changes nothing else; transposed, strided and
+non-cube convs and spatial execution stay sparse.
 
 Parallel execution (``parallel/``): on a row block (spatial execution) a
 conv runs the halo path (``sparse_conv_kmap``), or, at volume 1, its
@@ -39,6 +45,7 @@ from ..config import compute_dtype, spatial_execution_ctx
 from ..coords.manager import CoordinateManager, CoordinateMapKey
 from ..kernel_generator import KernelGenerator
 from ..ops import functional as F
+from ..ops.dense_conv import dense_conv, dense_conv_beneficial
 from ..sparse_tensor import SparseTensor, whole_rows
 from ..types import ConvolutionMode, RegionType, resolve_device
 
@@ -175,6 +182,33 @@ class MinkowskiConvolutionBase(nn.Module):
         self.kernel = uniform(kernel_shape)
         self.bias = uniform((1, self.out_channels)) if bias else None
 
+    def _dense_dispatch(self, input: SparseTensor, coordinates, feats) -> bool:
+        """Whether this call takes the dense-grid route (module docstring)."""
+        kg = self.kernel_generator
+        if (
+            spatial_execution_ctx() is not None  # the halo path needs the kernel map
+            or input.row_block is not None
+            or coordinates is not None
+            or self.is_transpose
+            or self.expand_coordinates
+            or not kg.requires_strided_coordinates  # stride != 1
+            or kg.region_type != RegionType.HYPER_CUBE
+            or kg.axis_types is not None
+            or not feats.is_cuda
+            or self.convolution_mode == ConvolutionMode.COPY_GEMM
+        ):
+            return False
+        key, mgr = input.coordinate_map_key, input.coordinate_manager
+        plan = mgr.dense_plan(key)
+        cached = mgr.has_kernel_map(
+            key, key, stride=kg.kernel_stride, kernel_size=kg.kernel_size,
+            dilation=kg.kernel_dilation, region_type=RegionType.HYPER_CUBE,
+        )
+        return dense_conv_beneficial(
+            plan, feats.shape[0], kg.kernel_volume, self.kernel.shape[-2], self.kernel.shape[-1],
+            map_cached=cached,
+        )
+
     def _kernel_map(self, input: SparseTensor, out_key: CoordinateMapKey):
         return _kernel_map_between(
             self.kernel_generator, input.coordinate_map_key, out_key,
@@ -204,6 +238,13 @@ class MinkowskiConvolutionBase(nn.Module):
             kernel = self.kernel if block is None else block.replicated(self.kernel)
             outfeat = feats @ kernel.to(feats.dtype)
             out_key = input.coordinate_map_key
+        elif self._dense_dispatch(input, coordinates, feats):
+            kg = self.kernel_generator
+            out_key = input.coordinate_map_key
+            plan = input.coordinate_manager.dense_plan(out_key)
+            outfeat = dense_conv(
+                feats, self.kernel.to(feats.dtype), plan, kg.kernel_size, kg.kernel_dilation
+            )
         else:
             if block is not None and spatial_execution_ctx() != (block.mesh, block.axis_name):
                 raise ValueError(

@@ -42,7 +42,6 @@ KEYWORDS_NOT_TAKEN = {
         "(coords/keys.py): ROADMAP queue 1, Not ported, on purpose"),
     ("CoordinateMap", "size_arr"): _PADDED,
     ("CoordinateMap", "_size_host"): _PADDED,
-    ("Geometry", "dense_plans"): "ROADMAP queue 1 item 5: the dense-grid conv route",
     ("KernelMap", "fwd_slab"): _SLABS,
     ("KernelMap", "bwd_slab"): _SLABS,
     ("kaiming_normal_", "shape"): _INIT,
@@ -57,7 +56,6 @@ ATTRIBUTES_NOT_PORTED = {
     **{("TensorField", a): _PADDED for a in (
         "padded_features", "size_array", "tree_flatten", "tree_unflatten", "valid_row_mask")},
     **{("CoordinateManager", a): _PADDED for a in ("capacity", "size_array", "insert_and_map_padded")},
-    ("CoordinateManager", "dense_plan"): "ROADMAP queue 1 item 5: the dense-grid conv route",
 }
 
 CLASSES = ("SparseTensor", "TensorField", "CoordinateManager")

@@ -76,20 +76,21 @@ def warm():
 
 def test_oplog_records_jax_entries_minkunet14a(warm):
     _, _, jmgr, tmgr = warm
-    want = [e for e in jmgr.oplog() if e[0] != "dense_plan"]
+    want = jmgr.oplog()
     assert tmgr.oplog() == want
     assert tmgr.oplog()[0] == ("insert", (1, 1, 1), "", ((1, 1, 1), ""))
-    assert {e[0] for e in want} == {"insert", "stride", "kernel_map"}
+    assert {e[0] for e in want} == {"insert", "stride", "kernel_map", "dense_plan"}
 
 
 def test_oplog_records_jax_entries_minkunet34():
     jnet = JNarrow34(3, 4, D=3, rngs=nnx.Rngs(0))
     tnet = TNarrow34(3, 4, D=3, device="cpu")
     jmgr, tmgr = recorded(jnet, tnet)
-    want = [e for e in jmgr.oplog() if e[0] != "dense_plan"]
+    want = jmgr.oplog()
     assert tmgr.oplog() == want
     kinds = [e[0] for e in want]
-    assert (kinds.count("insert"), kinds.count("stride"), kinds.count("kernel_map")) == (1, 4, 14)
+    assert (kinds.count("insert"), kinds.count("stride"), kinds.count("kernel_map"),
+            kinds.count("dense_plan")) == (1, 4, 14, 5)
 
 
 def test_model_outputs_from_a_geometry_match_jax_replay(warm):

@@ -229,9 +229,10 @@ def test_lowered_floor_fails_the_check_and_recover_equals_eager(warm):
 
 
 def op_kinds(pkg, mgr, coords):
-    """Every op kind the oplog knows but ``dense_plan``: stride, both
-    pooling fast paths (stride_map + kernel_map), stride_region forward and
-    transposed (expanding), origin, origin_map, merge."""
+    """Every op kind the oplog knows: stride, both pooling fast paths
+    (stride_map + kernel_map), stride_region forward and transposed
+    (expanding), origin, origin_map, merge, and the dense plans their
+    grid probes record."""
     key, _ = mgr.insert_and_map(coords)
     s2 = mgr.stride(key, 2)
     mgr.kernel_map(key, s2, stride=2, kernel_size=2, is_pool=True)
@@ -258,10 +259,10 @@ def op_recipe():
 
 def test_op_kinds_record_jax_entries(op_recipe):
     tmgr, jmgr, _ = op_recipe
-    assert tmgr.oplog() == [e for e in jmgr.oplog() if e[0] != "dense_plan"]
+    assert tmgr.oplog() == jmgr.oplog()
     assert {e[0] for e in tmgr.oplog()} == {
         "insert", "stride", "stride_map", "kernel_map", "stride_region", "origin", "origin_map",
-        "merge",
+        "merge", "dense_plan",
     }
 
 
