@@ -13,7 +13,8 @@ examples, indoor.py's MinkUNet34C segmentation chain at full width first;
 a 7-D sparse U-Net (multi-word coordinate keys) and a 16-D conv; the
 multi-process examples on one NCCL rank and on two gloo ranks sharing the
 card; last, the dense bbox grid: the row-grid probe against the key search
-and the dense-grid conv route against K1 and K2, with its gate refit.
+and the dense-grid conv route against K1 and K2, with its gate refit; and
+the bf16 bodies of both kernels timed on the device alone.
 
 Run from the root of a checkout, with one CUDA card visible:
 
@@ -336,6 +337,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    (KERNEL_RTOL, DW_RTOL), the loss against the CPU's (LOSS_RTOL); one
    bf16 step under DEFAULT, judged as phase 30's.
 
+42. the bf16 bodies on the device alone: every K1 and K2 call of one bf16
+   MinkUNet34 training step and one bf16 MinkowskiFCNN step (phase 28's
+   maps), forward, input gradient and weight gradient: the body, Cout
+   tile, ring depth and split the plan chose, and, timed by
+   ``device_ms`` (the launches enqueued behind a spin kernel that outlasts
+   the host's enqueue, so the events bracket device work only), the new
+   bodies' ms beside PR 8's bodies (``mma.sync``, or the SIMT stems, run
+   through the wrappers' ``body=``), the float32 instance's and the plain
+   version's, with the bound and the wrapper's host µs per call; each
+   call held to its plain version (K1 within K1_BF16_RTOL, K2 within
+   DW_RTOL), two launches bit-equal, and every call whose kernel sees
+   Cin > 4 on the ``wgmma`` body.
+
 Bound of a kernel call: the larger of its useful operations (2 · pairs ·
 Cin · Cout) over the H100's 495 TFLOP/s dense TF32 tensor peak and its
 bytes (each input read once, the output written once) over 3.35 TB/s.  The
@@ -344,7 +358,10 @@ cannot pass a third of that peak.  The bf16 instances' bound takes the
 989 TFLOP/s dense bf16 peak and 2 bytes per feature and weight element,
 4 per index and per float32 dW element.
 
-Then a JSON line describing each kernel and, last, the device line.
+Then a JSON line describing each kernel and, last, the device line.  The
+float32 entries' times are the per-step sums of phases 8, 12, 17, 19, 21
+and 39b (``cuda_ms``: events around the calls' enqueue and run); the bf16
+entries' are phase 42's device-only sums.
 """
 
 from __future__ import annotations
@@ -527,6 +544,68 @@ def cuda_ms(fn, warmup=2, iters=10):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+_SPIN_CYCLES_PER_MS = []
+
+
+def device_ms(fn, warmup=2, iters=10, graph=False):
+    """Device-only time of ``fn``'s launches: (ms per call, the host's µs
+    per call).  ``cuda_ms`` brackets the host's enqueue too, which is all
+    it measures where a kernel's device time is below its wrapper's host
+    cost.  Here the timed calls are enqueued behind a spin kernel
+    (``torch.cuda._sleep``) that outlasts their enqueue, so the device
+    runs them back to back between the two events.  The host µs are the
+    enqueue of the same calls by a host clock, with no sync.  A spin that
+    the enqueue outlasted is doubled and the calls timed again.  With
+    ``graph`` (the plain versions: a few launches per offset, enough to
+    fill the launch queue behind a spin, so that the host waits on the
+    device) the calls are captured in one CUDA graph and its replay is
+    timed; the host µs are then None."""
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if graph:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        calls = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(calls):
+            for _ in range(iters):
+                fn()
+        calls.replay()
+        start.record()
+        calls.replay()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / iters, None
+    if not _SPIN_CYCLES_PER_MS:
+        torch.cuda.synchronize()
+        start.record()
+        torch.cuda._sleep(4_000_000)
+        end.record()
+        end.synchronize()
+        _SPIN_CYCLES_PER_MS.append(4_000_000 / start.elapsed_time(end))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    cover_ms = 2 * iters * (time.perf_counter() - t0) * 1e3 + 0.2
+    for _ in range(4):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(cover_ms * _SPIN_CYCLES_PER_MS[0]))
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        end.record()
+        end.synchronize()
+        if host_ms < 0.8 * cover_ms:
+            return start.elapsed_time(end) / iters, host_ms * 1e3 / iters
+        cover_ms = 2 * host_ms
+    raise AssertionError(f"the host's enqueue outlasted a {cover_ms:.1f} ms spin four times")
 
 
 def held(got, want, rtol, label):
@@ -771,6 +850,8 @@ def zero_counts():
     phase."""
     gather_gemm.launches = gather_gemm.bf16_launches = 0
     conv_dw.launches = conv_dw.bf16_launches = 0
+    for counts in (gather_gemm.bf16_body_launches, conv_dw.bf16_body_launches):
+        counts.update(dict.fromkeys(counts, 0))
 
 
 def counts_now():
@@ -2028,39 +2109,91 @@ def data_loader_path(dev, launches):
     return [stem_row, up_row]
 
 
-def bf16_rows(x, w, g, in_idx, out_idx_t, label, with_dx=True):
-    """Phase 28: one conv call's bf16 instances against their bf16 plain
-    versions (forward, input gradient, weight gradient), with the float32
-    instances' time on the same map and the bf16 bound: 2 * pairs * Cin *
-    Cout over the dense bf16 rate, or 2 bytes per feature and weight
-    element, 4 per index and per float32 dW element, over HBM_RATE."""
+def bf16_step_calls(dev, reuse):
+    """Every sparse conv call of one bf16 training step of MinkUNet34 (phase
+    9's batch 0) and of MinkowskiFCNN (phase 13's first batch, dropout off),
+    captured with hooks under ``set_compute_dtype(torch.bfloat16)``:
+    {net: [(x, w, g, in_idx, out_idx_t, label, with_dx)]}: the conv's input
+    features x as the module took them (the first conv's in float32,
+    ``bf16_parts`` casts), the float32 weight w, the output gradient g in
+    bf16.  Leaves the compute dtype as it found it."""
+    before = MT.config.compute_dtype()
+    MT.set_compute_dtype(torch.bfloat16)
+    try:
+        unet = unet_from(reuse["unet_init"], dev, True)
+        coords, feats = collate(reuse["raw"][0])
+        fcnn = MinkowskiFCNN(3, CLASSES, device=dev, **FCNN_WIDTHS).train()
+        fcnn.load_state_dict(reuse["fcnn_init"])
+        set_dropout(fcnn, False)
+        steps = {}
+        for name, model, run, n, prefix in (
+            ("MinkUNet34", unet, lambda: train_step(unet, None, coords, feats, reuse["labels"][0], dev),
+             MIN_LAUNCHES, "call"),
+            ("MinkowskiFCNN", fcnn, lambda: fcnn_step(fcnn, *reuse["shape_batch"], dev),
+             FCNN_CONVS, "fcnn"),
+        ):
+            calls, grads, _ = capture_step(sparse_convs(model), run)
+            if len(calls) != n or len(grads) != n:
+                raise AssertionError(f"{name}: captured {len(calls)} calls and {len(grads)} "
+                                     "output gradients")
+            steps[name] = []
+            for i, (m, inp, out) in enumerate(calls):
+                kmap = m._kernel_map(inp, out.coordinate_map_key)
+                steps[name].append((inp.F.detach(), m.kernel.detach(), grads[i].contiguous(),
+                                    kmap.in_idx, kmap.out_idx_t, f"{prefix}{i}",
+                                    inp.F.requires_grad))
+    finally:
+        MT.set_compute_dtype(before)
+    return steps
+
+
+def bf16_parts(x, w, g, in_idx, out_idx_t, with_dx=True):
+    """One conv call's bf16 kernel calls: {part: (kernel, plain version,
+    bf16 arguments, float32 arguments, tolerance, bound ms, what sets it)}
+    for the forward, the input gradient (``with_dx``) and the weight
+    gradient.  The bf16 bound: 2 * pairs * Cin * Cout over the dense bf16
+    rate, or 2 bytes per feature and weight element, 4 per index and per
+    float32 dW element, over HBM_RATE."""
     K, cin, cout = w.shape
     n_in, n_out = x.shape[0], g.shape[0]
     xb, wb, gb = x.bfloat16(), w.bfloat16(), g.bfloat16()
-    x, g = x.float(), g.float()
-    row = dict(label=label, K=K, cin=cin, cout=cout, n_in=n_in, n_out=n_out)
+    x, w, g = x.float(), w.float(), g.float()
     flop = 2 * pairs(in_idx, n_in) * cin * cout
-    nbytes = {
-        "fwd": 2 * (n_in * cin + K * cin * cout + n_out * cout) + 4 * K * n_out,
-        "dx": 2 * (n_out * cout + K * cin * cout + n_in * cin) + 4 * K * n_in,
-        "dw": 2 * (n_in * cin + n_out * cout) + 4 * K * n_out + 4 * K * cin * cout,
+    work = {
+        "fwd": (gather_gemm, gather_gemm_reference, (xb, wb, in_idx), (x, w, in_idx),
+                K1_BF16_RTOL, flop,
+                2 * (n_in * cin + K * cin * cout + n_out * cout) + 4 * K * n_out),
+        "dw": (conv_dw, conv_dw_reference, (xb, gb, in_idx), (x, g, in_idx), DW_RTOL, flop,
+               2 * (n_in * cin + n_out * cout) + 4 * K * n_out + 4 * K * cin * cout),
     }
-    row["fwd"] = check(gather_gemm, gather_gemm_reference, (xb, wb, in_idx), K1_BF16_RTOL, label)
-    row["fwd"]["f32_ms"] = cuda_ms(lambda: gather_gemm(x, w, in_idx))
     if with_dx:
-        wt, wt32 = wb.transpose(1, 2).contiguous(), w.transpose(1, 2).contiguous()
-        row["dx"] = check(gather_gemm, gather_gemm_reference, (gb, wt, out_idx_t), K1_BF16_RTOL,
-                          label + " dX")
-        row["dx"]["f32_ms"] = cuda_ms(lambda: gather_gemm(g, wt32, out_idx_t))
-        row["dx"]["flop"] = 2 * pairs(out_idx_t, n_out) * cin * cout
-    row["dw"] = check(conv_dw, conv_dw_reference, (xb, gb, in_idx), DW_RTOL, label + " dW")
-    row["dw"]["f32_ms"] = cuda_ms(lambda: conv_dw(x, g, in_idx))
+        work["dx"] = (gather_gemm, gather_gemm_reference,
+                      (gb, wb.transpose(1, 2).contiguous(), out_idx_t),
+                      (g, w.transpose(1, 2).contiguous(), out_idx_t), K1_BF16_RTOL,
+                      2 * pairs(out_idx_t, n_out) * cin * cout,
+                      2 * (n_out * cout + K * cin * cout + n_in * cin) + 4 * K * n_in)
+    parts = {}
     for p in ("fwd", "dx", "dw"):
-        if p in row:
-            f = row[p].setdefault("flop", flop)
-            ops_ms, bytes_ms = f / BF16_PEAK * 1e3, nbytes[p] / HBM_RATE * 1e3
-            row[p]["bound_ms"], row[p]["bound_by"] = (
-                (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes"))
+        if p in work:
+            kernel, plain, args, args32, rtol, f, nbytes = work[p]
+            ops_ms, bytes_ms = f / BF16_PEAK * 1e3, nbytes / HBM_RATE * 1e3
+            parts[p] = (kernel, plain, args, args32, rtol,
+                        *((ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")))
+    return parts
+
+
+def bf16_rows(x, w, g, in_idx, out_idx_t, label, with_dx=True):
+    """Phase 28: one conv call's bf16 instances against their bf16 plain
+    versions (forward, input gradient, weight gradient), with the float32
+    instances' time on the same map and the bf16 bound (``bf16_parts``)."""
+    K, cin, cout = w.shape
+    n_in, n_out = x.shape[0], g.shape[0]
+    row = dict(label=label, K=K, cin=cin, cout=cout, n_in=n_in, n_out=n_out)
+    for p, (kernel, plain, args, args32, rtol, bound_ms, bound_by) in bf16_parts(
+            x, w, g, in_idx, out_idx_t, with_dx).items():
+        row[p] = check(kernel, plain, args, rtol, label + {"fwd": "", "dx": " dX", "dw": " dW"}[p])
+        row[p].update(f32_ms=cuda_ms(lambda: kernel(*args32)), bound_ms=bound_ms,
+                      bound_by=bound_by)
     parts = "  ".join(
         f"{p} {row[p]['ms']:.4f}/{row[p]['plain_ms']:.4f}/{row[p]['f32_ms']:.4f} ms "
         f"({row[p]['max_rel_err']:.1e}, bound {row[p]['bound_ms']:.4f} by {row[p]['bound_by']})"
@@ -2135,41 +2268,17 @@ def bf16_path(dev, launches, reuse):
         return net.train(train)
 
     # 28. the bf16 instances on the real maps of one training step of each net
-    model = unet(dev)
-    coords, feats = collate(raw[0])
-    calls, grads, _ = capture_step(
-        sparse_convs(model), lambda: train_step(model, None, coords, feats, labels[0], dev)
-    )
-    if len(calls) != MIN_LAUNCHES or len(grads) != MIN_LAUNCHES:
-        raise AssertionError(f"captured {len(calls)} calls and {len(grads)} output gradients")
-    print(f"[28 bf16 kernels, MinkUNet34 training-step maps] {len(calls)} conv calls; "
+    steps = bf16_step_calls(dev, reuse)
+    print(f"[28 bf16 kernels, MinkUNet34 training-step maps] {len(steps['MinkUNet34'])} conv calls; "
           f"bf16 / plain / float32-instance ms, bound max(2 * pairs * Cin * Cout / "
           f"{BF16_PEAK / 1e12:.0f} TFLOP/s bf16, bytes / {HBM_RATE / 1e12:.2f} TB/s)")
-    unet_rows = []
-    for i, (m, inp, out) in enumerate(calls):
-        kmap = m._kernel_map(inp, out.coordinate_map_key)
-        unet_rows.append(bf16_rows(inp.F.detach(), m.kernel.detach(), grads[i].contiguous(),
-                                   kmap.in_idx, kmap.out_idx_t, f"call{i}",
-                                   with_dx=inp.F.requires_grad))
-    del calls, grads, model
+    unet_rows = [bf16_rows(*call) for call in steps["MinkUNet34"]]
     bf16_sums(unet_rows, "MinkUNet34")
-    fcnn = MinkowskiFCNN(3, CLASSES, device=dev, **FCNN_WIDTHS).train()
-    fcnn.load_state_dict(reuse["fcnn_init"])
-    set_dropout(fcnn, False)
-    calls, grads, _ = capture_step(
-        sparse_convs(fcnn), lambda: fcnn_step(fcnn, *reuse["shape_batch"], dev)
-    )
-    if len(calls) != FCNN_CONVS or len(grads) != FCNN_CONVS:
-        raise AssertionError(f"captured {len(calls)} calls and {len(grads)} output gradients")
-    print(f"[28 bf16 kernels, MinkowskiFCNN training-step maps] {len(calls)} conv calls")
-    fcnn_rows = []
-    for i, (m, inp, out) in enumerate(calls):
-        kmap = m._kernel_map(inp, out.coordinate_map_key)
-        fcnn_rows.append(bf16_rows(inp.F.detach(), m.kernel.detach(), grads[i].contiguous(),
-                                   kmap.in_idx, kmap.out_idx_t, f"fcnn{i}",
-                                   with_dx=inp.F.requires_grad))
-    del calls, grads, fcnn
+    print(f"[28 bf16 kernels, MinkowskiFCNN training-step maps] {len(steps['MinkowskiFCNN'])} "
+          "conv calls")
+    fcnn_rows = [bf16_rows(*call) for call in steps["MinkowskiFCNN"]]
     bf16_sums(fcnn_rows, "MinkowskiFCNN")
+    del steps
 
     # 29. inference on one scan in bf16, against the CPU plain path in bf16
     # and the card's float32 answer
@@ -2220,15 +2329,21 @@ def bf16_path(dev, launches, reuse):
             return loss.item(), out.F.dtype, len(coords), record, time.perf_counter() - t0
 
         (loss, dtype, n_vox, record, secs), n = counted(launches, one_step)
+        bodies = (dict(gather_gemm.bf16_body_launches), dict(conv_dw.bf16_body_launches))
         if step == 0:
             card0 = record
         print(f"[30 bf16 train] step {step}{' (warm-up)' if step == 0 else ''}: {n_vox} voxels, "
               f"{secs * 1e3:.2f} ms, {n_vox / secs:.0f} points/s, loss {loss:.6f}, "
               f"{n['gather_gemm_bf16']} bf16 gather_gemm and {n['conv_dw_bf16']} bf16 conv_dw "
-              f"launches, float32 instances {n['gather_gemm']} and {n['conv_dw']}")
+              f"launches, float32 instances {n['gather_gemm']} and {n['conv_dw']}; by body "
+              f"{bodies[0]} and {bodies[1]}")
         if (n["gather_gemm_bf16"], n["conv_dw_bf16"], n["gather_gemm"], n["conv_dw"]) != (
                 MIN_LAUNCHES + MIN_DX_LAUNCHES, MIN_LAUNCHES, 0, 0):
             raise AssertionError(f"step {step}: {n} launches")
+        # every call but the stem's (Cin = 3) on the wgmma bodies
+        if (bodies[0]["wgmma"], bodies[0]["simt"], bodies[1]["wgmma"], bodies[1]["stem_mma"]) != (
+                MIN_LAUNCHES - 1 + MIN_DX_LAUNCHES, 1, MIN_LAUNCHES - 1, 1):
+            raise AssertionError(f"step {step}: launches by body {bodies}")
         if dtype != torch.bfloat16 or not np.isfinite(loss):
             raise AssertionError(f"step {step}: logits {dtype}, loss {loss}")
     peak = torch.cuda.max_memory_allocated()
@@ -2283,6 +2398,10 @@ def bf16_path(dev, launches, reuse):
     if (n["gather_gemm_bf16"] < 2 * FCNN_CONVS or n["conv_dw_bf16"] != FCNN_CONVS
             or n["gather_gemm"] or n["conv_dw"]):
         raise AssertionError(f"FCNN bf16 step: {n} launches")
+    bodies = (dict(gather_gemm.bf16_body_launches), dict(conv_dw.bf16_body_launches))
+    print(f"  launches by body {bodies[0]} and {bodies[1]}")
+    if (bodies[0]["wgmma"], bodies[1]["wgmma"]) != (n["gather_gemm_bf16"], FCNN_CONVS):
+        raise AssertionError(f"FCNN bf16 step: launches by body {bodies}")  # Cin >= 32 throughout
     del net
     cpu_net = fcnn_bf16("cpu")
     coords, feats, lab = reuse["shape_batch"]
@@ -4186,6 +4305,122 @@ def dense_grid(dev, launches, reuse):
     return errors
 
 
+def step_inputs(dev):
+    """What phase 42 (and ``tools/bf16_step_times.py``) needs of phases 9
+    and 13, made from the same seeds: MinkUNet34's and MinkowskiFCNN's
+    initial weights, phase 9's first batch of two scans with its labels,
+    phase 13's first classification batch."""
+    unet = MinkUNet34(3, 20, D=3, generator=torch.Generator().manual_seed(0), device=dev)
+    fcnn = MinkowskiFCNN(3, CLASSES, generator=torch.Generator().manual_seed(0), device=dev,
+                         **FCNN_WIDTHS)
+    raw = [[scan(b) for b in range(BATCH)]]
+    return dict(
+        unet_init={k: v.detach().cpu().clone() for k, v in unet.state_dict().items()},
+        fcnn_init={k: v.detach().cpu().clone() for k, v in fcnn.state_dict().items()},
+        raw=raw, labels=[labels_for(0, len(collate(raw[0])[0]))],
+        shape_batch=shapes(0, CoordinateTransformation()),
+    )
+
+
+PARTS = (("fwd", "K1 forward"), ("dx", "K1 input gradient"), ("dw", "K2 weight gradient"))
+
+
+def redesign_table(rows):
+    """Phase 42's rows as a markdown table, one line per distinct conv
+    (K, Cin, Cout, rows in and out), each part's device ms the mean over
+    its calls: new body / PR 8 body, the bound, the new body's plan."""
+    groups = {}
+    for r in rows:
+        groups.setdefault((r["K"], r["cin"], r["cout"], r["n_in"], r["n_out"]), []).append(r)
+    lines = ["| conv (calls) | K1 fwd ms, new / PR 8 | K1 dX ms | K2 dW ms | bound ms, fwd / dX / dW"
+             " | host µs | body tile ring S, fwd; dX; dW |",
+             "| --- | --- | --- | --- | --- | --- | --- |"]
+    for (K, cin, cout, n_in, n_out), rs in groups.items():
+        def mean(p, key):
+            return sum(r[p][key] for r in rs) / len(rs)
+        parts = [p for p in ("fwd", "dx", "dw") if p in rs[0]]
+        cell = {p: f"{mean(p, 'ms'):.4f} / {mean(p, 'pr8_ms'):.4f}" if p in parts else "—"
+                for p in ("fwd", "dx", "dw")}
+        first = rs[0]
+        lines.append(
+            f"| K={K} {cin}→{cout}, {n_in}→{n_out} ({len(rs)}) | {cell['fwd']} | {cell['dx']} | "
+            f"{cell['dw']} | " + " / ".join(f"{mean(p, 'bound_ms'):.4f}" for p in parts)
+            + f" | {sum(mean(p, 'host_us') for p in parts) / len(parts):.0f} | "
+            + "; ".join(f"{first[p]['body']} {first[p]['tile']} {first[p]['stages']} "
+                        f"{first[p]['splits']}" for p in parts) + " |")
+    return "\n".join(lines)
+
+
+def bf16_redesign(dev, reuse):
+    """Phase 42: the bf16 bodies on every call of one bf16 MinkUNet34 and one
+    MinkowskiFCNN training step, timed on the device alone (``device_ms``).
+    Per call and part: the body and tiles the plan chose, its device ms and
+    the wrapper's host µs, beside the PR 8 bodies' device ms (``body=``:
+    the ``mma.sync`` body, or the SIMT stem, at their own plans), the
+    float32 instance's and the plain version's, and the bound; each call held
+    to its plain version, two launches bit-equal, and every call whose
+    kernel sees Cin > 4 on the ``wgmma`` body.  Returns the rows."""
+    start = time.perf_counter()
+    steps = bf16_step_calls(dev, reuse)
+    rows = []
+    for net, calls in steps.items():
+        print(f"[42 bf16 bodies, {net} training-step maps] {len(calls)} conv calls; device-only ms "
+              "(new body / PR 8 body / float32 instance / plain), bound, the wrapper's host µs "
+              "per call; the body, its tile (K1: rows x Cout, K2: Cin x Cout), ring and split S")
+        net_rows = []
+        for x, w, g, in_idx, out_idx_t, label, with_dx in calls:
+            K, cin, cout = w.shape
+            row = dict(net=net, label=label, K=K, cin=cin, cout=cout, n_in=x.shape[0],
+                       n_out=g.shape[0])
+            for p, (kernel, plain, args, args32, rtol, bound_ms, bound_by) in bf16_parts(
+                    x, w, g, in_idx, out_idx_t, with_dx).items():
+                tag = f"42 {net} {label} {p}"
+                got = kernel(*args)
+                plan = kernel.last_plan
+                k_cin = args[1].shape[1] if kernel is gather_gemm else args[0].shape[1]
+                if plan.body != ("wgmma" if k_cin > 4 else "simt" if kernel is gather_gemm
+                                 else "stem_mma"):
+                    raise AssertionError(f"{tag}: Cin {k_cin} took the {plan.body} body")
+                if not torch.equal(got, kernel(*args)):
+                    raise AssertionError(f"{tag}: two launches differ")
+                abs_err, rel = held(got, plain(*args), rtol, tag)
+                ms, host_us = device_ms(lambda: kernel(*args))
+                parent = "simt" if k_cin <= 4 else "mma"
+                # K1: output rows x Cout per block; K2: Cin x Cout
+                tile = ((plan.row_tile, plan.tile) if kernel is gather_gemm
+                        else (plan.cin_tile, plan.cout_tile))
+                row[p] = dict(
+                    body=plan.body, tile=f"{tile[0]}x{tile[1]}", stages=plan.stages,
+                    splits=plan.splits,
+                    max_abs_err=abs_err, max_rel_err=rel, ms=ms, host_us=host_us,
+                    pr8_ms=device_ms(lambda: kernel(*args, body=parent))[0],
+                    f32_ms=device_ms(lambda: kernel(*args32))[0],
+                    plain_ms=device_ms(lambda: plain(*args), graph=True)[0],
+                    bound_ms=bound_ms, bound_by=bound_by,
+                )
+            parts = "  ".join(
+                f"{p} {r['body']} {r['tile']} ring {r['stages']} S={r['splits']} "
+                f"{r['ms']:.4f}/{r['pr8_ms']:.4f}/{r['f32_ms']:.4f}/{r['plain_ms']:.4f} ms, "
+                f"bound {r['bound_ms']:.4f} ({r['bound_by']}), host {r['host_us']:.1f} us, "
+                f"err {r['max_rel_err']:.1e}"
+                for p in ("fwd", "dx", "dw") if p in row for r in (row[p],)
+            )
+            print(f"  {label:>9} K={K:<3} {cin:>3}->{cout:<3} rows {row['n_in']:>5}->"
+                  f"{row['n_out']:<5}  {parts}")
+            net_rows.append(row)
+        print(redesign_table(net_rows))
+        for p, name in PARTS:
+            got = [r[p] for r in net_rows if p in r]
+            print(f"  {net}, sum over one step, {name}: new body {sum(q['ms'] for q in got):.3f} "
+                  f"ms, PR 8 body {sum(q['pr8_ms'] for q in got):.3f} ms, float32 instance "
+                  f"{sum(q['f32_ms'] for q in got):.3f} ms, plain {sum(q['plain_ms'] for q in got):.3f}"
+                  f" ms, bound {sum(q['bound_ms'] for q in got):.4f} ms; host "
+                  f"{sum(q['host_us'] for q in got) / 1e3:.3f} ms")
+        rows += net_rows
+    print(f"[42] {time.perf_counter() - start:.1f} s")
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -4232,6 +4467,7 @@ def main() -> int:
     multi_errs = multi_process_examples(dev, launches)
     reuse["smi"] = smi
     dense_errs = dense_grid(dev, launches, reuse)
+    redesign = bf16_redesign(dev, reuse)
 
     bwd = (synth_bwd + real_bwd + fcnn_bwd + gen_rows + completion_bwd + vae_bwd + splat_bwd
            + shim_bwd + high_rows)
@@ -4243,16 +4479,18 @@ def main() -> int:
         "conv_dw": [r["dw"]["max_abs_err"] for r in bwd] + par_errs["conv_dw"]
         + example_errs["conv_dw"] + high_errs["conv_dw"] + multi_errs["conv_dw"]
         + [e[0] for e in dense_errs["conv_dw"]],
-        "gather_gemm_bf16": [r[p]["max_abs_err"] for r in bf16_bwd for p in ("fwd", "dx") if p in r]
+        "gather_gemm_bf16": [r[p]["max_abs_err"] for r in bf16_bwd + redesign
+                             for p in ("fwd", "dx") if p in r]
         + [e[0] for e in dense_errs.get("gather_gemm_bf16", [])],
-        "conv_dw_bf16": [r["dw"]["max_abs_err"] for r in bf16_bwd]
+        "conv_dw_bf16": [r["dw"]["max_abs_err"] for r in bf16_bwd + redesign]
         + [e[0] for e in dense_errs.get("conv_dw_bf16", [])],
     }
     # per training step of MinkUNet34, MinkowskiFCNN, CompletionNet, the VAE,
     # MinkowskiSplatFCNN and the 7-D U-Net, on their real maps
     sums = step_sums(real_bwd + fcnn_bwd + completion_bwd + vae_bwd + splat_bwd + high_rows)
-    # and per bf16 training step of MinkUNet34 and MinkowskiFCNN (phase 28)
-    sums16 = step_sums(bf16_bwd)
+    # and per bf16 training step of MinkUNet34 and MinkowskiFCNN, on the
+    # device alone (phase 42)
+    sums16 = step_sums(redesign)
     timing = {
         "gather_gemm": [a + b for a, b in zip(sums["fwd"], sums["dx"])],
         "conv_dw": sums["dw"],

@@ -33,7 +33,12 @@
 //     tensor cores in 3xTF32 (mma_tile.cuh), the reduction over the
 //     compacted rows in steps of 8, each tile into a zeroed fragment that
 //     is then added to the float32 accumulator;
-//   * bf16 (me_conv_dw_bf16): the same tiles, compaction and ring, with
+//   * bf16 (me_conv_dw_bf16, the mma.sync body; since the wgmma body and
+//     the mma.sync stem of conv_dw_wgmma.cu take every bf16 call with Cin
+//     and Cout multiples of 8 and aligned operands, and every bf16 call
+//     with Cin <= 4, this one serves the odd or unaligned widths, and the
+//     SIMT stem below the float32 instance, or a bf16 call that asks for
+//     it): the same tiles, compaction and ring, with
 //     copies of 8 elements (16 bytes), 2 (4 bytes) or 1 (plain loads, odd
 //     widths); both operands are stored along the compacted rows, which
 //     are the reduction's k, so both fragments come by ldmatrix.trans
@@ -56,8 +61,11 @@
 // for 2 Cin Cout useful flops, 3xTF32 triples the tensor-core work, and the
 // row split S (chosen by the caller so the grid fills the SMs) adds an
 // (S, K, Cin, Cout) workspace pass.  At Cin = 3 the staging and barriers of
-// the SIMT tiles bound it.  wgmma (needs both shared operands K-major; X^T
-// is not) and bf16 tile tuning are later work.
+// the SIMT tiles bound it.  wgmma for the float32 instance is later work:
+// its TF32 form takes only K-major shared operands, and X^T and G are
+// stored along the rows (MN-major).  The bf16 form takes MN-major operands
+// through its transpose bits, which the bf16 wgmma body
+// (conv_dw_wgmma.cu) uses.
 //
 // Plain C interface, launched on the caller's stream; returns cudaError_t.
 

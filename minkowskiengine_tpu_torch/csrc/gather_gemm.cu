@@ -27,7 +27,10 @@
 //     stage into a zeroed fragment that is then added to the float32
 //     accumulator; padded shared-memory rows keep the fragment loads free
 //     of bank conflicts;
-//   * bf16 (me_gather_gemm_bf16): the same tiles, ring and vote, with
+//   * bf16 (me_gather_gemm_bf16, the mma.sync body; since the wgmma body
+//     of gather_gemm_wgmma.cu takes every bf16 call with Cin and Cout
+//     multiples of 8 and 16-byte aligned operands, this one serves the odd
+//     or unaligned widths): the same tiles, ring and vote, with
 //     copies of 8 elements (16 bytes; Cin and Cout multiples of 8), 2
 //     (4 bytes; even widths) or 1 (plain loads: cp.async has no 2-byte
 //     form); fragments by ldmatrix, plain for the gathered X rows (Cin
@@ -51,9 +54,11 @@
 // costs the latency of its gathered rows (L2 hits) more than its 24 mma
 // per warp and k-step, so the ring depth and the blocks per SM, not the
 // tensor-core rate, bound it.  At 51k rows (S = 1) the gathers of X rows,
-// about 0.6 of the slots paired, bound it.  wgmma (needs K-major shared
-// operands; W[k] is (Cin, Cout) row-major), TMA and bf16 tile tuning (a
-// 64-wide Cin chunk would halve the stages) are later work.
+// about 0.6 of the slots paired, bound it.  wgmma for the float32
+// instance is later work: its TF32 form takes only K-major shared
+// operands, and W[k] is (Cin, Cout) row-major (MN-major as B).  The bf16
+// form takes MN-major operands through its transpose bits, which the bf16
+// wgmma body (gather_gemm_wgmma.cu) uses.
 //
 // Plain C interface, launched on the caller's stream; returns cudaError_t.
 

@@ -1,8 +1,9 @@
 // Building blocks shared by the sparse-convolution kernels (gather_gemm.cu,
-// conv_dw.cu): rows gathered by index into shared memory with cp.async,
-// float32 products on the tensor cores with 3xTF32, bf16 products with
-// ldmatrix and mma.sync m16n8k16, the compaction of an index column to its
-// paired rows, and the in-order sum over splits.
+// conv_dw.cu, and the bf16 bodies gather_gemm_wgmma.cu, conv_dw_wgmma.cu):
+// rows gathered by index into shared memory with cp.async, float32
+// products on the tensor cores with 3xTF32, bf16 products with ldmatrix and
+// mma.sync m16n8k16, the compaction of an index column to its paired rows,
+// and the in-order sum over splits.
 //
 // 3xTF32 ("fast f32"): each float32 operand a is split into
 // hi = tf32(a) and lo = tf32(a - hi), and a * b is taken as
@@ -141,6 +142,13 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// two 8 x 8 b16 matrices, each transposed; lanes 0-15 give the row addresses
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
                : "r"(smem_addr(p)));
 }
 

@@ -48,6 +48,12 @@ SIGNATURES = {
     #  cin_tile, cout_tile, vec, stream)
     "me_conv_dw_f32": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P], _I),
     "me_conv_dw_bf16": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P], _I),
+    # the bf16 bodies on wgmma: (x, w or g, idx, out, workspace, n_in, n_out,
+    # k_vol, cin, cout, splits, bn, bm (K1's row tile) or bc (K2's Cin tile),
+    # stream); the bf16 stem of K2: (..., splits, vec, stream)
+    "me_gather_gemm_bf16_wgmma": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P], _I),
+    "me_conv_dw_bf16_wgmma": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P], _I),
+    "me_conv_dw_bf16_stem": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P], _I),
 }
 
 _lib = None

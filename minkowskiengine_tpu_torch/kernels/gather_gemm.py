@@ -10,6 +10,10 @@ It replaces the JAX package's Pallas forward family behind
 which takes float32 or bf16 features.  The kernel has two instances: float32
 (3xTF32 tensor-core products) and bf16 (bf16 tensor-core products with a
 float32 sum, rounded to bf16 once at the end, as the Pallas body does).
+The plan picks the body from the shapes: bf16 calls with Cin and Cout
+multiples of 8 and 16-byte aligned operands run the ``wgmma`` body
+(``csrc/gather_gemm_wgmma.cu``); other Cin > 4 calls the ``mma.sync`` body
+(``"mma"``), Cin <= 4 the SIMT stem (``"simt"``).
 """
 
 from __future__ import annotations
@@ -20,10 +24,14 @@ import torch
 
 from . import build
 
-ROWS_PER_TILE = 64  # BM in csrc/gather_gemm.cu
-COUT_PER_TILE = 64  # BN
+ROWS_PER_TILE = 64  # BM in csrc/gather_gemm.cu and csrc/gather_gemm_wgmma.cu
+COUT_PER_TILE = 64  # BN of the mma.sync and SIMT bodies
+MMA_STAGES = 3  # the mma.sync bodies' ring
 BLOCKS_PER_SM = 2  # blocks per SM the offset split aims for
 WORKSPACE_CAP = 16 * 2**20  # bytes of (S, N_out, Cout) partials: stays in the 50 MB L2
+# the wgmma bodies' Cout tiles (wgmma N), K1's and K2's alike
+WGMMA_TILES = (16, 32, 48, 64, 96, 128, 192, 256)
+BODIES = ("wgmma", "mma", "simt")
 
 
 class Plan(NamedTuple):
@@ -34,10 +42,48 @@ class Plan(NamedTuple):
     # elements per cp.async copy: float32 4 (16 bytes) or 1 (4 bytes); bf16 8
     # (16 bytes), 2 (4 bytes) or 1 (plain 2-byte loads, odd widths)
     vec: int
-    body: str  # "mma" (tensor cores) or "simt" (Cin <= 4, the stem)
+    # "wgmma" (bf16, Hopper's warpgroup products), "mma" (mma.sync tensor
+    # cores) or "simt" (Cin <= 4, the stem)
+    body: str
+    tile: int = COUT_PER_TILE  # output channels per block (BN)
+    stages: int = MMA_STAGES  # the ring's depth (the SIMT stem stages one tile at a time: 1)
+    row_tile: int = ROWS_PER_TILE  # output rows per block: 64, or 128 (two warpgroups)
 
     def workspace_bytes(self, n_out: int, cout: int) -> int:
         return 4 * self.splits * n_out * cout if self.splits > 1 else 0
+
+
+def wgmma_tile(cout: int) -> int:
+    """The wgmma bodies' Cout tile: the fewest tiles of at most 256
+    channels, each rounded up to the next of ``WGMMA_TILES`` (96 -> one
+    96-wide tile, 336 -> two of 192, 1024 -> four of 256)."""
+    per_tile = -(-cout // -(-cout // WGMMA_TILES[-1]))
+    return next(t for t in WGMMA_TILES if t >= per_tile)
+
+
+def wgmma_stages(tile: int, row_tile: int = ROWS_PER_TILE) -> int:
+    """The K1 wgmma body's ring depth (``WTile::STAGES`` in
+    csrc/gather_gemm_wgmma.cu): as many stages of row_tile x 64 X and
+    64 x tile W[k] bf16 as fit beside the staged indices in the shared
+    memory of two blocks an SM (one warpgroup, tile <= 128) or one, at
+    most 8."""
+    fixed = 1024 + (32 * row_tile + 2 * 32 + 4) * 4
+    limit = (113 if wgmma_blocks_per_sm(tile, row_tile) == 2 else 227) * 1024
+    return min(8, (limit - fixed) // (row_tile * 128 + tile * 128))
+
+
+def wgmma_row_tile(tile: int) -> int:
+    """Output rows per block of the K1 wgmma body: 128 for Cout tiles of 96
+    and more (two warpgroups share each stage's W[k] chunk, which is then
+    read from L2 half as often per row; W[k] outweighs the X rows there),
+    else 64."""
+    return 128 if tile >= 96 else ROWS_PER_TILE
+
+
+def wgmma_blocks_per_sm(tile: int, row_tile: int) -> int:
+    """Blocks of the K1 wgmma body an SM holds (``WTile::LIMIT``): two of
+    one warpgroup for Cout tiles up to 128, else one."""
+    return 2 if row_tile == ROWS_PER_TILE and tile <= 128 else 1
 
 
 def copy_width(cin: int, cout: int, aligned: bool, bf16: bool) -> int:
@@ -52,22 +98,49 @@ def copy_width(cin: int, cout: int, aligned: bool, bf16: bool) -> int:
     return 1
 
 
+def choose_body(cin: int, vec: int, bf16: bool, body: str | None) -> str:
+    """The body for these widths: Cin <= 4 the SIMT stem; bf16 with 16-byte
+    copies (Cin and Cout multiples of 8, aligned operands) ``wgmma``; else
+    ``mma``.  ``body`` asks for one, which must take the shapes."""
+    best = "simt" if cin <= 4 else "wgmma" if bf16 and vec == 8 else "mma"
+    if body is None:
+        return best
+    if body not in BODIES or (body == "simt") != (cin <= 4) or (
+            body == "wgmma" and best != "wgmma"):
+        raise ValueError(f"the {body!r} body does not take Cin {cin}, copy width {vec}"
+                         f"{', bf16' if bf16 else ', float32'}")
+    return body
+
+
 def plan(n_out: int, k_vol: int, cin: int, cout: int, sms: int, aligned: bool = True,
-         bf16: bool = False) -> Plan:
-    """The offset split: when the row x Cout tiles number fewer than
-    ``BLOCKS_PER_SM`` per SM, each block takes a contiguous range of
-    offsets, enough ranges to fill the SMs, no more than ``k_vol``, and no
-    more than keep the float32 workspace within ``WORKSPACE_CAP``.
-    ``aligned``: both input pointers are 16-byte aligned; ``bf16``: the
-    bf16 instance."""
+         bf16: bool = False, body: str | None = None) -> Plan:
+    """The body and its Cout tile and ring (``choose_body``; the wgmma
+    body's tiles from ``wgmma_tile`` and ``wgmma_row_tile``), and the
+    offset split: when the row x Cout tiles number fewer than
+    ``BLOCKS_PER_SM`` per SM (the wgmma body: than the blocks the SMs
+    hold), each block takes a contiguous range of offsets, enough ranges to
+    fill the SMs (the wgmma body: no more than fill them once), no more
+    than ``k_vol``, and no more than keep the float32 workspace within
+    ``WORKSPACE_CAP``.  ``aligned``: both input pointers are 16-byte
+    aligned; ``bf16``: the bf16 instance; ``body``: a body to take in place
+    of the plan's choice (to compare bodies)."""
+    vec = copy_width(cin, cout, aligned, bf16)
+    body = choose_body(cin, vec, bf16, body)
     tiles = -(-n_out // ROWS_PER_TILE) * -(-cout // COUT_PER_TILE)
     want = -(-BLOCKS_PER_SM * sms // tiles)
+    tile, row_tile = COUT_PER_TILE, ROWS_PER_TILE
+    stages = 1 if body == "simt" else MMA_STAGES
+    if body == "wgmma":  # as many ranges as fill one wave of the blocks the SMs hold
+        tile = wgmma_tile(cout)
+        row_tile = wgmma_row_tile(tile)
+        stages = wgmma_stages(tile, row_tile)
+        tiles = -(-n_out // row_tile) * -(-cout // tile)
+        want = max(1, wgmma_blocks_per_sm(tile, row_tile) * sms // tiles)
     fit = WORKSPACE_CAP // (4 * n_out * cout)
     splits = max(1, min(k_vol, want, fit))
     per = -(-k_vol // splits)
     splits = -(-k_vol // per)  # no empty range
-    vec = copy_width(cin, cout, aligned, bf16)
-    return Plan(splits, per, vec, "simt" if cin <= 4 else "mma")
+    return Plan(splits, per, vec, body, tile, stages, row_tile)
 
 
 def gather_gemm_reference(x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -111,7 +184,8 @@ def _check(x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor) -> None:
         raise TypeError(f"idx must be int32, got {idx.dtype}")
 
 
-def gather_gemm(x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+def gather_gemm(x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor, *,
+                body: str | None = None) -> torch.Tensor:
     """``out[o, :] = Σ_k x[idx[k, o], :] @ w[k]`` with -1 = no pair.
 
     Args:
@@ -119,13 +193,17 @@ def gather_gemm(x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor) -> torch.Te
         plain version is type-generic), for checks against a float64 run.
       w: (K, Cin, Cout), of x's type.
       idx: (K, N_out) int32.
+      body: on the card, a body to run in place of the plan's choice
+        (``"wgmma"``, ``"mma"`` or ``"simt"``), to compare bodies on the
+        same inputs; it must take the shapes.  The CPU ignores it.
 
     Returns (N_out, Cout) of x's type; bf16 is summed in float32 and rounded
     once.  ``gather_gemm.launches`` counts the float32 instance's launches
-    and ``gather_gemm.bf16_launches`` the bf16 instance's (CPU calls run the
-    plain version and count nothing); ``gather_gemm.last_plan`` is the
-    ``Plan`` of the last launch.  Two launches on the same inputs give the
-    same bits.
+    and ``gather_gemm.bf16_launches`` the bf16 instance's, and
+    ``gather_gemm.bf16_body_launches`` the bf16 launches by body (CPU calls
+    run the plain version and count nothing); ``gather_gemm.last_plan`` is
+    the ``Plan`` of the last launch.  Two launches on the same inputs give
+    the same bits.
     """
     _check(x, w, idx)
     if x.device.type == "cpu":
@@ -148,22 +226,24 @@ def gather_gemm(x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor) -> torch.Te
         return out
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     aligned = x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
-    p = plan(n_out, k_vol, cin, cout, sms, aligned, bf16)
+    p = plan(n_out, k_vol, cin, cout, sms, aligned, bf16, body)
     ws = None
     if p.splits > 1:  # per-range partial tiles, summed in order by a second pass
         ws = torch.empty((p.splits, n_out, cout), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         lib = build.library()
-        err = (lib.me_gather_gemm_bf16 if bf16 else lib.me_gather_gemm_f32)(
-            x.data_ptr(), w.data_ptr(), idx.data_ptr(), out.data_ptr(),
-            None if ws is None else ws.data_ptr(),
-            n_in, n_out, k_vol, cin, cout, p.splits, p.vec, stream,
-        )
+        args = (x.data_ptr(), w.data_ptr(), idx.data_ptr(), out.data_ptr(),
+                None if ws is None else ws.data_ptr(), n_in, n_out, k_vol, cin, cout, p.splits)
+        if p.body == "wgmma":
+            err = lib.me_gather_gemm_bf16_wgmma(*args, p.tile, p.row_tile, stream)
+        else:
+            err = (lib.me_gather_gemm_bf16 if bf16 else lib.me_gather_gemm_f32)(*args, p.vec, stream)
     if err != 0:
         raise RuntimeError(f"gather_gemm kernel launch failed: cudaError {err} ({p})")
     if bf16:
         gather_gemm.bf16_launches += 1
+        gather_gemm.bf16_body_launches[p.body] += 1
     else:
         gather_gemm.launches += 1
     gather_gemm.last_plan = p
@@ -172,4 +252,5 @@ def gather_gemm(x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor) -> torch.Te
 
 gather_gemm.launches = 0
 gather_gemm.bf16_launches = 0
+gather_gemm.bf16_body_launches = dict.fromkeys(BODIES, 0)
 gather_gemm.last_plan = None

@@ -16,8 +16,10 @@ from minkowskiengine_tpu_torch.coords.kernel_map import _invert_matching
 from minkowskiengine_tpu_torch.kernels.conv_dw import conv_dw, conv_dw_reference, plan
 from minkowskiengine_tpu_torch.kernels.gather_gemm import gather_gemm
 from minkowskiengine_tpu_torch.ops.functional import sparse_conv
+from test_torch_kernel_plans import STEP_CONVS
 
 pytestmark = pytest.mark.cuda
+STEP_IDS = [f"k{k}-{ci}to{co}-{a}to{b}" for k, ci, co, a, b in STEP_CONVS]
 
 DW_RTOL = 1e-4
 
@@ -80,6 +82,7 @@ CLASSIFICATION_CONVS = [
     (1, 64, 64, 9538, 3012), (1, 64, 128, 3012, 1142), (1, 128, 256, 1142, 262),
     (1, 256, 512, 262, 246),
 ]
+CLASSIFICATION_IDS = [f"k{k}-{ci}to{co}-{a}to{b}" for k, ci, co, a, b in CLASSIFICATION_CONVS]
 
 
 @pytest.mark.parametrize(
@@ -287,8 +290,11 @@ def test_splat_map(dev):
 @pytest.mark.parametrize(
     "K,n_in,n_out,cin,cout",
     [
-        (125, 3000, 3000, 3, 32),      # the stem: bf16 loads, float32 FMAs
-        (27, 700, 650, 256, 256),
+        (125, 3000, 3000, 3, 32),      # the stem: mma.sync, G by 16-byte copies
+        (27, 2000, 2000, 1, 16),       # Cin = 1
+        (27, 2000, 2000, 4, 70),       # the stem with G by 4-byte copies
+        (27, 2000, 2000, 3, 33),       # the stem with G by plain loads
+        (27, 700, 650, 256, 256),      # two warpgroups of 128 columns
         (27, 20000, 20000, 96, 96),    # many rows: the row split, ragged Cout tile
         (8, 300, 1200, 128, 96),
         (27, 47834, 27633, 336, 256),  # FCNN conv5a: Cin 336
@@ -297,6 +303,10 @@ def test_splat_map(dev):
         (27, 1500, 1700, 6, 70),       # even widths: 4-byte copies
         (27, 1500, 1700, 5, 70),       # odd Cin: plain loads
         (8, 1500, 1700, 96, 33),       # odd Cout: plain loads
+        (27, 1500, 1700, 64, 8),       # Cout 8: a 16-wide tile
+        (27, 2000, 2000, 128, 192),    # Cout 192: two warpgroups of 96
+        (27, 3000, 2500, 96, 336),     # Cout 336: two 192-wide tiles, the second ragged
+        (27, 3000, 2500, 256, 512),    # Cout 512
         (4, 10, 0, 8, 8),
     ],
 )
@@ -312,10 +322,13 @@ def test_bf16_kernel_matches_plain(dev, K, n_in, n_out, cin, cout):
     if n_out:
         assert _rel(got, want) <= DW_RTOL
         p = conv_dw.last_plan
-        assert p.body == ("simt" if cin <= 4 else "mma")
         if cin > 4:
             want_vec = 8 if cin % 8 == 0 and cout % 8 == 0 else 2 if cin % 2 == 0 and cout % 2 == 0 else 1
             assert p.vec == want_vec
+            assert p.body == ("wgmma" if want_vec == 8 else "mma")
+        else:  # G's copy width
+            assert p.body == "stem_mma"
+            assert p.vec == (8 if cout % 8 == 0 else 2 if cout % 2 == 0 else 1)
         if (n_out, cin, cout) == (20000, 96, 96):
             assert p.splits > 1
     else:
@@ -323,10 +336,70 @@ def test_bf16_kernel_matches_plain(dev, K, n_in, n_out, cin, cout):
 
 
 def test_bf16_two_launches_are_bit_equal(dev):
-    for shape in [(27, 20000, 20000, 96, 96), (125, 3000, 3000, 3, 32)]:
+    for shape, bodies in [((27, 20000, 20000, 96, 96), ("wgmma", "mma")),
+                          ((125, 3000, 3000, 3, 32), ("stem_mma", "simt")),
+                          ((27, 2000, 2000, 128, 256), ("wgmma",))]:
         x, go, idx = _inputs(dev, *shape)
         x, go = x.bfloat16(), go.bfloat16()
-        assert torch.equal(conv_dw(x, go, idx), conv_dw(x, go, idx))
+        for body in bodies:
+            assert torch.equal(conv_dw(x, go, idx, body=body), conv_dw(x, go, idx, body=body))
+
+
+def test_bf16_pairless_and_out_of_range_rows_add_nothing(dev):
+    """The wgmma body and the stem: a whole stage of pairless rows, indices
+    >= N_in and a map with no pair at all, as the float32 instance."""
+    for cin in (16, 3):
+        x, go, idx = _inputs(dev, 8, 100, 200, cin, 16)
+        x, go = x.bfloat16(), go.bfloat16()
+        idx[:, :64] = -1           # a whole chunk with no pair: skipped
+        idx[:, 64] = 100           # outside [0, n_in): gathers zero
+        idx[2, 65:70] = 1 << 30
+        got = conv_dw(x, go, idx)
+        assert conv_dw.last_plan.body == ("wgmma" if cin > 4 else "stem_mma")
+        idx[2, 65:70] = -1
+        want = conv_dw_reference(x, go[65:].contiguous(), idx[:, 65:].contiguous())
+        assert _rel(got, want) <= DW_RTOL
+        empty = torch.full((3, 130), -1, dtype=torch.int32, device=dev)
+        assert torch.all(conv_dw(x, go[:130].contiguous(), empty) == 0)
+
+
+@pytest.mark.parametrize("case", ["all_pairless", "last_tile_only", "straddle"])
+def test_bf16_row_compaction_edges(dev, case):
+    """The wgmma body's 64-row stages at the edges of the compaction: no
+    pair, a partial last stage only, pairs straddling two row splits."""
+    K, n, cin, cout = 4, 3000, 64, 96
+    x, go, idx = _inputs(dev, K, n, n, cin, cout, density=1.0)
+    x, go = x.bfloat16(), go.bfloat16()
+    if case == "all_pairless":
+        idx[:] = -1
+    elif case == "last_tile_only":
+        idx[:, :-5] = -1
+    else:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        splits = plan(K, cin, cout, n, sms, bf16=True).splits
+        assert splits > 1
+        per = -(-n // 256 // splits) * 256  # rows per split (csrc/conv_dw_wgmma.cu)
+        idx[:] = -1
+        idx[:, per - 37: per + 41] = torch.arange(78, device=dev, dtype=torch.int32)
+    got = _check(x, go, idx)
+    assert conv_dw.last_plan.body == "wgmma"
+    if case == "all_pairless":
+        assert torch.all(got == 0)
+
+
+@pytest.mark.parametrize("K,cin,cout,n_in,n_out", STEP_CONVS + CLASSIFICATION_CONVS,
+                         ids=STEP_IDS + CLASSIFICATION_IDS)
+def test_bf16_step_convs_weight_gradient(dev, K, cin, cout, n_in, n_out):
+    """Every distinct conv of a MinkUNet34 and a MinkowskiFCNN step in bf16:
+    the weight gradient on the wgmma body (the Cin = 3 stem on mma.sync),
+    against plain."""
+    in_idx, _ = _matching(dev, K, n_in, n_out)
+    g = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn(n_in, cin, device=dev, generator=g).bfloat16()
+    go = torch.randn(n_out, cout, device=dev, generator=g).bfloat16()
+    got = conv_dw(x, go, in_idx)
+    assert conv_dw.last_plan.body == ("stem_mma" if cin <= 4 else "wgmma")
+    assert _rel(got, conv_dw_reference(x, go, in_idx)) <= DW_RTOL
 
 
 def test_bf16_sparse_conv_grads(dev):

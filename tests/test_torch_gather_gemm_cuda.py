@@ -15,8 +15,10 @@ import torch
 from minkowskiengine_tpu_torch.coords.kernel_map import _invert_matching
 from minkowskiengine_tpu_torch.kernels.gather_gemm import gather_gemm, gather_gemm_reference
 from minkowskiengine_tpu_torch.ops.functional import sparse_conv
+from test_torch_kernel_plans import STEP_CONVS
 
 pytestmark = pytest.mark.cuda
+STEP_IDS = [f"k{k}-{ci}to{co}-{a}to{b}" for k, ci, co, a, b in STEP_CONVS]
 
 
 @pytest.fixture
@@ -263,20 +265,32 @@ def test_splat_map_forward_and_input_gradient(dev):
 # rounding boundary may land one ulp apart.
 BF16_RTOL = 2.0**-7
 
-# (K, rows in, rows out, Cin, Cout, copy width or None for the stem)
+# (K, rows in, rows out, Cin, Cout, copy width or None for the stem); the
+# wgmma body takes every case with 16-byte copies, the mma.sync body the
+# even (4-byte) and odd (plain-load) widths
 BF16_CASES = [
     (125, 1000, 1000, 3, 32, None),    # the stem: bf16 loads, float32 FMAs
-    (27, 700, 650, 96, 96, 8),         # ragged Cout tile, rows not a multiple of 64
+    (27, 700, 650, 96, 96, 8),         # one 96-wide tile, rows not a multiple of 64
     (8, 300, 1200, 256, 128, 8),       # transposed conv: more outputs than inputs
-    (27, 3012, 1142, 336, 48, 8),      # Cin 336: a ragged last chunk; Cout 48: a padded tile
-    (27, 9538, 3012, 512, 1024, 8),    # FCNN conv5c: Cout 1024
+    (27, 3012, 1142, 336, 48, 8),      # Cin 336: a ragged last chunk; Cout 48: a 48-wide tile
+    (27, 9538, 3012, 512, 1024, 8),    # FCNN conv5c: Cout 1024, four 256-wide tiles
     (27, 27633, 9538, 48, 64, 8),      # FCNN conv2: Cin 48
+    (27, 900, 700, 64, 8, 8),          # Cout 8: a 16-wide tile, half of it past Cout
+    (27, 900, 700, 128, 192, 8),       # Cout 192
+    (27, 900, 700, 128, 256, 8),       # Cout 256: one tile
+    (27, 900, 700, 96, 336, 8),        # Cout 336: two 192-wide tiles, the second ragged
+    (27, 2000, 1500, 256, 512, 8),     # Cout 512: two tiles
+    (125, 700, 700, 40, 24, 8),        # K = 125: four groups of staged offsets
     (27, 800, 700, 6, 70, 2),          # even widths: 4-byte copies
     (27, 800, 700, 5, 64, 1),          # odd Cin: plain loads
     (8, 600, 500, 64, 33, 1),          # odd Cout: plain loads
     (1, 5, 3, 5, 70, 1),
     (4, 10, 0, 8, 8, 8),               # no output rows
 ]
+
+
+def _bf16_body(cin, vec):
+    return "simt" if cin <= 4 else "wgmma" if vec == 8 else "mma"
 
 
 @pytest.mark.parametrize("K,n_in,n_out,cin,cout,vec", BF16_CASES)
@@ -292,7 +306,7 @@ def test_bf16_kernel_matches_plain(dev, K, n_in, n_out, cin, cout, vec):
         assert _rel(got.float(), want.float()) <= BF16_RTOL
         assert gather_gemm.bf16_launches == before + 1 and gather_gemm.launches == f32_before
         p = gather_gemm.last_plan
-        assert p.body == ("simt" if cin <= 4 else "mma")
+        assert p.body == _bf16_body(cin, vec)
         if vec is not None:
             assert p.vec == vec
 
@@ -303,7 +317,7 @@ def test_bf16_offset_split_rounds_once(dev, K, n, cin, cout):
     x, w, idx = _inputs(dev, K, n, n, cin, cout, density=0.4)
     x, w = x.bfloat16(), (w / (K * cin) ** 0.5).bfloat16()
     got = gather_gemm(x, w, idx)
-    assert gather_gemm.last_plan.splits > 1
+    assert gather_gemm.last_plan.splits > 1 and gather_gemm.last_plan.body == "wgmma"
     assert _rel(got.float(), gather_gemm_reference(x, w, idx).float()) <= BF16_RTOL
 
 
@@ -314,17 +328,69 @@ def test_bf16_four_byte_copies_from_an_unaligned_view(dev):
     xu = flat[2:].view(500, 8)  # 4 bytes past a 16-byte boundary
     assert xu.data_ptr() % 16 != 0 and xu.data_ptr() % 4 == 0
     wb = w.bfloat16()
-    for xb, vec in ((xv, 8), (xu, 2)):
+    for xb, vec, body in ((xv, 8, "wgmma"), (xu, 2, "mma")):
         got = gather_gemm(xb, wb, idx)
-        assert gather_gemm.last_plan.vec == vec
+        assert gather_gemm.last_plan.vec == vec and gather_gemm.last_plan.body == body
         assert _rel(got.float(), gather_gemm_reference(xb, wb, idx).float()) <= BF16_RTOL
 
 
 def test_bf16_two_launches_are_bit_equal(dev):
-    for shape in [(27, 618, 618, 384, 256), (27, 5000, 5000, 96, 96), (125, 2000, 2000, 3, 32)]:
+    for shape in [(27, 618, 618, 384, 256), (27, 5000, 5000, 96, 96), (125, 2000, 2000, 3, 32),
+                  (27, 3000, 2000, 256, 1024)]:
         x, w, idx = _inputs(dev, *shape)
         x, w = x.bfloat16(), w.bfloat16()
-        assert torch.equal(gather_gemm(x, w, idx), gather_gemm(x, w, idx))
+        for body in ("simt",) if shape[3] <= 4 else ("wgmma", "mma"):
+            assert torch.equal(gather_gemm(x, w, idx, body=body), gather_gemm(x, w, idx, body=body))
+
+
+def test_bf16_rows_without_pairs_and_out_of_range_are_zero(dev):
+    """The wgmma body: a row tile whose offsets are all -1 (every offset
+    voted out), indices >= N_in (zero rows), as the float32 instance."""
+    x, w, idx = _inputs(dev, 8, 100, 200, 16, 16)
+    x, w = x.bfloat16(), w.bfloat16()
+    idx[:, :64] = -1           # a whole tile with no pair: every offset skipped
+    idx[:, 64] = 100           # outside [0, n_in): gathers zero
+    idx[3, 65:70] = 1 << 30
+    got = gather_gemm(x, w, idx)
+    assert gather_gemm.last_plan.body == "wgmma"
+    assert torch.all(got[:65] == 0)
+    assert _rel(got.float(), gather_gemm_reference(x, w, idx).float()) <= BF16_RTOL
+
+
+@pytest.mark.parametrize("K,n,cin,cout", [(27, 5000, 96, 96), (27, 618, 256, 256),
+                                          (27, 3000, 336, 48)])
+def test_bf16_mma_body_on_request_matches_the_wgmma_body(dev, K, n, cin, cout):
+    """The PR 8 mma.sync body, asked for by ``body=``, on the shapes the plan
+    gives the wgmma body: both within one bf16 ulp of plain."""
+    x, w, idx = _inputs(dev, K, n, n, cin, cout)
+    x, w = x.bfloat16(), (w / (K * cin) ** 0.5).bfloat16()
+    want = gather_gemm_reference(x, w, idx).float()
+    for body in ("wgmma", "mma"):
+        assert _rel(gather_gemm(x, w, idx, body=body).float(), want) <= BF16_RTOL
+        assert gather_gemm.last_plan.body == body
+    with pytest.raises(ValueError):
+        gather_gemm(x[:, :cin - 1].contiguous(), w[:, :cin - 1].contiguous(), idx, body="wgmma")
+
+
+@pytest.mark.parametrize("K,cin,cout,n_in,n_out", STEP_CONVS + CLASSIFICATION_CONVS,
+                         ids=STEP_IDS + CLASSIFICATION_IDS)
+def test_bf16_step_convs_forward_and_input_gradient(dev, K, cin, cout, n_in, n_out):
+    """Every distinct conv of a MinkUNet34 and a MinkowskiFCNN step in bf16:
+    the forward on the wgmma body (the Cin = 3 stem on SIMT) and the input
+    gradient on the wgmma body, each within one bf16 ulp of plain."""
+    in_idx, out_idx_t = _matching(dev, K, n_in, n_out)
+    g = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn(n_in, cin, device=dev, generator=g).bfloat16()
+    w = (torch.randn(K, cin, cout, device=dev, generator=g) / (K * cin) ** 0.5).bfloat16()
+    go = torch.randn(n_out, cout, device=dev, generator=g).bfloat16()
+    got = gather_gemm(x, w, in_idx)
+    assert gather_gemm.last_plan.body == ("simt" if cin <= 4 else "wgmma")
+    assert _rel(got.float(), gather_gemm_reference(x, w, in_idx).float()) <= BF16_RTOL
+    if cin > 4:  # the stem's input takes no gradient
+        wt = w.transpose(1, 2).contiguous()
+        got = gather_gemm(go, wt, out_idx_t)
+        assert gather_gemm.last_plan.body == "wgmma"
+        assert _rel(got.float(), gather_gemm_reference(go, wt, out_idx_t).float()) <= BF16_RTOL
 
 
 def test_bf16_rejects_mixed_and_half(dev):

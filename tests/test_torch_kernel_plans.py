@@ -193,13 +193,142 @@ def test_bf16_copy_widths(cin, cout, aligned, vec):
 
 
 def test_bf16_plans_keep_the_tiles_and_splits():
-    """Only the copy width depends on the dtype: S, the offset ranges, the
-    tiles and the body are those of the float32 instance on the same
-    shapes (the workspace stays float32)."""
-    for args in [(125, 27, 384, 256), (51000, 27, 96, 96), (618, 8, 128, 256), (3000, 125, 3, 32)]:
-        a, b = gg.plan(*args, SMS), gg.plan(*args, SMS, bf16=True)
+    """The bf16 ``mma.sync`` body (taken for odd or unaligned widths, or
+    asked for) keeps the float32 instance's plan on the same shapes: S, the
+    offset ranges and the tiles; only the copy width depends on the dtype
+    (the workspace stays float32).  The wgmma bodies' plans are pinned by
+    ``test_bf16_wgmma_plans``."""
+    for args in [(125, 27, 384, 256), (51000, 27, 96, 96), (618, 8, 128, 256)]:
+        a = gg.plan(*args, SMS)
+        b = gg.plan(*args, SMS, bf16=True, body="mma")
         assert a._replace(vec=0) == b._replace(vec=0)
-    for args in [(27, 96, 96, 20000), (27, 384, 256, 618), (125, 3, 32, 3000), (27, 16, 16, 4716408)]:
-        a, b = dw.plan(*args, SMS), dw.plan(*args, SMS, bf16=True)
+    a, b = gg.plan(3000, 27, 64, 33, SMS), gg.plan(3000, 27, 64, 33, SMS, bf16=True)
+    assert b.body == "mma" and a._replace(vec=0) == b._replace(vec=0)
+    for args in [(27, 96, 96, 20000), (27, 384, 256, 618), (27, 16, 16, 4716408)]:
+        a = dw.plan(*args, SMS)
+        b = dw.plan(*args, SMS, bf16=True, body="mma")
         assert a._replace(vec=0) == b._replace(vec=0)
+    a, b = dw.plan(27, 96, 33, 20000, SMS), dw.plan(27, 96, 33, 20000, SMS, bf16=True)
+    assert b.body == "mma" and a._replace(vec=0) == b._replace(vec=0)
+    assert dw.plan(125, 3, 32, 3000, SMS, bf16=True, body="simt") == dw.plan(125, 3, 32, 3000, SMS)
     assert gg.plan(3000, 125, 3, 32, SMS, bf16=True).body == "simt"
+
+
+BF16_CONVS = STEP_CONVS + CLASSIFICATION_CONVS
+BF16_IDS = [f"k{k}-{ci}to{co}-{n_in}to{n_out}" for k, ci, co, n_in, n_out in BF16_CONVS]
+
+
+def _check_wgmma_offset_split(n_out, k_vol, cin, cout):
+    """K1's bf16 plan on one call: the SIMT stem for Cin <= 4, else the wgmma
+    body with a Cout tile of at most 256 that covers Cout <= 256 at once,
+    its ring, and an offset split that fills the card within the cap."""
+    p = gg.plan(n_out, k_vol, cin, cout, SMS, bf16=True)
+    if cin <= 4:
+        assert (p.body, p.tile, p.stages) == ("simt", 64, 1)
+        return p
+    assert p.body == "wgmma" and p.vec == 8
+    assert p.tile in gg.WGMMA_TILES and p.tile % 16 == 0
+    n_tiles = -(-cout // p.tile)
+    assert n_tiles == -(-cout // 256)  # X gathered once per row tile for Cout <= 256
+    assert n_tiles * p.tile - cout < 64  # padding less than one 64-wide step
+    # two warpgroups share each stage's W[k] chunk where it outweighs the X rows
+    assert p.row_tile == (128 if p.tile >= 96 else 64)
+    tiles = -(-n_out // p.row_tile) * n_tiles
+    assert p.stages == gg.wgmma_stages(p.tile, p.row_tile) and 4 <= p.stages <= 8
+    assert 1 <= p.splits <= k_vol
+    assert p.offsets_per_split * (p.splits - 1) < k_vol <= p.offsets_per_split * p.splits
+    assert p.workspace_bytes(n_out, cout) <= gg.WORKSPACE_CAP
+    # the split fills the SMs' blocks once at most: no second wave of a few blocks
+    held = gg.wgmma_blocks_per_sm(p.tile, p.row_tile) * SMS
+    assert tiles * p.splits <= max(tiles, held)
+    capped = 4 * (p.splits + 1) * n_out * cout > gg.WORKSPACE_CAP
+    more = -(-k_vol // (p.offsets_per_split - 1)) if p.offsets_per_split > 1 else k_vol + 1
+    assert tiles * more > held or p.splits == k_vol or capped  # the next split would overflow
+    if tiles >= held:
+        assert p.splits == 1
+    return p
+
+
+@pytest.mark.parametrize("k_vol,cin,cout,n_in,n_out", BF16_CONVS, ids=BF16_IDS)
+def test_bf16_wgmma_plans(k_vol, cin, cout, n_in, n_out):
+    """Every distinct conv of a MinkUNet34 and a MinkowskiFCNN step in bf16:
+    the forward and the input gradient (Cin and Cout swapped, rows out at
+    n_in) on K1's wgmma body, the weight gradient on K2's (or the stem's
+    mma.sync body), their tiles, rings, splits and workspaces."""
+    fwd = _check_wgmma_offset_split(n_out, k_vol, cin, cout)
+    checked = [(n_out, fwd)]
+    if cin > 4:  # the stem's input (the features) takes no gradient
+        checked.append((n_in, _check_wgmma_offset_split(n_in, k_vol, cout, cin)))
+    for n, p in checked:
+        if n >= 51028:
+            assert p.splits == 1
+        if n <= 618 and k_vol > 1 and p.body == "wgmma":
+            assert p.splits > 1  # the deep levels, fewer tiles than with 64-wide ones
+    p = dw.plan(k_vol, cin, cout, n_out, SMS, bf16=True)
+    scans = -(-n_out // dw.ROWS_PER_SCAN)
+    assert 1 <= p.splits <= scans
+    assert p.workspace_bytes(k_vol, cin, cout) <= dw.WORKSPACE_CAP
+    capped = 4 * (p.splits + 1) * k_vol * cin * cout > dw.WORKSPACE_CAP
+    assert p.blocks(k_vol, cin, cout) * p.splits >= SMS or p.splits == scans or capped
+    if cin <= 4:
+        assert (p.body, p.cin_tile, p.cout_tile, p.vec, p.stages) == ("stem_mma", 8, 64, 8, 4)
+    else:
+        assert (p.body, p.vec) == ("wgmma", 8)
+        assert p.cout_tile == gg.wgmma_tile(cout)
+        assert -(-cout // p.cout_tile) == -(-cout // 256)  # G gathered once per Cin tile
+        # two warpgroups along Cin share the G rows where Cin > 64 and the
+        # Cout tile leaves them the registers
+        assert p.cin_tile == (128 if cin > 64 and p.cout_tile <= 128 and p.cout_tile >= 64 else 64)
+        assert p.stages == dw.wgmma_stages(p.cout_tile, p.cin_tile) and 4 <= p.stages <= 8
+
+
+@pytest.mark.parametrize(
+    "cout,tile",
+    [(8, 16), (16, 16), (20, 32), (32, 32), (48, 48), (64, 64), (72, 96), (96, 96), (128, 128),
+     (160, 192), (192, 192), (224, 256), (256, 256), (336, 192), (384, 192), (512, 256),
+     (1024, 256)],
+)
+def test_wgmma_tile(cout, tile):
+    assert gg.wgmma_tile(cout) == tile
+
+
+@pytest.mark.parametrize(
+    "n_out,cin,cout,tile,row_tile,stages",
+    [
+        (51028, 96, 96, 96, 128, 7),     # the stride-1 block convs: W[k] shared by 128 rows
+        (12533, 96, 96, 96, 128, 7),     # 98 tiles: one wave, no split
+        (618, 256, 256, 256, 128, 4),    # the deep levels: offsets split
+        (27633, 336, 256, 256, 128, 4),  # FCNN conv5a
+        (14794, 1024, 512, 256, 128, 4),  # FCNN conv5c's input gradient: two 256-wide tiles
+        (47834, 32, 48, 48, 64, 7),      # a narrow Cout: W[k] is small beside X
+    ],
+)
+def test_bf16_wgmma_row_tiles_and_rings(n_out, cin, cout, tile, row_tile, stages):
+    p = gg.plan(n_out, 27, cin, cout, SMS, bf16=True)
+    assert (p.body, p.tile, p.row_tile, p.stages) == ("wgmma", tile, row_tile, stages)
+
+
+def test_bf16_body_by_shape_not_by_failure():
+    """The plan picks the body from the widths and the alignment alone; a
+    body asked for must take the shapes, or the plan raises."""
+    assert gg.plan(1000, 27, 64, 64, SMS, bf16=True).body == "wgmma"
+    assert gg.plan(1000, 27, 64, 64, SMS, aligned=False, bf16=True).body == "mma"
+    assert gg.plan(1000, 27, 6, 70, SMS, bf16=True).body == "mma"  # even widths
+    assert gg.plan(1000, 27, 64, 33, SMS, bf16=True).body == "mma"  # odd Cout
+    assert gg.plan(1000, 27, 64, 64, SMS).body == "mma"  # float32
+    assert dw.plan(27, 64, 64, 1000, SMS, bf16=True).body == "wgmma"
+    assert dw.plan(27, 64, 64, 1000, SMS, aligned=False, bf16=True).body == "mma"
+    assert dw.plan(27, 5, 64, 1000, SMS, bf16=True).body == "mma"
+    assert dw.plan(27, 3, 33, 1000, SMS, bf16=True)[3:5] == (1, "stem_mma")  # odd Cout: plain loads
+    assert dw.plan(27, 1, 16, 1000, SMS).body == "simt"  # float32 stem
+    for bad in [
+        lambda: gg.plan(1000, 27, 64, 33, SMS, bf16=True, body="wgmma"),
+        lambda: gg.plan(1000, 27, 64, 64, SMS, body="wgmma"),
+        lambda: gg.plan(1000, 27, 3, 32, SMS, bf16=True, body="mma"),
+        lambda: gg.plan(1000, 27, 64, 64, SMS, bf16=True, body="simt"),
+        lambda: dw.plan(27, 3, 32, 1000, SMS, body="stem_mma"),
+        lambda: dw.plan(27, 64, 64, 1000, SMS, bf16=True, body="stem_mma"),
+        lambda: dw.plan(27, 64, 64, 1000, SMS, aligned=False, bf16=True, body="wgmma"),
+    ]:
+        with pytest.raises(ValueError):
+            bad()
