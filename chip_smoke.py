@@ -12,9 +12,10 @@ the halo-exchange spatial conv and column-parallel convs; then the ported
 examples, indoor.py's MinkUNet34C segmentation chain at full width first;
 a 7-D sparse U-Net (multi-word coordinate keys) and a 16-D conv; the
 multi-process examples on one NCCL rank and on two gloo ranks sharing the
-card; last, the dense bbox grid: the row-grid probe against the key search
-and the dense-grid conv route against K1 and K2, with its gate refit; and
-the bf16 bodies of both kernels timed on the device alone.
+card; the dense bbox grid: the row-grid probe against the key search
+and the dense-grid conv route against K1 and K2, with its gate refit;
+the bf16 bodies of both kernels timed on the device alone; and last,
+CompletionNet and the VAE in bf16, each held to its own keep masks.
 
 Run from the root of a checkout, with one CUDA card visible:
 
@@ -350,6 +351,30 @@ Phases, in order; any failure raises and the script exits non-zero:
    DW_RTOL), two launches bit-equal, and every call whose kernel sees
    Cin > 4 on the ``wgmma`` body.
 
+43. the generative jobs in bf16 (``set_compute_dtype(torch.bfloat16)``), at
+   the reference widths on phase 18's batches: (a) CompletionNet: a
+   warm-up step and three timed steps (seeds 0-3), logits cast to float32
+   before the BCE, exactly 49 + 25 launches per step, all on the bf16
+   instances (the Cin = 1 stem on the SIMT K1 body and K2's ``stem_mma``,
+   every other call on ``wgmma``); rows per level, step ms and peak memory
+   beside phase 18's; then a float32 forward on the card from the same
+   weights, held to step 0's bf16 keep masks (``ForcedPruning``): per
+   level the rows whose mask it would have changed, each logit within the
+   level's bf16-to-float32 distance of 0.  (b) parity on phase 20's batch:
+   the card's bf16 step, and the CPU plain path's bf16 and float64 steps
+   held to the card's masks; per level the coordinates and logits, the
+   loss, every gradient and the running statistics, the card within
+   GRAD_FACTOR times the CPU bf16 run's distance from the float64 run, as
+   phase 30.  (c) the VAE: per batch (seeds 0-1) a training step (BCE +
+   0.1 KL, the KL taken in float32; exactly 51 + 26 bf16 launches, by body
+   as (a)) and a generation in eval mode after calibration; the flips of
+   a float32 run on step 0's masks; parity on phase 20's batch as (b), the
+   mean and log-variance too.  (d) every K1 and K2 call of one bf16
+   training step of each net (batch seed 0, seed-0 weights), as phase 42
+   without the ``mma.sync`` bodies: body, tile, ring and split, the device-only ms
+   beside the float32 instance's and the plain version's, the bound and
+   the host µs, each call held to its plain version.
+
 Bound of a kernel call: the larger of its useful operations (2 · pairs ·
 Cin · Cout) over the H100's 495 TFLOP/s dense TF32 tensor peak and its
 bytes (each input read once, the output written once) over 3.35 TB/s.  The
@@ -361,7 +386,8 @@ cannot pass a third of that peak.  The bf16 instances' bound takes the
 Then a JSON line describing each kernel and, last, the device line.  The
 float32 entries' times are the per-step sums of phases 8, 12, 17, 19, 21
 and 39b (``cuda_ms``: events around the calls' enqueue and run); the bf16
-entries' are phase 42's device-only sums.
+entries' are the device-only sums of phases 42 and 43 (one bf16 training
+step each of MinkUNet34, MinkowskiFCNN, CompletionNet and the VAE).
 """
 
 from __future__ import annotations
@@ -1287,17 +1313,25 @@ def vae_input(batch, device):
     return completion_input((full, np.ones((len(full), 1), np.float32), full), device)
 
 
+def float32_if_bf16(x):
+    """``x``, or ``x`` in float32 where it is bf16: losses take float32."""
+    return x.float() if x.dtype == torch.bfloat16 else x
+
+
 def bce(out_cls, targets):
     """The mean over levels of each level's sigmoid BCE (the reference
-    examples' loss)."""
+    examples' loss), bf16 logits cast to float32 first."""
+    logits = [float32_if_bf16(c.F[:, 0]) for c in out_cls]
     return sum(
-        torch.nn.functional.binary_cross_entropy_with_logits(c.F[:, 0], t.to(c.F.dtype))
-        for c, t in zip(out_cls, targets)
+        torch.nn.functional.binary_cross_entropy_with_logits(x, t.to(x.dtype))
+        for x, t in zip(logits, targets)
     ) / len(out_cls)
 
 
 def vae_loss(out_cls, targets, mean, log_var):
-    kl = -0.5 * torch.mean(1 + log_var.F - mean.F**2 - torch.exp(log_var.F))
+    """BCE + 0.1 KL, the KL of bf16 mean and log-variance taken in float32."""
+    m, lv = float32_if_bf16(mean.F), float32_if_bf16(log_var.F)
+    kl = -0.5 * torch.mean(1 + lv - m**2 - torch.exp(lv))
     return bce(out_cls, targets) + 0.1 * kl
 
 
@@ -1413,34 +1447,37 @@ class RecordedPruning(MT.MinkowskiPruning):
 
 
 class ForcedPruning(MT.MinkowskiPruning):
-    """A CPU run's pruning, held to the card's keep masks so that every level
-    of both runs has the same map.  The masks may differ only on rows whose
-    card and CPU logits lie on either side of 0, each within the level's
-    card-to-CPU distance of 0 (which ``judge_levels`` holds to the logit
+    """A run's pruning (on the CPU, or on the card in another dtype), held to
+    the card's keep masks so that every level of both runs has the same
+    map.  The masks may differ only on rows whose card and own logits lie
+    on either side of 0, each within the level's distance between the two
+    runs' logits of 0 (which ``judge_levels`` holds to the logit
     tolerance); such a row follows the card, and the level, the rows and
-    the margin are printed.  Any other difference fails."""
+    the margin are printed and kept in ``flips`` as (level, rows that
+    differ, rows).  Any other difference fails."""
 
     def __init__(self, model, card, tag):
         super().__init__()
         self.card_logits = [c.F.detach()[:, 0].cpu().double() for c in card[0]]
-        self.card_masks, self.tag, self.logits = card[1], tag, []
+        self.card_masks, self.tag, self.logits, self.flips = card[1], tag, [], []
         for head in model.cls_heads:
             head.register_forward_hook(lambda m, a, o: self.logits.append(o.F.detach()[:, 0]))
 
     def forward(self, input, mask):
         level = len(self.logits) - 1
         card = self.card_masks[level]
-        differ = mask != card
+        differ = mask.cpu() != card
+        self.flips.append((level, int(differ.sum()), differ.numel()))
         if differ.any():
-            logit, card_logit = self.logits[level].double(), self.card_logits[level]
+            logit, card_logit = self.logits[level].cpu().double(), self.card_logits[level]
             margin = (logit[differ].abs().max() / logit.abs().max()).item()
             apart = rel_diff(card_logit, logit)
-            print(f"  {self.tag} level {level}: keep mask differs on {int(differ.sum())} rows, CPU "
+            print(f"  {self.tag} level {level}: keep mask differs on {int(differ.sum())} rows, "
                   f"logit within {margin:.2e} of 0 (relative; the level's logits {apart:.2e} "
-                  f"apart); the CPU follows the card")
+                  f"apart); the run follows the card")
             if not margin <= apart:
                 raise AssertionError(f"{self.tag}: level {level} keep masks disagree")
-        return super().forward(input, card)
+        return super().forward(input, card.to(mask.device))
 
 
 def judge_levels(tag, card, cpu32, cpu64):
@@ -1464,12 +1501,15 @@ def judge_levels(tag, card, cpu32, cpu64):
             raise AssertionError(f"{tag}: level {level} logits disagree: {rel:.3e}")
 
 
-def generative(dev, launches):
+def generative(dev, launches, reuse):
     """Phases 15-20: CompletionNet and the VAE at the reference widths on
     stand-in completion batches.  Adds the main-path launches to
-    ``launches``; returns the kernel rows of phases 15, 17 and 19."""
+    ``launches``; returns the kernel rows of phases 15, 17 and 19.  Keeps
+    the batches, and phase 18's and 19's rows per level, times and peak memory, in
+    ``reuse`` (phase 43 sets its bf16 steps beside them)."""
     t0 = time.perf_counter()
-    batches = {s: gen_batch(s) for s in range(4)}
+    batches = reuse["gen_batches"] = {s: gen_batch(s) for s in range(4)}
+    float32 = reuse["gen_float32"] = {"completion": [], "vae": []}
     print(f"[15 generative kernels, synthetic maps] {GEN_SHAPES} shapes at {GEN_RES}^3, "
           f"{COMPLETION_POINTS} points each: batches made in {time.perf_counter() - t0:.1f} s")
     for s, (partial, _, full) in batches.items():
@@ -1542,6 +1582,7 @@ def generative(dev, launches):
             return loss.item(), [c.size for c in out_cls], time.perf_counter() - t0
 
         (loss, rows, secs), n = counted(launches, one_step)
+        float32["completion"].append((rows, secs))
         n_in = len(batches[step][0])
         print(f"[18 train completion] step {step}: {n_in} voxels in, {secs * 1e3:.2f} ms, "
               f"{n_in / secs:.0f} voxels/s, loss {loss:.6f}, rows per decoder level {rows}, "
@@ -1550,7 +1591,8 @@ def generative(dev, launches):
             raise AssertionError(f"step {step}: {n} launches")
         if not np.isfinite(loss):
             raise AssertionError(f"step {step}: loss {loss}")
-    print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    float32["completion_peak"] = torch.cuda.max_memory_allocated()
+    print(f"  peak device memory {float32['completion_peak'] / 2**30:.2f} GiB")
     del net, opt
     torch.cuda.empty_cache()
 
@@ -1585,6 +1627,7 @@ def generative(dev, launches):
             calls, grads, ((loss, rows, secs), n) = capture_step(vae_convs, lambda: counted(launches, vae_step))
         else:
             (loss, rows, secs), n = counted(launches, vae_step)
+        float32["vae"].append((rows, secs, torch.cuda.max_memory_allocated()))
         n_in = len(batches[b][2])
         print(f"[19 VAE] batch seed {b}: training step {n_in} voxels, {secs * 1e3:.2f} ms, "
               f"{n_in / secs:.0f} voxels/s, loss {loss:.6f}, rows per decoder level {rows}, "
@@ -2132,19 +2175,26 @@ def bf16_step_calls(dev, reuse):
             ("MinkowskiFCNN", fcnn, lambda: fcnn_step(fcnn, *reuse["shape_batch"], dev),
              FCNN_CONVS, "fcnn"),
         ):
-            calls, grads, _ = capture_step(sparse_convs(model), run)
-            if len(calls) != n or len(grads) != n:
-                raise AssertionError(f"{name}: captured {len(calls)} calls and {len(grads)} "
-                                     "output gradients")
-            steps[name] = []
-            for i, (m, inp, out) in enumerate(calls):
-                kmap = m._kernel_map(inp, out.coordinate_map_key)
-                steps[name].append((inp.F.detach(), m.kernel.detach(), grads[i].contiguous(),
-                                    kmap.in_idx, kmap.out_idx_t, f"{prefix}{i}",
-                                    inp.F.requires_grad))
+            steps[name] = step_calls(name, model, run, n, prefix)
     finally:
         MT.set_compute_dtype(before)
     return steps
+
+
+def step_calls(name, model, run, n, prefix):
+    """The ``n`` sparse conv calls of ``model`` in ``run`` (one training
+    step), captured with hooks: [(x, w, g, in_idx, out_idx_t, label,
+    with_dx)] for ``bf16_parts``."""
+    calls, grads, _ = capture_step(sparse_convs(model), run)
+    if len(calls) != n or len(grads) != n:
+        raise AssertionError(f"{name}: captured {len(calls)} calls and {len(grads)} "
+                             "output gradients")
+    out = []
+    for i, (m, inp, o) in enumerate(calls):
+        kmap = m._kernel_map(inp, o.coordinate_map_key)
+        out.append((inp.F.detach(), m.kernel.detach(), grads[i].contiguous(), kmap.in_idx,
+                    kmap.out_idx_t, f"{prefix}{i}", inp.F.requires_grad))
+    return out
 
 
 def bf16_parts(x, w, g, in_idx, out_idx_t, with_dx=True):
@@ -4351,15 +4401,64 @@ def redesign_table(rows):
     return "\n".join(lines)
 
 
+def bf16_device_row(phase, net, call, parent=True):
+    """Phases 42-43: one bf16 conv call's parts (forward, input gradient,
+    weight gradient), each held to its plain version (K1 within
+    K1_BF16_RTOL, K2 within DW_RTOL), two launches bit-equal, the body the
+    plan chose (``wgmma`` wherever the kernel sees Cin > 4) with its tile,
+    ring and split, and on the device alone (``device_ms``) its ms beside
+    the float32 instance's and the plain version's, with the bound and the
+    wrapper's host µs; with ``parent`` the earlier bodies' ms too (``body=``:
+    the ``mma.sync`` body, or the SIMT stem, at their own plans)."""
+    x, w, g, in_idx, out_idx_t, label, with_dx = call
+    K, cin, cout = w.shape
+    row = dict(net=net, label=label, K=K, cin=cin, cout=cout, n_in=x.shape[0], n_out=g.shape[0])
+    for p, (kernel, plain, args, args32, rtol, bound_ms, bound_by) in bf16_parts(
+            x, w, g, in_idx, out_idx_t, with_dx).items():
+        tag = f"{phase} {net} {label} {p}"
+        got = kernel(*args)
+        plan = kernel.last_plan
+        k_cin = args[1].shape[1] if kernel is gather_gemm else args[0].shape[1]
+        if plan.body != ("wgmma" if k_cin > 4 else "simt" if kernel is gather_gemm
+                         else "stem_mma"):
+            raise AssertionError(f"{tag}: Cin {k_cin} took the {plan.body} body")
+        if not torch.equal(got, kernel(*args)):
+            raise AssertionError(f"{tag}: two launches differ")
+        abs_err, rel = held(got, plain(*args), rtol, tag)
+        del got
+        ms, host_us = device_ms(lambda: kernel(*args))
+        # K1: output rows x Cout per block; K2: Cin x Cout
+        tile = ((plan.row_tile, plan.tile) if kernel is gather_gemm
+                else (plan.cin_tile, plan.cout_tile))
+        row[p] = dict(
+            body=plan.body, tile=f"{tile[0]}x{tile[1]}", stages=plan.stages,
+            splits=plan.splits,
+            max_abs_err=abs_err, max_rel_err=rel, ms=ms, host_us=host_us,
+            f32_ms=device_ms(lambda: kernel(*args32))[0],
+            plain_ms=device_ms(lambda: plain(*args), graph=True)[0],
+            bound_ms=bound_ms, bound_by=bound_by,
+        )
+        if parent:
+            row[p]["pr8_ms"] = device_ms(
+                lambda: kernel(*args, body="simt" if k_cin <= 4 else "mma"))[0]
+    parts = "  ".join(
+        f"{p} {r['body']} {r['tile']} ring {r['stages']} S={r['splits']} "
+        + (f"{r['ms']:.4f}/{r['pr8_ms']:.4f}/" if parent else f"{r['ms']:.4f}/")
+        + f"{r['f32_ms']:.4f}/{r['plain_ms']:.4f} ms, "
+        f"bound {r['bound_ms']:.4f} ({r['bound_by']}), host {r['host_us']:.1f} us, "
+        f"err {r['max_rel_err']:.1e}"
+        for p in ("fwd", "dx", "dw") if p in row for r in (row[p],)
+    )
+    print(f"  {label:>9} K={K:<3} {cin:>4}->{cout:<4} rows {row['n_in']:>7}->"
+          f"{row['n_out']:<7}  {parts}")
+    return row
+
+
 def bf16_redesign(dev, reuse):
     """Phase 42: the bf16 bodies on every call of one bf16 MinkUNet34 and one
-    MinkowskiFCNN training step, timed on the device alone (``device_ms``).
-    Per call and part: the body and tiles the plan chose, its device ms and
-    the wrapper's host µs, beside the PR 8 bodies' device ms (``body=``:
-    the ``mma.sync`` body, or the SIMT stem, at their own plans), the
-    float32 instance's and the plain version's, and the bound; each call held
-    to its plain version, two launches bit-equal, and every call whose
-    kernel sees Cin > 4 on the ``wgmma`` body.  Returns the rows."""
+    MinkowskiFCNN training step, timed on the device alone (``device_ms``)
+    beside the ``mma.sync`` bodies, the float32 instances and the plain versions
+    (``bf16_device_row``).  Returns the rows."""
     start = time.perf_counter()
     steps = bf16_step_calls(dev, reuse)
     rows = []
@@ -4367,47 +4466,7 @@ def bf16_redesign(dev, reuse):
         print(f"[42 bf16 bodies, {net} training-step maps] {len(calls)} conv calls; device-only ms "
               "(new body / PR 8 body / float32 instance / plain), bound, the wrapper's host µs "
               "per call; the body, its tile (K1: rows x Cout, K2: Cin x Cout), ring and split S")
-        net_rows = []
-        for x, w, g, in_idx, out_idx_t, label, with_dx in calls:
-            K, cin, cout = w.shape
-            row = dict(net=net, label=label, K=K, cin=cin, cout=cout, n_in=x.shape[0],
-                       n_out=g.shape[0])
-            for p, (kernel, plain, args, args32, rtol, bound_ms, bound_by) in bf16_parts(
-                    x, w, g, in_idx, out_idx_t, with_dx).items():
-                tag = f"42 {net} {label} {p}"
-                got = kernel(*args)
-                plan = kernel.last_plan
-                k_cin = args[1].shape[1] if kernel is gather_gemm else args[0].shape[1]
-                if plan.body != ("wgmma" if k_cin > 4 else "simt" if kernel is gather_gemm
-                                 else "stem_mma"):
-                    raise AssertionError(f"{tag}: Cin {k_cin} took the {plan.body} body")
-                if not torch.equal(got, kernel(*args)):
-                    raise AssertionError(f"{tag}: two launches differ")
-                abs_err, rel = held(got, plain(*args), rtol, tag)
-                ms, host_us = device_ms(lambda: kernel(*args))
-                parent = "simt" if k_cin <= 4 else "mma"
-                # K1: output rows x Cout per block; K2: Cin x Cout
-                tile = ((plan.row_tile, plan.tile) if kernel is gather_gemm
-                        else (plan.cin_tile, plan.cout_tile))
-                row[p] = dict(
-                    body=plan.body, tile=f"{tile[0]}x{tile[1]}", stages=plan.stages,
-                    splits=plan.splits,
-                    max_abs_err=abs_err, max_rel_err=rel, ms=ms, host_us=host_us,
-                    pr8_ms=device_ms(lambda: kernel(*args, body=parent))[0],
-                    f32_ms=device_ms(lambda: kernel(*args32))[0],
-                    plain_ms=device_ms(lambda: plain(*args), graph=True)[0],
-                    bound_ms=bound_ms, bound_by=bound_by,
-                )
-            parts = "  ".join(
-                f"{p} {r['body']} {r['tile']} ring {r['stages']} S={r['splits']} "
-                f"{r['ms']:.4f}/{r['pr8_ms']:.4f}/{r['f32_ms']:.4f}/{r['plain_ms']:.4f} ms, "
-                f"bound {r['bound_ms']:.4f} ({r['bound_by']}), host {r['host_us']:.1f} us, "
-                f"err {r['max_rel_err']:.1e}"
-                for p in ("fwd", "dx", "dw") if p in row for r in (row[p],)
-            )
-            print(f"  {label:>9} K={K:<3} {cin:>3}->{cout:<3} rows {row['n_in']:>5}->"
-                  f"{row['n_out']:<5}  {parts}")
-            net_rows.append(row)
+        net_rows = [bf16_device_row(42, net, call) for call in calls]
         print(redesign_table(net_rows))
         for p, name in PARTS:
             got = [r[p] for r in net_rows if p in r]
@@ -4418,6 +4477,314 @@ def bf16_redesign(dev, reuse):
                   f"{sum(q['host_us'] for q in got) / 1e3:.3f} ms")
         rows += net_rows
     print(f"[42] {time.perf_counter() - start:.1f} s")
+    return rows
+
+
+def gen_bf16_launches(tag, n, convs):
+    """Phase 43: a bf16 training step of a generative net with ``convs``
+    sparse convs launches exactly 2 * convs - 1 K1 (every forward, every
+    input gradient but the stem's) and ``convs`` K2, all bf16: the Cin = 1
+    stem on the SIMT K1 body and K2's ``stem_mma``, every other call on
+    ``wgmma``.  Returns the launches by body."""
+    bodies = tuple({k: v for k, v in counts.items() if v}
+                   for counts in (gather_gemm.bf16_body_launches, conv_dw.bf16_body_launches))
+    want = ({"wgmma": 2 * convs - 2, "simt": 1}, {"wgmma": convs - 1, "stem_mma": 1})
+    if (n["gather_gemm_bf16"], n["conv_dw_bf16"], n["gather_gemm"], n["conv_dw"]) != (
+            2 * convs - 1, convs, 0, 0) or bodies != want:
+        raise AssertionError(f"{tag}: launches {n}, by body {bodies}")
+    return bodies
+
+
+def flip_shares(tag, flips):
+    """Phase 43: per level, the share of rows whose keep mask a float32 run
+    held to the bf16 run's masks would have changed."""
+    print(f"  {tag}: keep masks of a float32 run on the card held to the bf16 run's, rows that "
+          "differ per level: " + ", ".join(
+              f"level {level} {d}/{n} ({d / max(n, 1):.3%})" for level, d, n in flips))
+
+
+def judge_bf16_levels(tag, card, cpu16, cpu64):
+    """Per level of a generative decoder, the card's bf16 logits against the
+    CPU float64 run on the same masks (``ForcedPruning``): coordinates
+    equal, and the card within GRAD_FACTOR times the CPU plain path's bf16
+    run's distance from the float64 run (at least one bf16 ulp, 2^-7), as
+    phase 30 judges a bf16 step."""
+    for level, (c, p, q) in enumerate(zip(card, cpu16, cpu64)):
+        if not (torch.equal(c.C.cpu(), q.C) and torch.equal(p.C, q.C)):
+            raise AssertionError(f"{tag}: level {level} coordinates differ")
+        ref = q.F.detach().double()
+        card64 = rel_diff(c.F.detach().cpu().double(), ref)
+        cpu_d = rel_diff(p.F.detach().double(), ref)
+        bnd = GRAD_FACTOR * max(cpu_d, K1_BF16_RTOL)
+        print(f"  {tag} level {level}: {c.size} rows at stride {c.tensor_stride[0]}; logits "
+              f"against float64: card bf16 {card64:.2e}, CPU bf16 {cpu_d:.2e}, bound {bnd:.2e}")
+        if not card64 <= bnd:
+            raise AssertionError(f"{tag}: level {level} logits disagree: {card64:.3e}")
+
+
+def gen_bf16_calls(dev, batch):
+    """Phase 43d: every sparse conv call of one bf16 CompletionNet and one
+    bf16 VAE training step on ``batch`` at the reference widths, from the
+    seed-0 weights, captured with hooks as ``bf16_step_calls`` captures
+    MinkUNet34's (the compute dtype already bf16)."""
+    steps = {}
+    for name, cls, widths, n, inputs, prefix in (
+            ("CompletionNet", CompletionNet, GEN_WIDTHS, COMPLETION_CONVS, completion_input, "comp"),
+            ("VAE", VAE, VAE_WIDTHS, VAE_CONVS, vae_input, "vae")):
+        model = cls(generator=torch.Generator().manual_seed(0), device=dev, **widths).train()
+
+        def run():
+            x, target = inputs(batch, dev)
+            extra = dict(generator=torch.Generator(device=dev).manual_seed(0)) if cls is VAE else {}
+            out = model(x, target, **extra)
+            loss = vae_loss(out[0], out[1], out[3], out[4]) if cls is VAE else bce(out[0], out[1])
+            loss.backward()
+
+        steps[name] = step_calls(f"43d {name}", model, run, n, prefix)
+        del model
+    return steps
+
+
+def generative_bf16(dev, launches, reuse):
+    """Phase 43: CompletionNet and the VAE in bf16 at the reference widths.
+    (a) bf16 CompletionNet training on phase 18's batches, counted, with the
+    keep-mask flips of a float32 run held to the bf16 run's masks; (b) its
+    parity on phase 20's small batch, the card and the CPU's bf16 and
+    float64 runs held to the card's masks; (c) the VAE: training steps and
+    generations on phase 19's batches, counted, its flips and its parity;
+    (d) every K1 and K2 call of one bf16 step of each net on the device
+    alone.  Returns (d)'s rows."""
+    start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    batches, float32 = reuse["gen_batches"], reuse["gen_float32"]
+    MT.set_compute_dtype(torch.bfloat16)
+    try:
+        # 43a. CompletionNet: a warm-up step and three timed steps
+        net = CompletionNet(generator=torch.Generator().manual_seed(0), device=dev,
+                            **GEN_WIDTHS).train()
+        init = {k: v.detach().cpu().clone() for k, v in net.state_dict().items()}
+        opt = gen_sgd(net)
+        torch.cuda.reset_peak_memory_stats()
+        for step in range(TRAIN_STEPS):
+            net.pruning = RecordedPruning()
+
+            def one_step():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                opt.zero_grad()
+                out_cls, targets, _ = net(*completion_input(batches[step], dev))
+                loss = bce(out_cls, targets)
+                loss.backward()
+                opt.step()
+                torch.cuda.synchronize()
+                return loss.item(), out_cls, time.perf_counter() - t0
+
+            (loss, out_cls, secs), n = counted(launches, one_step)
+            bodies = gen_bf16_launches(f"43a step {step}", n, COMPLETION_CONVS)
+            rows, n_in = [c.size for c in out_cls], len(batches[step][0])
+            print(f"[43a bf16 train completion] step {step}{' (warm-up)' if step == 0 else ''}: "
+                  f"{n_in} voxels in, {secs * 1e3:.2f} ms (float32, phase 18: "
+                  f"{float32['completion'][step][1] * 1e3:.2f}), {n_in / secs:.0f} voxels/s, loss "
+                  f"{loss:.6f}, rows per decoder level {rows} (phase 18: "
+                  f"{float32['completion'][step][0]}), bf16 launches {n['gather_gemm_bf16']} + "
+                  f"{n['conv_dw_bf16']}, by body {bodies[0]} and {bodies[1]}")
+            if {c.F.dtype for c in out_cls} != {torch.bfloat16} or not np.isfinite(loss):
+                raise AssertionError(f"43a step {step}: logits {out_cls[0].F.dtype}, loss {loss}")
+            if step == 0:
+                first, masks = out_cls, net.pruning.masks
+        peak = torch.cuda.max_memory_allocated()
+        print(f"  peak device memory {peak / 2**30:.2f} GiB (bf16) against "
+              f"{float32['completion_peak'] / 2**30:.2f} GiB (float32, phase 18)")
+        del net, opt, out_cls
+        ref = CompletionNet(device=dev, **GEN_WIDTHS).train()
+        ref.load_state_dict(init)
+        ref.pruning = ForcedPruning(ref, (first, masks), "43a float32 on the bf16 masks")
+        MT.set_compute_dtype(None)
+        with torch.no_grad():
+            ref(*completion_input(batches[0], dev))
+        MT.set_compute_dtype(torch.bfloat16)
+        flip_shares("43a CompletionNet, step 0", ref.pruning.flips)
+        del ref, init, first
+        torch.cuda.empty_cache()
+
+        # 43b. CompletionNet parity on phase 20's batch, on the card's masks
+        small = gen_batch(PARITY_SEED, PARITY_SHAPES, PARITY_RES)
+        widths = dict(GEN_WIDTHS, resolution=PARITY_RES)
+
+        def completion_run(model, device, dtype):
+            partial, feats, full = small
+            out_cls, targets, _ = model(*completion_input(
+                (partial, feats.astype(np.float64) if dtype == torch.float64 else feats, full), device))
+            loss = bce(out_cls, targets)
+            loss.backward()
+            return bf16_step_record(loss, model), out_cls
+
+        net = CompletionNet(generator=torch.Generator().manual_seed(0), device=dev, **widths).train()
+        net.pruning = RecordedPruning()
+        small_init = {k: v.detach().cpu().clone() for k, v in net.state_dict().items()}
+        card, card_cls = completion_run(net, dev, torch.bfloat16)
+        card_masks = net.pruning.masks
+        del net
+        cpu = {}
+        for dtype in (torch.bfloat16, torch.float64):
+            t0 = time.perf_counter()
+            MT.set_compute_dtype(torch.bfloat16 if dtype == torch.bfloat16 else None)
+            cpu_net = CompletionNet(device="cpu", **widths).train()
+            cpu_net.load_state_dict(small_init)
+            if dtype == torch.float64:
+                cpu_net.to(dtype)
+            cpu_net.pruning = ForcedPruning(cpu_net, (card_cls, card_masks),
+                                            f"43b CompletionNet CPU {dtype}")
+            cpu[dtype] = completion_run(cpu_net, "cpu", dtype)
+            print(f"[43b parity] CPU plain-path CompletionNet step, {dtype}, "
+                  f"{len(small[0])} voxels: {time.perf_counter() - t0:.1f} s")
+            del cpu_net
+        MT.set_compute_dtype(torch.bfloat16)
+        judge_bf16_levels("43b CompletionNet", card_cls, cpu[torch.bfloat16][1],
+                          cpu[torch.float64][1])
+        judge_bf16("43b CompletionNet parity", card, cpu[torch.bfloat16][0], cpu[torch.float64][0])
+        del card_cls, cpu
+
+        # 43c. the VAE: a training step and a generation per batch, counted
+        vae = VAE(generator=torch.Generator().manual_seed(0), device=dev, **VAE_WIDTHS).train()
+        vae_init = {k: v.detach().cpu().clone() for k, v in vae.state_dict().items()}
+        opt = gen_sgd(vae)
+        noise = torch.Generator(device=dev).manual_seed(0)
+
+        def seeded(b):  # the same noise for a batch's calibration and its generation
+            return torch.Generator(device=dev).manual_seed(100 + b)
+
+        for b in range(2):
+            torch.cuda.reset_peak_memory_stats()
+            vae.decoder.pruning = RecordedPruning()
+
+            def vae_step():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                vae.train()
+                opt.zero_grad()
+                out_cls, targets, _, mean, log_var = vae(*vae_input(batches[b], dev),
+                                                         generator=noise)
+                loss = vae_loss(out_cls, targets, mean, log_var)
+                loss.backward()
+                opt.step()
+                torch.cuda.synchronize()
+                return loss.item(), out_cls, time.perf_counter() - t0
+
+            (loss, out_cls, secs), n = counted(launches, vae_step)
+            bodies = gen_bf16_launches(f"43c VAE step {b}", n, VAE_CONVS)
+            rows, n_in = [c.size for c in out_cls], len(batches[b][2])
+            f32_rows, f32_secs, f32_peak = float32["vae"][b]
+            print(f"[43c bf16 VAE] batch seed {b}: training step {n_in} voxels, {secs * 1e3:.2f} ms "
+                  f"(float32, phase 19: {f32_secs * 1e3:.2f}), loss {loss:.6f}, rows per decoder "
+                  f"level {rows} (phase 19: {f32_rows}), bf16 launches {n['gather_gemm_bf16']} + "
+                  f"{n['conv_dw_bf16']}, by body {bodies[0]} and {bodies[1]}, peak device memory "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (phase 19: "
+                  f"{f32_peak / 2**30:.2f})")
+            if {c.F.dtype for c in out_cls} != {torch.bfloat16} or not np.isfinite(loss):
+                raise AssertionError(f"43c VAE step {b}: logits {out_cls[0].F.dtype}, loss {loss}")
+            if b == 0:
+                first, masks = out_cls, vae.decoder.pruning.masks
+            del out_cls
+            calibrate(vae, lambda: vae(*vae_input(batches[b], dev), generator=seeded(b)))
+
+            def generate():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with torch.no_grad():
+                    out_cls, _, out, _, _ = vae(*vae_input(batches[b], dev), generator=seeded(b))
+                torch.cuda.synchronize()
+                return ([c.size for c in out_cls], out.size, out.F.dtype, out.tensor_stride,
+                        time.perf_counter() - t0)
+
+            (rows, n_out, dtype, ts, secs), n = counted(launches, generate)
+            print(f"[43c bf16 VAE] batch seed {b}: generation {secs * 1e3:.2f} ms, rows per decoder "
+                  f"level {rows}, {n_out} voxels at stride {ts[0]}, {n['gather_gemm_bf16']} bf16 "
+                  "gather_gemm launches")
+            if (n["gather_gemm_bf16"] < VAE_CONVS or n["conv_dw_bf16"] or n["gather_gemm"]
+                    or n["conv_dw"] or n_out == 0 or dtype != torch.bfloat16):
+                raise AssertionError(f"43c VAE generation {b}: {n} launches, {n_out} voxels, {dtype}")
+        del vae, opt
+        ref = VAE(device=dev, **VAE_WIDTHS).train()
+        ref.load_state_dict(vae_init)
+        ref.decoder.pruning = ForcedPruning(ref.decoder, (first, masks), "43c float32 on the bf16 masks")
+        MT.set_compute_dtype(None)
+        with torch.no_grad():  # step 0's noise: the first draw of a generator seeded 0
+            ref(*vae_input(batches[0], dev), generator=torch.Generator(device=dev).manual_seed(0))
+        MT.set_compute_dtype(torch.bfloat16)
+        flip_shares("43c VAE, step 0", ref.decoder.pruning.flips)
+        del ref, vae_init, first
+        torch.cuda.empty_cache()
+
+        # the VAE's parity on phase 20's batch: a training step, the same
+        # seeded noise, on the card's masks
+        vae_widths = dict(VAE_WIDTHS, resolution=PARITY_RES)
+
+        def vae_run(model, device, dtype):
+            x, target = vae_input(small, device)
+            out_cls, targets, _, mean, log_var = model(
+                MT.SparseTensor(x.F.to(dtype), coordinate_map_key=x.coordinate_map_key,
+                                coordinate_manager=x.coordinate_manager),
+                target, generator=torch.Generator().manual_seed(1))
+            loss = vae_loss(out_cls, targets, mean, log_var)
+            loss.backward()
+            return bf16_step_record(loss, model), out_cls, mean, log_var
+
+        vae = VAE(generator=torch.Generator().manual_seed(0), device=dev, **vae_widths).train()
+        vae.decoder.pruning = RecordedPruning()
+        small_init = {k: v.detach().cpu().clone() for k, v in vae.state_dict().items()}
+        card = vae_run(vae, dev, torch.float32)
+        card_masks = vae.decoder.pruning.masks
+        del vae
+        cpu = {}
+        for dtype in (torch.bfloat16, torch.float64):
+            MT.set_compute_dtype(torch.bfloat16 if dtype == torch.bfloat16 else None)
+            cpu_vae = VAE(device="cpu", **vae_widths).train()
+            cpu_vae.load_state_dict(small_init)
+            if dtype == torch.float64:
+                cpu_vae.to(dtype)
+            cpu_vae.decoder.pruning = ForcedPruning(cpu_vae.decoder, (card[1], card_masks),
+                                                    f"43c VAE decoder CPU {dtype}")
+            cpu[dtype] = vae_run(cpu_vae, "cpu", torch.float32 if dtype == torch.bfloat16 else dtype)
+            del cpu_vae
+        MT.set_compute_dtype(torch.bfloat16)
+        for name, i in (("mean", 2), ("log-variance", 3)):
+            ref64 = cpu[torch.float64][i].F.detach().double()
+            card64 = rel_diff(card[i].F.detach().cpu().double(), ref64)
+            cpu_d = rel_diff(cpu[torch.bfloat16][i].F.detach().double(), ref64)
+            bnd = GRAD_FACTOR * max(cpu_d, K1_BF16_RTOL)
+            print(f"  43c VAE encoder {name} against float64: card bf16 {card64:.2e}, CPU bf16 "
+                  f"{cpu_d:.2e}, bound {bnd:.2e}")
+            if not card64 <= bnd:
+                raise AssertionError(f"43c VAE {name} disagrees: {card64:.3e}")
+        judge_bf16_levels("43c VAE decoder", card[1], cpu[torch.bfloat16][1], cpu[torch.float64][1])
+        judge_bf16("43c VAE parity", card[0], cpu[torch.bfloat16][0], cpu[torch.float64][0])
+        del card, cpu
+        torch.cuda.empty_cache()
+
+        # 43d. every K1 and K2 call of one bf16 step of each net, device only
+        steps = gen_bf16_calls(dev, batches[0])
+        rows = []
+        for net, calls in steps.items():
+            print(f"[43d bf16 kernels, {net} training-step maps] {len(calls)} conv calls; "
+                  "device-only ms (bf16 / float32 instance / plain), bound, the wrapper's host µs "
+                  "per call; the body, its tile (K1: rows x Cout, K2: Cin x Cout), ring and split S")
+            net_rows = [bf16_device_row(43, net, call, parent=False) for call in calls]
+            for p, name in PARTS:
+                got = [r[p] for r in net_rows if p in r]
+                print(f"  {net}, sum over one bf16 step, {name}: bf16 "
+                      f"{sum(q['ms'] for q in got):.3f} ms, float32 instance "
+                      f"{sum(q['f32_ms'] for q in got):.3f} ms, plain "
+                      f"{sum(q['plain_ms'] for q in got):.3f} ms, bound "
+                      f"{sum(q['bound_ms'] for q in got):.4f} ms; host "
+                      f"{sum(q['host_us'] for q in got) / 1e3:.3f} ms")
+            rows += net_rows
+            calls.clear()
+        del steps
+        torch.cuda.empty_cache()
+    finally:
+        MT.set_compute_dtype(None)
+    print(f"[43] {time.perf_counter() - start:.1f} s")
     return rows
 
 
@@ -4439,7 +4806,7 @@ def main() -> int:
     )
     cudart = MT.cudart_version()
     free, total = MT.get_gpu_memory_info()
-    if not (cudart > 0 and 0 < free <= total):
+    if not (cudart > 0 and 0 < free <= total and MT.diagnostics.get_device_memory_info()[1] == total):
         raise AssertionError(f"diagnostics: cudart_version {cudart}, memory free {free} of {total}")
     print(f"[1 device] cudart {cudart}, memory free {free:,} of {total:,} bytes")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4456,7 +4823,7 @@ def main() -> int:
 
     launches = dict.fromkeys(KERNELS, 0)
     rows, real, synth_bwd, real_bwd, fcnn_bwd, reuse = segmentation_and_classification(dev, launches)
-    gen_rows, completion_bwd, vae_bwd = generative(dev, launches)
+    gen_rows, completion_bwd, vae_bwd = generative(dev, launches, reuse)
     splat_bwd = splat_and_se(dev, launches)
     shim_bwd = data_loader_path(dev, launches)
     bf16_bwd = bf16_path(dev, launches, reuse)
@@ -4468,6 +4835,7 @@ def main() -> int:
     reuse["smi"] = smi
     dense_errs = dense_grid(dev, launches, reuse)
     redesign = bf16_redesign(dev, reuse)
+    gen16 = generative_bf16(dev, launches, reuse)
 
     bwd = (synth_bwd + real_bwd + fcnn_bwd + gen_rows + completion_bwd + vae_bwd + splat_bwd
            + shim_bwd + high_rows)
@@ -4479,18 +4847,22 @@ def main() -> int:
         "conv_dw": [r["dw"]["max_abs_err"] for r in bwd] + par_errs["conv_dw"]
         + example_errs["conv_dw"] + high_errs["conv_dw"] + multi_errs["conv_dw"]
         + [e[0] for e in dense_errs["conv_dw"]],
-        "gather_gemm_bf16": [r[p]["max_abs_err"] for r in bf16_bwd + redesign
+        "gather_gemm_bf16": [r[p]["max_abs_err"] for r in bf16_bwd + redesign + gen16
                              for p in ("fwd", "dx") if p in r]
         + [e[0] for e in dense_errs.get("gather_gemm_bf16", [])],
-        "conv_dw_bf16": [r["dw"]["max_abs_err"] for r in bf16_bwd + redesign]
+        "conv_dw_bf16": [r["dw"]["max_abs_err"] for r in bf16_bwd + redesign + gen16]
         + [e[0] for e in dense_errs.get("conv_dw_bf16", [])],
     }
     # per training step of MinkUNet34, MinkowskiFCNN, CompletionNet, the VAE,
     # MinkowskiSplatFCNN and the 7-D U-Net, on their real maps
     sums = step_sums(real_bwd + fcnn_bwd + completion_bwd + vae_bwd + splat_bwd + high_rows)
-    # and per bf16 training step of MinkUNet34 and MinkowskiFCNN, on the
-    # device alone (phase 42)
-    sums16 = step_sums(redesign)
+    # and per bf16 training step of MinkUNet34 and MinkowskiFCNN (phase 42)
+    # and CompletionNet and the VAE (phase 43), on the device alone
+    sums16 = step_sums(redesign + gen16)
+    print("kernels line: the float32 entries' ms, plain_ms and bound_ms sum one training step each "
+          "of MinkUNet34, MinkowskiFCNN, CompletionNet, the VAE, MinkowskiSplatFCNN and the 7-D "
+          "U-Net (CUDA events); the bf16 entries' one bf16 training step each of MinkUNet34, "
+          "MinkowskiFCNN (phase 42), CompletionNet and the VAE (phase 43), on the device alone")
     timing = {
         "gather_gemm": [a + b for a, b in zip(sums["fwd"], sums["dx"])],
         "conv_dw": sums["dw"],

@@ -1,14 +1,14 @@
 """Coordinate engine: packed keys, sorted maps, kernel maps, the manager,
 and geometry replay for training on fresh point clouds."""
 
-from .kernel_map import KernelMap, build_kernel_map
+from .kernel_map import KernelMap, build_kernel_map, build_stride_map
 from .manager import (
     CapacityFloorExceeded,
     CoordinateManager,
     CoordinateMapKey,
     UntraceableReplay,
 )
-from .map import CoordinateMap, bucket_capacity
+from .map import CoordinateFieldMap, CoordinateMap, bucket_capacity
 from .geometry import (
     CompiledReplayer,
     Geometry,
@@ -21,6 +21,7 @@ from .geometry import (
 __all__ = [
     "CapacityFloorExceeded",
     "CompiledReplayer",
+    "CoordinateFieldMap",
     "CoordinateManager",
     "CoordinateMap",
     "CoordinateMapKey",
@@ -30,6 +31,7 @@ __all__ = [
     "UntraceableReplay",
     "bucket_capacity",
     "build_kernel_map",
+    "build_stride_map",
     "index_geometry",
     "squeeze_geometry",
     "stack_geometries",

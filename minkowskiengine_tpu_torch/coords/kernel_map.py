@@ -69,6 +69,10 @@ class KernelMap:
         """The transposed map (out↔in roles flipped)."""
         return KernelMap(self.out_idx_t, self.in_idx, self.n_out, self.n_in)
 
+    def pair_counts(self) -> np.ndarray:
+        """(K,) host array of the valid pairs of each offset."""
+        return (self.in_idx >= 0).sum(1).cpu().numpy()
+
     def to_pair_lists(self):
         """``{k: (in_rows, out_rows)}`` int64 numpy on the host, for each
         offset k with at least one pair (reference ``kernel_map_th``)."""

@@ -17,6 +17,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Tuple
 
+import numpy as np
 import torch
 
 MIN_CAPACITY = 128
@@ -60,9 +61,18 @@ class CoordinateMap:
     def device(self) -> torch.device:
         return self.coordinates.device
 
+    @property
+    def batch_indices(self) -> torch.Tensor:
+        """The batch column of the stored rows."""
+        return self.coordinates[:, 0]
+
     def valid_mask(self):
         """None: every stored row is valid."""
         return None
+
+    def to_numpy(self) -> np.ndarray:
+        """The map's rows as a host (size, D+1) int32 array."""
+        return self.coordinates[: self.size].cpu().numpy()
 
 
 @dataclasses.dataclass(frozen=True)

@@ -57,6 +57,12 @@ def get_gpu_memory_info(device=None):
     return torch.cuda.mem_get_info(device)
 
 
+def get_device_memory_info():
+    """(free, total) bytes of the first card, as the JAX package's function of
+    the same name gives them for its first device."""
+    return get_gpu_memory_info(0)
+
+
 def _nvidia_smi() -> str:
     smi = shutil.which("nvidia-smi")
     if smi is None:

@@ -105,8 +105,10 @@ class VAE(nn.Module):
     """Encoder and decoder (reference: examples/vae.py:560-600).
     ``forward(sinput, gt_target, generator=None)`` returns (per-level
     logits, per-level targets, the generated tensor, mean, log-variance);
-    the noise is drawn from ``generator`` (on its own device, then moved),
-    or from the default generator of the features' device."""
+    the noise is drawn in float32 from ``generator`` (on its own device, then
+    moved), or from the default generator of the features' device, and cast
+    to the mean's dtype (bf16 under the bf16 policy), in which ``z`` is
+    computed."""
 
     def __init__(self, channels=(16, 32, 64, 128, 256, 512, 1024), in_nchannel=1,
                  resolution=128, generator: Optional[torch.Generator] = None, device=None):
@@ -122,7 +124,9 @@ class VAE(nn.Module):
             eps = torch.randn(mean.F.shape, device=mean.device)
         else:
             eps = torch.randn(mean.F.shape, generator=generator, device=generator.device)
-        z = mean.F + eps.to(mean.device) * torch.exp(0.5 * log_var.F)
+        # the noise and the sum in the mean's dtype, as JAX draws and adds them
+        eps = eps.to(device=mean.device, dtype=mean.F.dtype)
+        z = mean.F + eps * torch.exp(0.5 * log_var.F)
         out_cls, targets, sout = self.decoder(self.seed(sinput, mean, z), gt_target)
         return out_cls, targets, sout, mean, log_var
 

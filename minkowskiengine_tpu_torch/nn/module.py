@@ -13,3 +13,9 @@ from torch import nn
 
 class MinkowskiModuleBase(nn.Module):
     pass
+
+
+def get_postfix(tensor) -> str:
+    """The backend suffix of the reference's function names: none, as in the
+    JAX package, since the port's functions take a tensor on either device."""
+    return ""

@@ -9,7 +9,7 @@ from __future__ import annotations
 from typing import Optional
 
 from .coords.manager import CoordinateManager
-from .types import SparseTensorOperationMode
+from .types import SparseTensorOperationMode, SparseTensorQuantizationMode
 
 _sparse_tensor_operation_mode = SparseTensorOperationMode.SEPARATE_COORDINATE_MANAGER
 _global_coordinate_manager: Optional[CoordinateManager] = None

@@ -308,6 +308,10 @@ def test_splat_map(dev):
         (27, 3000, 2500, 96, 336),     # Cout 336: two 192-wide tiles, the second ragged
         (27, 3000, 2500, 256, 512),    # Cout 512
         (4, 10, 0, 8, 8),
+        # CompletionNet's and the VAE's bf16 shapes
+        (27, 60000, 60000, 1, 16),     # the Cin = 1 stem
+        (27, 1100000, 1100000, 16, 16),  # a stride-1 decoder level: the row split
+        (64, 60, 2000, 1024, 512),     # the k = 4 generative conv
     ],
 )
 def test_bf16_kernel_matches_plain(dev, K, n_in, n_out, cin, cout):

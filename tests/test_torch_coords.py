@@ -147,6 +147,25 @@ def test_kernel_map_matches_jax(cloud, k, s):
         assert torch.equal(tkm.out_idx_t[kk, i[kk, o]].long(), o)
 
 
+@pytest.mark.parametrize("cloud", sorted(CLOUDS))
+def test_map_accessors_match_jax(cloud):
+    """``CoordinateMap.batch_indices`` and ``to_numpy`` at strides 1 and 2,
+    and ``KernelMap.pair_counts`` of the k = 3 and k = 2 s = 2 maps, equal
+    the JAX package's."""
+    _, (jm, jk, _), (tm, tk, _) = _managers(cloud)
+    for s in (1, 2):
+        jo, to = jm.stride(jk, s), tm.stride(tk, s)
+        jmap, tmap = jm.get_coordinate_map(jo), tm.get_coordinate_map(to)
+        np.testing.assert_array_equal(jmap.to_numpy(), tmap.to_numpy())
+        assert tmap.to_numpy().shape == (tmap.size, tmap.dimension + 1)
+        np.testing.assert_array_equal(
+            np.asarray(jmap.batch_indices)[: jmap.size], tmap.batch_indices.numpy())
+        for k in (3, 2):
+            jkm = jm.kernel_map(jk, jo, stride=s, kernel_size=k)
+            tkm = tm.kernel_map(tk, to, stride=s, kernel_size=k)
+            np.testing.assert_array_equal(jkm.pair_counts(), tkm.pair_counts())
+
+
 @pytest.mark.parametrize("cached", [True, False])
 def test_minkunet_pyramid_transpose_maps_match_jax(cached):
     """The decoder's k=2 s=2 transposed convs: with the encoder's forward

@@ -286,6 +286,10 @@ BF16_CASES = [
     (8, 600, 500, 64, 33, 1),          # odd Cout: plain loads
     (1, 5, 3, 5, 70, 1),
     (4, 10, 0, 8, 8, 8),               # no output rows
+    # CompletionNet's and the VAE's bf16 shapes
+    (27, 60000, 60000, 1, 16, None),   # the Cin = 1 stem
+    (27, 1100000, 1100000, 16, 16, 8),  # a stride-1 decoder level: 16-wide tiles, 64-row tiles
+    (64, 60, 2000, 1024, 512, 8),      # the k = 4 generative conv
 ]
 
 

@@ -18,6 +18,10 @@ order through at most ~20 layers, each ~1e-7 relative); 1e-4 for the loss,
 every parameter gradient and the weights after one SGD step, as the other
 training parity tests: batch norm's backward amplifies the forward's
 rounding.  Coordinates, keys, target masks and keep masks are bit-equal.
+
+The bf16 cases at the end run both packages under ``set_compute_dtype(bf16)``,
+every run held to JAX's bf16 keep masks; their rule (BF16_FACTOR, BF16_FLOOR)
+is stated there.
 """
 
 import jax
@@ -406,3 +410,274 @@ def test_models_default_to_the_card():
         else:
             with pytest.raises(RuntimeError, match="device='cpu'"):
                 build()
+
+
+# ---------------------------------------------------------------------------
+# bf16: both packages under ``set_compute_dtype(bf16)``
+# ---------------------------------------------------------------------------
+#
+# A decoder level keeps the rows whose logit is > 0 (or, in train mode, that
+# are targets), so bf16 rounding flips a few rows near 0 and from there the
+# runs would be on different maps.  JAX's bf16 run goes first, as it is, and
+# its keep masks are read from its logits and targets; the port's bf16 run
+# and its float32 run are then held to those masks by a test-side pruning
+# (``HeldPruning``).  A row may differ only where the port's logit lies
+# within the level's bf16-to-float32 distance of 0 (the larger of the two
+# packages' bf16 runs' distances from the port's float32 run); the count is
+# printed.  Keys, coordinates and target masks are then bit-equal at every
+# level.  The port's bf16 logits, loss and gradients are judged against its
+# float32 run on the same masks, with JAX's bf16 run as the yardstick, as in
+# test_torch_train_bf16.py: the port's distance, max |Δ| / max |ref| per
+# tensor, within BF16_FACTOR times JAX's, or BF16_FLOOR (one bf16 ulp),
+# whichever is larger.
+
+BF16_FACTOR, BF16_FLOOR = 4.0, 2.0**-7
+
+
+@pytest.fixture(scope="module")
+def bf16_policy():
+    """Sets the policy in both packages (True: bf16, False: None); resets
+    both to None after the module."""
+    def on(flag):
+        ME.set_compute_dtype(jnp.bfloat16 if flag else None)
+        MT.set_compute_dtype(torch.bfloat16 if flag else None)
+    yield on
+    on(False)
+
+
+class HeldPruning(MT.MinkowskiPruning):
+    """Prunes level i to ``masks[i]``, whatever the model's own keep mask
+    says; records the levels it pruned, where that mask differed and the
+    model's logits.  A level is pruned where the model's own mask keeps a
+    row, so the levels pruned must be those where ``masks`` keeps one."""
+
+    def __init__(self, model, masks):
+        super().__init__()
+        self.masks, self.logits, self.differ, self.pruned = masks, [], {}, []
+        for head in model.cls_heads:
+            head.register_forward_hook(
+                lambda m, a, o: self.logits.append(o.F.detach()[:, 0].double().numpy()))
+
+    def forward(self, input, mask):
+        level = len(self.logits) - 1
+        held = torch.from_numpy(self.masks[level])
+        self.differ[level] = (mask != held).numpy()
+        self.pruned.append(level)
+        return super().forward(input, held)
+
+    def check_levels(self):
+        assert self.pruned == [i for i, m in enumerate(self.masks) if m.any()], self.pruned
+        for level, logits in enumerate(self.logits):  # unpruned: every row dropped by both
+            self.differ.setdefault(level, logits > 0)
+
+
+def _f64(x):
+    return np.asarray(x.detach().float().numpy() if isinstance(x, torch.Tensor) else x, np.float64)
+
+
+def _bf16_judge(port, jaxb, ref, what):
+    """Per name: the port's bf16 distance from ``ref`` (its float32 run)
+    within BF16_FACTOR times JAX's, or BF16_FLOOR."""
+    ratios = {}
+    for k in ref:
+        d_port, d_jax = _rel(port[k], ref[k]), _rel(jaxb[k], ref[k])
+        ratios[k] = (d_port / max(BF16_FACTOR * d_jax, BF16_FLOOR), d_port, d_jax)
+        assert d_port <= max(BF16_FACTOR * d_jax, BF16_FLOOR), (what, k, d_port, d_jax)
+    worst = max(ratios, key=lambda k: ratios[k][0])
+    print(f"{what}: {len(ratios)} judged; closest to its bound {worst}: port {ratios[worst][1]:.2e}, "
+          f"JAX {ratios[worst][2]:.2e} from the port's float32 run ({ratios[worst][0]:.2f} of the bound)")
+
+
+def _held_flips(runs, jlogits, tag):
+    """Per level, the rows where a port run's own keep mask left JAX's: each
+    such logit within the level's bf16-to-float32 distance of 0."""
+    bf16, f32 = runs["bf16"], runs["f32"]
+    for level, j in enumerate(jlogits):
+        ref = f32.logits[level]
+        apart = max(_rel(bf16.logits[level], ref), _rel(_f64(j)[:, 0], ref))
+        for name, run in runs.items():
+            d = run.differ[level]
+            margin = np.abs(run.logits[level][d]).max(initial=0) / np.abs(run.logits[level]).max()
+            print(f"{tag} level {level}, port {name}: keep mask differs from JAX bf16 on "
+                  f"{int(d.sum())} of {d.size} rows, logit within {margin:.2e} of 0 "
+                  f"(the level's bf16-to-float32 distance {apart:.2e})")
+            assert margin <= apart, (tag, name, level, margin, apart)
+
+
+def _jax_completion_bf16(batch, training, seed):
+    """JAX's CompletionNet under the bf16 policy (the policy already set):
+    the weights, its per-level logits, targets, keys, coordinates, keep
+    masks and final map, and in train mode the loss (logits cast to
+    float32 before the BCE) and its gradients."""
+    jnet = JCompletionNet(resolution=RES, enc_channels=NARROW, dec_channels=NARROW,
+                          rngs=nnx.Rngs(seed))
+    tnet = CompletionNet(resolution=RES, enc_channels=NARROW, dec_channels=NARROW, device="cpu")
+    sd = _pair(jnet, tnet, seed=seed)
+    (_, jx, jt), _ = _inputs(batch)
+    jnet.train(training)
+    _jax_bn(jnet, training)
+    seen = {}
+
+    def loss_fn(m):
+        out_cls, targets, final = m(jx, jt)
+        assert all(c.F.dtype == jnp.bfloat16 for c in out_cls)
+        seen["keys"] = [c.coordinate_map_key.get_key() for c in out_cls]
+        seen["coords"] = [np.asarray(c.C) for c in out_cls]
+        seen["targets"] = [np.asarray(t) for t in targets]
+        seen["final"] = (final.coordinate_map_key.get_key(), np.asarray(final.C))
+        loss = sum(optax.sigmoid_binary_cross_entropy(c.F[:, 0].astype(jnp.float32),
+                                                      t.astype(jnp.float32)).mean()
+                   for c, t in zip(out_cls, targets))
+        return loss / len(out_cls), [c.F for c in out_cls]
+
+    if training:
+        (loss, logits), grads = nnx.value_and_grad(loss_fn, has_aux=True)(jnet)
+        named = nnx.clone(jnet)
+        nnx.update(named, grads)
+        seen["loss"], seen["grads"] = float(loss), _export(named)
+    else:
+        _, logits = loss_fn(jnet)
+    seen["logits"] = logits
+    seen["masks"] = [(np.asarray(c, np.float32)[:, 0] > 0) | (t if training else False)
+                     for c, t in zip(logits, seen["targets"])]
+    return sd, seen
+
+
+def _port_completion_held(sd, batch, masks, training):
+    """The port's CompletionNet (under whatever policy is set) held to
+    ``masks``: (pruning record, logits, targets, final, loss, gradients)."""
+    tnet = CompletionNet(resolution=RES, enc_channels=NARROW, dec_channels=NARROW, device="cpu")
+    load_state_dict_from_reference(tnet, sd)
+    tnet.train(training)
+    tnet.pruning = held = HeldPruning(tnet, masks)
+    _, (_, tx, tt) = _inputs(batch)
+    with torch.set_grad_enabled(training):
+        out_cls, targets, final = tnet(tx, tt)
+    held.check_levels()
+    loss, grads = None, None
+    if training:
+        loss = sum(_bce(c.F[:, 0].float(), t) for c, t in zip(out_cls, targets)) / len(out_cls)
+        loss.backward()
+        loss, grads = loss.item(), {k: p.grad.clone() for k, p in tnet.named_parameters()}
+        assert all(g.dtype == torch.float32 for g in grads.values())
+    return held, out_cls, targets, final, loss, grads
+
+
+@pytest.mark.parametrize("training", [True, False], ids=["train", "eval"])
+def test_completion_bf16_matches_jax_on_held_masks(bf16_policy, batch, training):
+    """JAX's bf16 CompletionNet sets the keep masks; the port's bf16 and
+    float32 runs on them: per level keys, coordinates and targets bit-equal,
+    the final map JAX's, the bf16 logits (and in train mode the loss and
+    every parameter gradient) within BF16_FACTOR of JAX's bf16 distance from
+    the port's float32 run."""
+    bf16_policy(True)
+    sd, seen = _jax_completion_bf16(batch, training, seed=2 if training else 4)
+    runs = {}
+    for name, flag in (("bf16", True), ("f32", False)):
+        bf16_policy(flag)
+        runs[name] = _port_completion_held(sd, batch, seen["masks"], training)
+    bf16_policy(True)
+    _held_flips({k: v[0] for k, v in runs.items()}, seen["logits"],
+                "train" if training else "eval")
+    for name, (_, out_cls, targets, final, _, _) in runs.items():
+        assert all(c.F.dtype == (torch.bfloat16 if name == "bf16" else torch.float32)
+                   for c in out_cls)
+        for i, (c, t) in enumerate(zip(out_cls, targets)):
+            assert c.coordinate_map_key.get_key() == seen["keys"][i]
+            np.testing.assert_array_equal(c.C.numpy(), seen["coords"][i])
+            np.testing.assert_array_equal(t.numpy(), seen["targets"][i])
+        assert final.coordinate_map_key.get_key() == seen["final"][0]
+        np.testing.assert_array_equal(final.C.numpy(), seen["final"][1])
+    port, ref = runs["bf16"], runs["f32"]
+    levels = range(len(seen["logits"]))
+    _bf16_judge({i: _f64(port[1][i].F) for i in levels}, {i: _f64(seen["logits"][i]) for i in levels},
+                {i: _f64(ref[1][i].F) for i in levels}, "logits")
+    if training:
+        _bf16_judge({"loss": port[4]}, {"loss": seen["loss"]}, {"loss": ref[4]}, "loss")
+        want = seen["grads"]
+        _bf16_judge({k: _f64(g).reshape(np.shape(want[k])) for k, g in port[5].items()},
+                    {k: want[k] for k in port[5]},
+                    {k: _f64(g).reshape(np.shape(want[k])) for k, g in ref[5].items()},
+                    "gradients")
+
+
+def test_vae_bf16_encoder_and_decoder_match_jax(bf16_policy, vae_pair, batch):
+    """The VAE under bf16: the encoder's mean and log-variance, then the
+    decoder in train mode fed one bf16 z on the seed voxels, JAX's bf16
+    decoder setting the keep masks; per level keys, coordinates and targets
+    bit-equal, the bf16 logits judged as CompletionNet's."""
+    jnet, _, sd = vae_pair
+    _, _, full = batch
+    feats = np.ones((len(full), 1), np.float32)
+    bf16_policy(True)
+    (jm, jx, jt), _ = _inputs((full, feats, full))
+    _jax_bn(jnet, True)
+    jnet.decoder.train()
+    jmean, jlogvar = jnet.encoder(jx)
+    assert jmean.F.dtype == jlogvar.F.dtype == jnp.bfloat16
+    eps = jnp.asarray(np.random.RandomState(7).randn(SHAPES, NARROW[-1]), jnp.bfloat16)
+    jz = jmean.F + eps * jnp.exp(0.5 * jlogvar.F)
+    jseed, _ = jm.insert_and_map(np.asarray(jmean.C), jnet.decoder_resolution_stride(jx))
+    jcls, jtargets, jout = jnet.decoder(
+        ME.SparseTensor(jz, coordinate_map_key=jseed, coordinate_manager=jm), jt)
+    masks = [(np.asarray(c.F, np.float32)[:, 0] > 0) | np.asarray(t) for c, t in zip(jcls, jtargets)]
+    z = torch.from_numpy(np.asarray(jz, np.float32))
+    runs, enc = {}, {}
+    for name, flag in (("bf16", True), ("f32", False)):
+        bf16_policy(flag)
+        tnet = VAE(channels=NARROW, in_nchannel=1, resolution=RES, device="cpu").train()
+        load_state_dict_from_reference(tnet, sd)
+        tnet.decoder.pruning = held = HeldPruning(tnet.decoder, masks)
+        _, (_, tx, tt) = _inputs((full, feats, full))
+        with torch.no_grad():
+            mean, logvar = tnet.encoder(tx)
+            enc[name] = {"mean": _f64(mean.F), "log_var": _f64(logvar.F)}
+            tz = z.to(torch.bfloat16) if flag else z
+            tcls, ttargets, tout = tnet.decoder(tnet.seed(tx, mean, tz), tt)
+        held.check_levels()
+        runs[name] = (held, tcls, ttargets, tout)
+    bf16_policy(True)
+    _bf16_judge(enc["bf16"], {"mean": _f64(jmean.F), "log_var": _f64(jlogvar.F)}, enc["f32"],
+                "encoder")
+    _held_flips({k: v[0] for k, v in runs.items()}, [c.F for c in jcls], "VAE decoder")
+    for name, (_, tcls, ttargets, tout) in runs.items():
+        for j, t, jtg, ttg in zip(jcls, tcls, jtargets, ttargets):
+            assert t.coordinate_map_key.get_key() == j.coordinate_map_key.get_key()
+            np.testing.assert_array_equal(t.C.numpy(), np.asarray(j.C))
+            np.testing.assert_array_equal(ttg.numpy(), np.asarray(jtg))
+        assert tout.tensor_stride == tuple(jout.tensor_stride) == (2, 2, 2)
+        np.testing.assert_array_equal(tout.C.numpy(), np.asarray(jout.C))
+    levels = range(len(jcls))
+    _bf16_judge({i: _f64(runs["bf16"][1][i].F) for i in levels}, {i: _f64(jcls[i].F) for i in levels},
+                {i: _f64(runs["f32"][1][i].F) for i in levels}, "decoder logits")
+
+
+@pytest.mark.parametrize("bf16", [True, False], ids=["bf16", "float32"])
+def test_vae_reparameterises_in_the_means_dtype(bf16_policy, vae_pair, batch, bf16):
+    """The decoder input that ``VAE.forward`` builds: under bf16 JAX's
+    expression (models/vae.py, ``mean + eps * exp(0.5 * log_var)``) with the
+    noise in the mean's dtype and every op rounded to it, bit for bit, on
+    the generator's draw; in float32 the float32 expression."""
+    _, _, sd = vae_pair
+    _, _, full = batch
+    bf16_policy(bf16)
+    tnet = VAE(channels=NARROW, in_nchannel=1, resolution=RES, device="cpu").train()
+    load_state_dict_from_reference(tnet, sd)
+    seen = {}
+    tnet.decoder.register_forward_pre_hook(lambda m, a: seen.update(z=a[0].F))
+    _, (_, tx, tt) = _inputs((full, np.ones((len(full), 1), np.float32), full))
+    with torch.no_grad():
+        _, _, _, mean, log_var = tnet(tx, tt, generator=torch.Generator().manual_seed(5))
+    eps = torch.randn(mean.F.shape, generator=torch.Generator().manual_seed(5))
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    assert mean.F.dtype == log_var.F.dtype == seen["z"].dtype == dtype
+    if bf16:
+        def j(t):
+            return jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+        want = j(mean.F) + j(eps) * jnp.exp(0.5 * j(log_var.F))
+        assert want.dtype == jnp.bfloat16
+        want = torch.from_numpy(np.asarray(want, np.float32))
+    else:
+        want = mean.F + eps * torch.exp(0.5 * log_var.F)
+    assert torch.equal(seen["z"].float(), want)
+    bf16_policy(False)
