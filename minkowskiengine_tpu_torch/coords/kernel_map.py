@@ -47,6 +47,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils import profiling as P
 from . import keys as K
 from .lookup import find_rows
 from .map import CoordinateMap
@@ -192,15 +193,19 @@ def build_kernel_map(
         offsets = np.concatenate(
             [np.zeros((offsets.shape[0], 1), np.int64), offsets], axis=1
         )
-    if probe is not None:
-        in_idx = _build_in_idx_grid(probe, out_map.coordinates, offsets, out_map.valid_mask())
-    else:
-        offs = K.device_constant(offsets, device=out_map.device)
-        in_idx = _build_in_idx(in_map.keys, out_map.coordinates, offs, out_map.valid_mask())
-    if probe_out is not None:
-        out_idx_t = _build_in_idx_grid(probe_out, in_map.coordinates, -offsets, in_map.valid_mask())
-    else:
-        out_idx_t = _invert_matching(in_idx, in_map.rows)
+    with P.span("coords.kernel_map.in_idx"):
+        if probe is not None:
+            in_idx = _build_in_idx_grid(probe, out_map.coordinates, offsets, out_map.valid_mask())
+        else:
+            offs = K.device_constant(offsets, device=out_map.device)
+            in_idx = _build_in_idx(in_map.keys, out_map.coordinates, offs, out_map.valid_mask())
+    with P.span("coords.kernel_map.out_idx_t"):
+        if probe_out is not None:
+            out_idx_t = _build_in_idx_grid(
+                probe_out, in_map.coordinates, -offsets, in_map.valid_mask()
+            )
+        else:
+            out_idx_t = _invert_matching(in_idx, in_map.rows)
     return KernelMap(in_idx, out_idx_t, in_map.rows, out_map.rows)
 
 
@@ -265,7 +270,11 @@ def stride_map_to_kernel_map(
     """
     dev = in_to_out.device
     rank, max_rank = _collision_rank(in_to_out, n_out)
-    kmax = max(int(max_rank), 1) if kmax_floor is None else kmax_floor
+    if kmax_floor is None:
+        with P.host_read("pool_map.kmax"):
+            kmax = max(int(max_rank), 1)
+    else:
+        kmax = kmax_floor
     valid = in_to_out >= 0
     # a slot past a floor that did not hold is dropped (the check reports it)
     fits = valid & (rank < kmax)

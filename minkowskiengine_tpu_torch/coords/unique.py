@@ -21,6 +21,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils import profiling as P
 from . import keys as K
 
 
@@ -47,7 +48,11 @@ def unique_from_keys(keys: torch.Tensor) -> UniqueResult:
     inverse = torch.empty_like(order)
     inverse[order] = seg_id
     # stable sort: the first row of each equal-key run has the least index
-    return UniqueResult(order[is_new], inverse, s_keys[is_new])
+    with P.host_read("unique.first_rows"):
+        first = order[is_new]
+    with P.host_read("unique.keys"):
+        u_keys = s_keys[is_new]
+    return UniqueResult(first, inverse, u_keys)
 
 
 def unique_coordinates(coords: torch.Tensor):

@@ -23,6 +23,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils import profiling as P
 from . import build
 from .gather_gemm import MMA_STAGES, copy_width, wgmma_tile
 
@@ -207,10 +208,10 @@ def conv_dw(x: torch.Tensor, g: torch.Tensor, idx: torch.Tensor, *,
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     aligned = x.data_ptr() % 16 == 0 and g.data_ptr() % 16 == 0
     p = plan(k_vol, cin, cout, n_out, sms, aligned, bf16, body)
-    ws = None
-    if p.splits > 1:  # per-split partial tiles, summed in order by a second pass
-        ws = torch.empty((p.splits, k_vol, cin, cout), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
+    with P.span("k2." + p.body), torch.cuda.device(x.device):
+        ws = None
+        if p.splits > 1:  # per-split partial tiles, summed in order by a second pass
+            ws = torch.empty((p.splits, k_vol, cin, cout), dtype=torch.float32, device=x.device)
         stream = torch.cuda.current_stream().cuda_stream
         lib = build.library()
         pointers = (x.data_ptr(), g.data_ptr(), idx.data_ptr(), out.data_ptr(),

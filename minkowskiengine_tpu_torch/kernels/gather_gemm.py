@@ -22,6 +22,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils import profiling as P
 from . import build
 
 ROWS_PER_TILE = 64  # BM in csrc/gather_gemm.cu and csrc/gather_gemm_wgmma.cu
@@ -227,10 +228,10 @@ def gather_gemm(x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor, *,
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     aligned = x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
     p = plan(n_out, k_vol, cin, cout, sms, aligned, bf16, body)
-    ws = None
-    if p.splits > 1:  # per-range partial tiles, summed in order by a second pass
-        ws = torch.empty((p.splits, n_out, cout), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
+    with P.span("k1." + p.body), torch.cuda.device(x.device):
+        ws = None
+        if p.splits > 1:  # per-range partial tiles, summed in order by a second pass
+            ws = torch.empty((p.splits, n_out, cout), dtype=torch.float32, device=x.device)
         stream = torch.cuda.current_stream().cuda_stream
         lib = build.library()
         args = (x.data_ptr(), w.data_ptr(), idx.data_ptr(), out.data_ptr(),

@@ -24,6 +24,7 @@ from ..nn.norm import MinkowskiBatchNorm
 from ..nn.pruning import MinkowskiPruning
 from ..sparse_tensor import SparseTensor
 from ..types import RegionType, resolve_device
+from ..utils import profiling as P
 from .resnet import _Seq
 
 
@@ -59,7 +60,9 @@ def generative_levels(model, dec, blocks, skips, target_key):
         keep = cls.F[:, 0] > 0
         if model.training:
             keep = keep | target
-        if bool(keep.any()):
+        with P.host_read("completion.keep", coords=True):
+            kept = bool(keep.any())
+        if kept:
             dec = model.pruning(dec, keep)
     return out_cls, targets, dec
 

@@ -14,6 +14,7 @@ from torch import nn
 
 from ..ops import functional as F
 from ..sparse_tensor import SparseTensor, whole_rows
+from ..utils import profiling as P
 
 
 class MinkowskiInterpolationFunction:
@@ -45,9 +46,10 @@ class MinkowskiInterpolation(nn.Module):
 
     def forward(self, input: SparseTensor, tfield):
         whole_rows(input, "interpolation")
-        out, in_map, out_map, weights = MinkowskiInterpolationFunction.apply(
-            input.F, tfield, input.coordinate_map_key, input.coordinate_manager
-        )
+        with P.span("nn.interpolate"):
+            out, in_map, out_map, weights = MinkowskiInterpolationFunction.apply(
+                input.F, tfield, input.coordinate_map_key, input.coordinate_manager
+            )
         returns = [out]
         if self.return_kernel_map:
             returns.append((in_map, out_map))

@@ -60,6 +60,7 @@ from ..ops import functional as F
 from ..parallel import comm
 from ..sparse_tensor import whole_rows
 from ..types import resolve_device
+from ..utils import profiling as P
 
 
 class MinkowskiBatchNorm(nn.Module):
@@ -127,27 +128,28 @@ class MinkowskiBatchNorm(nn.Module):
         takes the unbiased ``var · count / (count - 1)``, as JAX computes
         them.  Eval mode uses the running statistics.  On a row block the
         affine parameters' gradients sum over its group."""
-        feats = input.F
-        x = feats.to(torch.promote_types(feats.dtype, torch.float32))
-        bn = self.bn
-        if self.training or not bn.track_running_stats:
-            mean, var, count = F.batch_moments(x, reduce)
-            if self.training and bn.track_running_stats:
-                with torch.no_grad():
-                    bn.num_batches_tracked.add_(1)
-                    m = bn.momentum
-                    unbiased = var * count / (count - 1.0).clamp_min(1.0)
-                    bn.running_mean.mul_(1 - m).add_(m * mean.to(bn.running_mean.dtype))
-                    bn.running_var.mul_(1 - m).add_(m * unbiased.to(bn.running_var.dtype))
-        else:
-            mean, var = bn.running_mean, bn.running_var
-        out = (x - mean) * torch.rsqrt(var + bn.eps)
-        if bn.affine:
-            w, b = bn.weight, bn.bias
-            if block is not None:
-                w, b = block.replicated(w), block.replicated(b)
-            out = out * w + b
-        return input._wrap(out.to(feats.dtype))
+        with P.span("nn.batch_norm"):
+            feats = input.F
+            x = feats.to(torch.promote_types(feats.dtype, torch.float32))
+            bn = self.bn
+            if self.training or not bn.track_running_stats:
+                mean, var, count = F.batch_moments(x, reduce)
+                if self.training and bn.track_running_stats:
+                    with torch.no_grad():
+                        bn.num_batches_tracked.add_(1)
+                        m = bn.momentum
+                        unbiased = var * count / (count - 1.0).clamp_min(1.0)
+                        bn.running_mean.mul_(1 - m).add_(m * mean.to(bn.running_mean.dtype))
+                        bn.running_var.mul_(1 - m).add_(m * unbiased.to(bn.running_var.dtype))
+            else:
+                mean, var = bn.running_mean, bn.running_var
+            out = (x - mean) * torch.rsqrt(var + bn.eps)
+            if bn.affine:
+                w, b = bn.weight, bn.bias
+                if block is not None:
+                    w, b = block.replicated(w), block.replicated(b)
+                out = out * w + b
+            return input._wrap(out.to(feats.dtype))
 
 
 def _own(stats):

@@ -18,6 +18,7 @@ from torch import nn
 
 from ..sparse_tensor import SparseTensor
 from ..types import resolve_device
+from ..utils import profiling as P
 
 
 class MinkowskiLinear(nn.Module):
@@ -94,7 +95,8 @@ def cat(*tensors):
     """Concatenate the features of same-coordinate tensors
     (reference: MinkowskiOps.py:70-128)."""
     tensors = _unpack(tensors)
-    return tensors[0]._wrap(torch.cat([t.F for t in tensors], dim=1))
+    with P.span("nn.cat"):
+        return tensors[0]._wrap(torch.cat([t.F for t in tensors], dim=1))
 
 
 def _sum(*tensors):

@@ -18,6 +18,7 @@ from ..kernel_generator import KernelGenerator
 from ..ops import functional as F
 from ..sparse_tensor import SparseTensor, whole_rows
 from ..types import PoolingMode, RegionType
+from ..utils import profiling as P
 from .conv import _conv_out_key, _expected_out_ts, _resolve_out_key
 
 _LOCAL = {
@@ -86,11 +87,12 @@ class MinkowskiPoolingBase(nn.Module):
         return out_key, kmap
 
     def forward(self, input: SparseTensor, coordinates=None) -> SparseTensor:
-        out_key, kmap = self._out_key_and_kmap(input, coordinates)
-        outfeat = _LOCAL[self.pooling_mode](input.F, kmap.in_idx)
-        return SparseTensor(
-            outfeat, coordinate_map_key=out_key, coordinate_manager=input.coordinate_manager
-        )
+        with P.span("nn.pool"):
+            out_key, kmap = self._out_key_and_kmap(input, coordinates)
+            outfeat = _LOCAL[self.pooling_mode](input.F, kmap.in_idx)
+            return SparseTensor(
+                outfeat, coordinate_map_key=out_key, coordinate_manager=input.coordinate_manager
+            )
 
     def extra_repr(self):
         kg = self.kernel_generator
@@ -180,12 +182,13 @@ class MinkowskiGlobalPooling(nn.Module):
         self.pooling_mode = mode
 
     def forward(self, input, coordinates=None) -> SparseTensor:
-        origin_key, origin_rows = _origin(input)
-        num = input.coordinate_manager.size(origin_key)
-        pooled, _ = F.global_pool(input.F, origin_rows, num, _GLOBAL[self.pooling_mode])
-        return SparseTensor(
-            pooled, coordinate_map_key=origin_key, coordinate_manager=input.coordinate_manager
-        )
+        with P.span("nn.pool"):
+            origin_key, origin_rows = _origin(input)
+            num = input.coordinate_manager.size(origin_key)
+            pooled, _ = F.global_pool(input.F, origin_rows, num, _GLOBAL[self.pooling_mode])
+            return SparseTensor(
+                pooled, coordinate_map_key=origin_key, coordinate_manager=input.coordinate_manager
+            )
 
     def extra_repr(self):
         return f"mode={self.pooling_mode!s}"

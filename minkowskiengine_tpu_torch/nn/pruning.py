@@ -14,6 +14,7 @@ from torch import nn
 
 from ..ops import functional as F
 from ..sparse_tensor import SparseTensor, whole_rows
+from ..utils import profiling as P
 
 
 class MinkowskiPruning(nn.Module):
@@ -22,13 +23,14 @@ class MinkowskiPruning(nn.Module):
 
     def forward(self, input: SparseTensor, mask) -> SparseTensor:
         whole_rows(input, "pruning")
-        manager = input.coordinate_manager
-        new_key, _, out_from_in = manager.prune(input.coordinate_map_key, torch.as_tensor(mask))
-        return SparseTensor(
-            F.prune_features(input.F, out_from_in),
-            coordinate_map_key=new_key,
-            coordinate_manager=manager,
-        )
+        with P.span("nn.prune"):
+            manager = input.coordinate_manager
+            new_key, _, out_from_in = manager.prune(input.coordinate_map_key, torch.as_tensor(mask))
+            return SparseTensor(
+                F.prune_features(input.F, out_from_in),
+                coordinate_map_key=new_key,
+                coordinate_manager=manager,
+            )
 
 
 class MinkowskiPruningFunction:

@@ -12,6 +12,7 @@ from torch import nn
 
 from ..ops import functional as F
 from ..sparse_tensor import SparseTensor, _invert_union_map, whole_rows
+from ..utils import profiling as P
 
 
 class MinkowskiUnion(nn.Module):
@@ -31,11 +32,12 @@ class MinkowskiUnion(nn.Module):
                 raise ValueError("All inputs must share a tensor stride")
             if x.F.shape[1] != inputs[0].F.shape[1]:
                 raise ValueError("All inputs must share the channel size")
-        manager = inputs[0].coordinate_manager
-        keys = [x.coordinate_map_key for x in inputs]
-        union_key = manager.merge(keys)
-        out = MinkowskiUnionFunction.apply(keys, union_key, manager, *(x.F for x in inputs))
-        return SparseTensor(out, coordinate_map_key=union_key, coordinate_manager=manager)
+        with P.span("nn.union"):
+            manager = inputs[0].coordinate_manager
+            keys = [x.coordinate_map_key for x in inputs]
+            union_key = manager.merge(keys)
+            out = MinkowskiUnionFunction.apply(keys, union_key, manager, *(x.F for x in inputs))
+            return SparseTensor(out, coordinate_map_key=union_key, coordinate_manager=manager)
 
 
 class MinkowskiUnionFunction:

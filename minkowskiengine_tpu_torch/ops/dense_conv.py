@@ -31,6 +31,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils import profiling as P
 
 # The gate's cost model, in microseconds per training use of a conv
 # (forward, input gradient and weight gradient), fitted by least squares on
@@ -146,7 +147,9 @@ def build_dense_plan(coordinate_map, bbox=None, extent_floor=None, margin=1.0) -
     valid = coordinate_map.valid_mask()
     mins_dev, maxs_dev = _bbox(coords, valid)
     if bbox is None:
-        bbox = torch.stack([mins_dev, maxs_dev]).tolist()
+        bbox = torch.stack([mins_dev, maxs_dev])
+        with P.host_read("dense_plan.bbox"):
+            bbox = bbox.tolist()
     mins, maxs = np.asarray(bbox[0]), np.asarray(bbox[1])
     if (maxs < mins).any():
         return None

@@ -19,6 +19,7 @@ from torch.autograd.function import once_differentiable
 from ..coords.kernel_map import KernelMap
 from ..kernels.conv_dw import conv_dw
 from ..kernels.gather_gemm import gather_gemm
+from ..utils import profiling as P
 
 
 def take_rows(feats: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -53,7 +54,9 @@ def segment_sum(feats: torch.Tensor, seg_ids: torch.Tensor, num_segments: int) -
 def segment_count(seg_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
     """Rows per segment (int64); ids < 0 are dropped."""
     ids = _segment_ids(seg_ids, num_segments)
-    return torch.bincount(ids, minlength=num_segments + 1)[:num_segments]
+    with P.host_read("segment_count", reads=2):  # bincount reads the ids' least and largest
+        counts = torch.bincount(ids, minlength=num_segments + 1)
+    return counts[:num_segments]
 
 
 def segment_mean(feats: torch.Tensor, seg_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
@@ -240,11 +243,12 @@ class _SparseConv(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, feats, kernel, in_idx, out_idx_t):
-        w = kernel
-        if feats.dtype == torch.bfloat16 and kernel.dtype == torch.float32:
-            w = kernel.to(torch.bfloat16)
-        ctx.save_for_backward(feats, w, in_idx, out_idx_t)
-        return gather_gemm(feats, w.contiguous(), in_idx)
+        with P.conv_part("fwd"):
+            w = kernel
+            if feats.dtype == torch.bfloat16 and kernel.dtype == torch.float32:
+                w = kernel.to(torch.bfloat16)
+            ctx.save_for_backward(feats, w, in_idx, out_idx_t)
+            return gather_gemm(feats, w.contiguous(), in_idx)
 
     @staticmethod
     @once_differentiable
@@ -256,9 +260,11 @@ class _SparseConv(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             # d_feats[i] = Σ_k g[out_idx_t[k, i]] @ W[k]ᵀ: the forward kernel
             # on the transposed matching
-            d_feats = gather_gemm(g, w.transpose(1, 2).contiguous(), out_idx_t)
+            with P.conv_part("dx"):
+                d_feats = gather_gemm(g, w.transpose(1, 2).contiguous(), out_idx_t)
         if ctx.needs_input_grad[1]:
-            d_kernel = conv_dw(feats, g, in_idx)  # float32 for bf16 inputs
+            with P.conv_part("dw"):
+                d_kernel = conv_dw(feats, g, in_idx)  # float32 for bf16 inputs
         return d_feats, d_kernel, None, None
 
 

@@ -40,6 +40,7 @@ from .tensor import (
     sparse_tensor_operation_mode,
 )
 from .types import SparseTensorOperationMode, SparseTensorQuantizationMode, resolve_device
+from .utils import profiling as P
 
 
 def as_features(features, device=None) -> torch.Tensor:
@@ -164,10 +165,11 @@ class SparseTensor:
             # float coordinates splatted onto the unit lattice, as JAX does
             from .tensor_field import TensorField
 
-            st = TensorField(
-                features, torch.as_tensor(coordinates).to(torch.float32),
-                coordinate_manager=coordinate_manager, quantization_mode=quantization_mode,
-            ).splat()
+            with P.span("tensor.sparse"):
+                st = TensorField(
+                    features, torch.as_tensor(coordinates).to(torch.float32),
+                    coordinate_manager=coordinate_manager, quantization_mode=quantization_mode,
+                ).splat()
             features, coordinate_map_key, coordinate_manager = st._F, st.coordinate_map_key, st._manager
         elif coordinates is not None:
             coordinates = torch.as_tensor(coordinates)
@@ -180,18 +182,20 @@ class SparseTensor:
                     "features and coordinates must have matching rows: "
                     f"{features.shape[0]} vs {coordinates.shape[0]}"
                 )
-            if coordinate_manager is None:
-                coordinate_manager = default_manager(
-                    coordinates.shape[1] - 1, features.device, allocator_type, minkowski_algorithm
+            with P.span("tensor.sparse"):
+                if coordinate_manager is None:
+                    coordinate_manager = default_manager(
+                        coordinates.shape[1] - 1, features.device, allocator_type,
+                        minkowski_algorithm,
+                    )
+                coordinate_map_key, (unique_map, inverse_map) = (
+                    coordinate_manager.insert_and_map(coordinates, tensor_stride)
                 )
-            coordinate_map_key, (unique_map, inverse_map) = (
-                coordinate_manager.insert_and_map(coordinates, tensor_stride)
-            )
-            self.unique_index = unique_map
-            self.inverse_mapping = inverse_map
-            features = quantize_features(
-                features, inverse_map, unique_map.shape[0], quantization_mode, unique_map
-            )
+                self.unique_index = unique_map
+                self.inverse_mapping = inverse_map
+                features = quantize_features(
+                    features, inverse_map, unique_map.shape[0], quantization_mode, unique_map
+                )
         elif row_block is not None:
             lo, hi = row_block.bounds(coordinate_manager.size(coordinate_map_key))
             if features.shape[0] != hi - lo:
@@ -435,15 +439,16 @@ class SparseTensor:
                 raise ValueError("both SparseTensors must hold the same rows (row_block)")
             return self._wrap(op(self._F, other._F))
         whole_rows(self, "arithmetic across maps")
-        keys = [self.coordinate_map_key, other.coordinate_map_key]
-        union_key = self._manager.merge(keys)
-        n = self._manager.size(union_key)
-        inv = [_invert_union_map(m, n) for m in self._manager.union_map(keys, union_key)]
-        return SparseTensor(
-            op(take_rows(self._F, inv[0]), take_rows(other._F, inv[1])),
-            coordinate_map_key=union_key,
-            coordinate_manager=self._manager,
-        )
+        with P.span("nn.union"):
+            keys = [self.coordinate_map_key, other.coordinate_map_key]
+            union_key = self._manager.merge(keys)
+            n = self._manager.size(union_key)
+            inv = [_invert_union_map(m, n) for m in self._manager.union_map(keys, union_key)]
+            return SparseTensor(
+                op(take_rows(self._F, inv[0]), take_rows(other._F, inv[1])),
+                coordinate_map_key=union_key,
+                coordinate_manager=self._manager,
+            )
 
     def __add__(self, other):
         return self._binary(other, lambda a, b: a + b)
@@ -480,8 +485,9 @@ class SparseTensor:
         if not isinstance(X, TensorField):
             raise TypeError("slice requires a TensorField input")
         whole_rows(self, "slice")
-        feats = take_rows(self._F, X.inverse_mapping(self.coordinate_map_key))
-        return X._wrap(feats)
+        with P.span("nn.interpolate"):
+            feats = take_rows(self._F, X.inverse_mapping(self.coordinate_map_key))
+            return X._wrap(feats)
 
     def cat_slice(self, X):
         """``X``'s own features, then the sliced features, side by side."""
@@ -490,18 +496,20 @@ class SparseTensor:
         if not isinstance(X, TensorField):
             raise TypeError("cat_slice requires a TensorField input")
         whole_rows(self, "cat_slice")
-        sliced = take_rows(self._F, X.inverse_mapping(self.coordinate_map_key))
-        return X._wrap(torch.cat([X.F, sliced], dim=1))
+        with P.span("nn.interpolate"):
+            sliced = take_rows(self._F, X.inverse_mapping(self.coordinate_map_key))
+            return X._wrap(torch.cat([X.F, sliced], dim=1))
 
     def features_at_coordinates(self, query_coordinates) -> torch.Tensor:
         """(N, ch) features interpolated multilinearly at float query
         coordinates (N, D+1), batch first; a lattice corner absent from the
         map adds 0 (reference: MinkowskiSparseTensor.py:690-718)."""
         whole_rows(self, "features_at_coordinates")
-        rows, weights = self._manager.interpolation_map_weight(
-            self.coordinate_map_key, query_coordinates
-        )
-        return F.interpolate_features(self._F, rows, weights)
+        with P.span("nn.interpolate"):
+            rows, weights = self._manager.interpolation_map_weight(
+                self.coordinate_map_key, query_coordinates
+            )
+            return F.interpolate_features(self._F, rows, weights)
 
     def interpolate(self, X) -> torch.Tensor:
         """This tensor's features interpolated at a TensorField's points."""

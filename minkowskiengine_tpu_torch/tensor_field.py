@@ -21,6 +21,7 @@ from .sparse_tensor import (
     SparseTensor, as_input_features, default_manager, quantize_features,
 )
 from .types import SparseTensorQuantizationMode, as_tuple
+from .utils import profiling as P
 
 
 class TensorField:
@@ -67,9 +68,12 @@ class TensorField:
                     f"features {tuple(features.shape)} and coordinates "
                     f"{tuple(coordinates.shape)} must be rank-2 with matching rows"
                 )
-            if coordinate_manager is None:
-                coordinate_manager = default_manager(coordinates.shape[1] - 1, features.device)
-            coordinate_field_map_key = coordinate_manager.insert_field(coordinates, tensor_stride)
+            with P.span("tensor.field"):
+                if coordinate_manager is None:
+                    coordinate_manager = default_manager(coordinates.shape[1] - 1, features.device)
+                coordinate_field_map_key = coordinate_manager.insert_field(
+                    coordinates, tensor_stride
+                )
         n = coordinate_manager._get_field_map(coordinate_field_map_key).size
         if features.shape[0] != n:
             raise ValueError(f"features rows ({features.shape[0]}) != field size ({n})")
@@ -161,18 +165,19 @@ class TensorField:
             return self.splat()
         if quantization_mode == SparseTensorQuantizationMode.NO_QUANTIZATION:
             raise ValueError("a TensorField quantizes: NO_QUANTIZATION does not apply")
-        unique_map = None
-        if coordinate_map_key is None:
-            coordinate_map_key, (unique_map, _) = self._manager.field_to_sparse_insert_and_map(
-                self.coordinate_field_map_key, tensor_stride
+        with P.span("tensor.sparse"):
+            unique_map = None
+            if coordinate_map_key is None:
+                coordinate_map_key, (unique_map, _) = self._manager.field_to_sparse_insert_and_map(
+                    self.coordinate_field_map_key, tensor_stride
+                )
+            feats = quantize_features(
+                self._F, self.inverse_mapping(coordinate_map_key),
+                self._manager.size(coordinate_map_key), quantization_mode, unique_map,
             )
-        feats = quantize_features(
-            self._F, self.inverse_mapping(coordinate_map_key),
-            self._manager.size(coordinate_map_key), quantization_mode, unique_map,
-        )
-        return SparseTensor(
-            feats, coordinate_map_key=coordinate_map_key, coordinate_manager=self._manager
-        )
+            return SparseTensor(
+                feats, coordinate_map_key=coordinate_map_key, coordinate_manager=self._manager
+            )
 
     def splat(self) -> SparseTensor:
         """Scatter the features onto the lattice corners around each point
@@ -181,12 +186,13 @@ class TensorField:
         field's device; then the manager is called in the JAX package's order
         (``insert_and_map``, ``interpolation_map_weight``), so the new map's
         key is JAX's: ``(1, ..., 1)`` with id ``""``, or ``map-N`` when taken."""
-        coords, D = self.C, self.D
-        corners, _ = _interp_corner_coords(coords, (1,) * D)
-        key, _ = self._manager.insert_and_map(corners.reshape(-1, D + 1), (1,) * D)
-        rows, weights = self._manager.interpolation_map_weight(key, coords)
-        feats = F.splat_features(self._F, rows, weights, self._manager.size(key))
-        return SparseTensor(feats, coordinate_map_key=key, coordinate_manager=self._manager)
+        with P.span("tensor.sparse"):
+            coords, D = self.C, self.D
+            corners, _ = _interp_corner_coords(coords, (1,) * D)
+            key, _ = self._manager.insert_and_map(corners.reshape(-1, D + 1), (1,) * D)
+            rows, weights = self._manager.interpolation_map_weight(key, coords)
+            feats = F.splat_features(self._F, rows, weights, self._manager.size(key))
+            return SparseTensor(feats, coordinate_map_key=key, coordinate_manager=self._manager)
 
     def inverse_mapping(self, sparse_tensor_map_key: CoordinateMapKey) -> torch.Tensor:
         """(N,) sparse row of each point, for a sparse map quantized from

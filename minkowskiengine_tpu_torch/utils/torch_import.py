@@ -29,8 +29,6 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..nn.conv import MinkowskiConvolutionBase
-
 __all__ = [
     "export_reference_state_dict",
     "load_reference_state_dict",
@@ -40,6 +38,9 @@ __all__ = [
 
 
 def _conv_biases(model: nn.Module):
+    # imported here: nn imports the coordinate engine, which imports utils
+    from ..nn.conv import MinkowskiConvolutionBase
+
     return {
         f"{name}.bias" if name else "bias"
         for name, m in model.named_modules()

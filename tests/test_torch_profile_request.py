@@ -1,5 +1,5 @@
-"""``tools/profile_request.py``: its interval union, and its refusal to run
-without a CUDA device."""
+"""``tools/profile_request.py``: its interval union, its refusal to run
+without a CUDA device, and its host clock over the port's counters."""
 
 import importlib.util
 import subprocess
@@ -46,9 +46,9 @@ def test_exits_nonzero_without_cuda():
 
 
 def test_host_clock_times_the_coordinate_calls_and_keep_any_syncs():
-    """On a narrow CompletionNet on the CPU: one timed ``keep.any()`` per
-    decoder level, time inside the manager's calls, and the patched methods
-    restored afterwards."""
+    """On a narrow CompletionNet on the CPU, read from the port's counters:
+    one timed ``keep.any()`` per decoder level, time inside the manager's
+    calls, and neither the manager nor ``Tensor.__bool__`` patched."""
     import minkowskiengine_tpu_torch as MT
     from minkowskiengine_tpu_torch.models import CompletionNet
     from minkowskiengine_tpu_torch.utils.datasets import completion_batch
@@ -58,6 +58,7 @@ def test_host_clock_times_the_coordinate_calls_and_keep_any_syncs():
     net = CompletionNet(resolution=16, enc_channels=(4, 8, 8), dec_channels=(4, 8, 8), device="cpu")
     saved = MT.CoordinateManager.kernel_map, torch.Tensor.__bool__
     with tool.HostClock() as clock:
+        assert (MT.CoordinateManager.kernel_map, torch.Tensor.__bool__) == saved
         mgr = MT.CoordinateManager(D=3, device="cpu")
         x = MT.SparseTensor(torch.from_numpy(feats), torch.from_numpy(partial), coordinate_manager=mgr)
         target, _ = mgr.insert_and_map(torch.from_numpy(full), 1)

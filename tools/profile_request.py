@@ -49,8 +49,9 @@ shapes at 128³, batch of seed 0) in train mode with SGD as in its phase 18:
 
 9. four steps (after one warm-up) with the host's time inside the
    coordinate manager's calls (maps, kernel maps, merge, union, prune; the
-   outermost call only) and inside the per-level ``keep.any()`` syncs of the
-   decoder, then one profiled step, as in 6;
+   outermost call only), inside the per-level ``keep.any()`` syncs of the
+   decoder and inside the sparse convs, and the step's host reads of device
+   values, all from the port's counters; then one profiled step, as in 6;
 
 Then ``chip_smoke.py``'s ``MinkowskiSplatFCNN`` (the FCNN's widths, voxelized
 by splatting) in train mode as in its phase 23, on the batch of step 8:
@@ -428,57 +429,28 @@ def profile_splat(dev):
             **{f"profiled_{k}": v for k, v in split.items()}}
 
 
-COORDINATE_CALLS = (
-    "insert_and_map", "stride", "stride_region", "kernel_map", "merge", "union_map", "prune",
-)
-
-
 class HostClock:
-    """Host time inside the coordinate manager's calls (the outermost one of
-    nested calls) and inside ``Tensor.__bool__`` when the decoder's level
-    loop calls it (``bool(keep.any())``, one host sync per level)."""
-
-    def __init__(self):
-        self.coordinate_s = self.keep_any_s = 0.0
-        self.keep_any_n = 0
-        self._depth = 0
+    """Host time inside the coordinate manager's building calls (the
+    outermost one of nested calls), inside the decoder's per-level
+    ``keep.any()`` reads and inside the sparse conv's parts, and the host
+    reads of device values, from the port's own counters
+    (``MT.utils.profiling.counters()``, read before and after the block)."""
 
     def __enter__(self):
-        self._saved = {n: getattr(CoordinateManager, n) for n in COORDINATE_CALLS}
-        for name, fn in self._saved.items():
-            setattr(CoordinateManager, name, self._timed(fn))
-        self._bool = torch.Tensor.__bool__
-        clock, original = self, torch.Tensor.__bool__
-
-        def timed_bool(t):
-            if sys._getframe(1).f_code.co_name != "generative_levels":
-                return original(t)
-            t0 = time.perf_counter()
-            try:
-                return original(t)
-            finally:
-                clock.keep_any_s += time.perf_counter() - t0
-                clock.keep_any_n += 1
-
-        torch.Tensor.__bool__ = timed_bool
+        self._before = MT.utils.profiling.counters()
         return self
 
     def __exit__(self, *exc):
-        for name, fn in self._saved.items():
-            setattr(CoordinateManager, name, fn)
-        torch.Tensor.__bool__ = self._bool
+        after = MT.utils.profiling.counters()
 
-    def _timed(self, fn):
-        def call(*args, **kw):
-            self._depth += 1
-            t0 = time.perf_counter()
-            try:
-                return fn(*args, **kw)
-            finally:
-                self._depth -= 1
-                if self._depth == 0:
-                    self.coordinate_s += time.perf_counter() - t0
-        return call
+        def delta(name, field):
+            return after.get(name, {field: 0})[field] - self._before.get(name, {field: 0})[field]
+
+        self.keep_any_n = delta("sync.completion.keep", "count")
+        self.keep_any_s = delta("sync.completion.keep", "seconds")
+        self.coordinate_s = delta("coords", "seconds") - self.keep_any_s
+        self.conv_s = delta("conv", "seconds")
+        self.host_reads = sum(delta(k, "count") for k in after if k.startswith("sync."))
 
 
 def profile_completion(dev):
@@ -498,18 +470,20 @@ def profile_completion(dev):
         return time.perf_counter() - t0, [c.size for c in out_cls]
 
     step()  # warm-up
-    steps, coordinate, keep_any, levels = [], [], [], None
+    steps, coordinate, keep_any, conv, levels = [], [], [], [], None
     for _ in range(REPEATS - 1):
         with HostClock() as clock:
             secs, levels = step()
         steps.append(secs * 1e3)
         coordinate.append(clock.coordinate_s * 1e3)
         keep_any.append(clock.keep_any_s * 1e3)
+        conv.append(clock.conv_s * 1e3)
     print(
         f"[9 completion training steps] {len(batch[0])} voxels in, rows per decoder level "
         f"{levels}; ms: {', '.join(f'{t:.2f}' for t in steps)}; host in coordinate-manager "
         f"calls: {', '.join(f'{t:.2f}' for t in coordinate)} ms; host in the {clock.keep_any_n} "
-        f"keep.any() syncs: {', '.join(f'{t:.2f}' for t in keep_any)} ms"
+        f"keep.any() syncs: {', '.join(f'{t:.2f}' for t in keep_any)} ms; host in the sparse "
+        f"convs: {', '.join(f'{t:.2f}' for t in conv)} ms; {clock.host_reads} host reads a step"
     )
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         secs, _ = step()
@@ -517,6 +491,7 @@ def profile_completion(dev):
     report("9 profiled completion step", split, prof)
     return {"voxels": len(batch[0]), "rows_per_level": levels, "step_ms": steps,
             "coordinate_host_ms": coordinate, "keep_any_host_ms": keep_any,
+            "conv_host_ms": conv, "host_reads": clock.host_reads,
             **{f"profiled_{k}": v for k, v in split.items()}}
 
 
