@@ -235,9 +235,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    gradients against the mean of two single-process steps on the same
    batches within 1e-5 of max|g|; (b) spatial: phase 5's first scan split
    over the ranks, MinkUNet34 in eval mode, forward and the backward of
-   sum(out^2) under ``spatial_execution``: the all-gathered output and the
-   gradients against the single-process run within 1e-4, dropped 0, the
-   halo per map and the maps that fell back to all-gather, and the K1
+   sum(out^2) under ``spatial_execution``: the all-gathered output against
+   the single-process run within 1e-4; the gradients against CPU float32
+   and float64 runs held to the card's ReLU masks (an element may take the
+   card's side of 0 only within KERNEL_RTOL of its call's largest): the
+   single process's median and worst leaf within GRAD_FACTOR times the CPU
+   float32 run's, each rank's every leaf within GRAD_FACTOR times the single
+   process's distance (the sharded against the single process's printed);
+   dropped 0, the halo per map and the maps that fell back to all-gather, and the K1
    rows each rank computed, which must be its blocks' and not the whole
    maps'; (c) column-parallel: MinkUNet34 cut by Cout over the two ranks,
    forward and one SGD step on phase 9's batch 0 against the unsharded
@@ -375,6 +380,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    beside the float32 instance's and the plain version's, the bound and
    the host µs, each call held to its plain version.
 
+44. K1's float32 bodies on the device alone: every sparse conv call of one
+   float32 training step of MinkUNet34 (phase 9's weights) on phase 9's
+   first batch (two scans at 5 cm) and on two rooms at 2 cm (``ROOM2CM``)
+   and of CompletionNet on phase 18's first batch, forward and input
+   gradient: the body, tile, ring and split the plan chose
+   (``wgmma_3xtf32`` wherever Cin > 4), each held to its plain version
+   within KERNEL_RTOL, two launches bit-equal, and, timed by
+   ``device_ms``, its ms beside the ``mma.sync`` body's (``body="mma"``),
+   the plain version's and the bound, with the wrapper's host µs; per net
+   the step's sums and a table by distinct conv (phase 42's ``redesign``).
+
 Bound of a kernel call: the larger of its useful operations (2 · pairs ·
 Cin · Cout) over the H100's 495 TFLOP/s dense TF32 tensor peak and its
 bytes (each input read once, the output written once) over 3.35 TB/s.  The
@@ -428,7 +444,7 @@ from minkowskiengine_tpu_torch.models import (
 )
 from minkowskiengine_tpu_torch.modules import SEBasicBlock
 from minkowskiengine_tpu_torch.nn.conv import MinkowskiConvolutionBase, _conv_out_key
-from minkowskiengine_tpu_torch.nn.nonlinearity import MinkowskiDropout
+from minkowskiengine_tpu_torch.nn.nonlinearity import MinkowskiDropout, MinkowskiReLU
 from minkowskiengine_tpu_torch.nn.norm import MinkowskiBatchNorm, MinkowskiSyncBatchNorm
 from minkowskiengine_tpu_torch.ops import functional as conv_ops
 from minkowskiengine_tpu_torch.ops.dense_conv import build_row_grid, dense_conv
@@ -497,6 +513,9 @@ PARITY_SEED, PARITY_SHAPES, PARITY_RES = 0, 2, 64
 SPLAT_RTOL = 1e-6
 # phase 26: raw room scans as a data loader gets them, voxelized at 5 cm
 ROOM_POINTS, ROOM_VOXEL, IGNORE = 400_000, 0.05, -100
+# phase 44's rooms at 2 cm: 200,000 points each on a 4 x 5 x 2.5 m room with
+# six boxes, ~163k voxels a room, the size upstream's indoor example serves
+ROOM2CM = dict(voxel_size=0.02, n_points=200_000, extent=(4.0, 5.0, 2.5), n_objects=6)
 # phase 27: channelwise conv and SPMM, card against CPU: sums of at most 27
 # products per row forward; the input gradient's and SPMM's sums run
 # through CUDA's index_add atomics (at most 27 and 8 terms per row, summed
@@ -925,36 +944,46 @@ def cpu_steps(run, tag, unit):
     return cpu
 
 
-def judge_step(tag, loss0, grads0, stats0, cpu):
-    """The card's step (loss, every parameter gradient, the batch norms'
-    running statistics) against the CPU float32 run, each gradient judged
-    against the float64 run (GRAD_FACTOR)."""
-    (loss32, grads32, stats32), (_, grads64, _) = cpu[torch.float32], cpu[torch.float64]
-    loss_rel = abs(loss32 - loss0) / abs(loss32)
+def judge_grads(tag, grads0, cpu):
+    """Every gradient of a card run against the CPU float64 run of the same
+    work, each within GRAD_FACTOR times the CPU float32 run's distance from
+    float64 (or the median leaf's, where that is larger); ``cpu`` as
+    ``cpu_steps`` returns it.  Prints the judgement; returns whether every
+    gradient holds."""
+    grads32, grads64 = cpu[torch.float32][1], cpu[torch.float64][1]
     if set(grads32) != set(grads0):
         raise AssertionError(f"{tag}: the card's and the CPU's parameters differ")
     card_vs_cpu = {k: rel_diff(grads0[k].double(), grads32[k]) for k in grads0}
     card_err = {k: rel_diff(grads0[k].double(), grads64[k]) for k in grads0}
     cpu_err = {k: rel_diff(grads32[k], grads64[k]) for k in grads0}
     bound = {k: GRAD_FACTOR * max(cpu_err[k], median(cpu_err)) for k in grads0}
-    stat_rel = {k: rel_diff(v.double(), stats32[k]) for k, v in stats0.items()}
     worst = max(card_vs_cpu, key=card_vs_cpu.get)
     worst64 = max(card_err, key=card_err.get)
     tightest = max(card_err, key=lambda k: card_err[k] / bound[k])
-    worst_stat = max(stat_rel, key=stat_rel.get)
     print(
-        f"  loss {loss0:.7f} (card) vs {loss32:.7f} (CPU): rel {loss_rel:.2e}\n"
         f"  {len(grads0)} gradients, card vs CPU float32: worst {worst} {card_vs_cpu[worst]:.2e}, "
         f"median {median(card_vs_cpu):.2e}\n"
         f"  against float64: card median {median(card_err):.2e}, worst {worst64} "
         f"{card_err[worst64]:.2e}; CPU float32 median {median(cpu_err):.2e}, worst "
         f"{max(cpu_err.values()):.2e}\n"
         f"  closest to its bound: {tightest} card {card_err[tightest]:.2e}, CPU float32 "
-        f"{cpu_err[tightest]:.2e}, bound {bound[tightest]:.2e}\n"
-        f"  {len(stat_rel)} running stats, worst {worst_stat} {stat_rel[worst_stat]:.2e}"
+        f"{cpu_err[tightest]:.2e}, bound {bound[tightest]:.2e}"
     )
-    if not (loss_rel <= LOSS_RTOL and card_err[tightest] <= bound[tightest]
-            and stat_rel[worst_stat] <= LOGIT_RTOL):
+    return card_err[tightest] <= bound[tightest]
+
+
+def judge_step(tag, loss0, grads0, stats0, cpu):
+    """The card's step (loss, every parameter gradient, the batch norms'
+    running statistics) against the CPU float32 run, each gradient judged
+    against the float64 run (``judge_grads``)."""
+    loss32, _, stats32 = cpu[torch.float32]
+    loss_rel = abs(loss32 - loss0) / abs(loss32)
+    print(f"  loss {loss0:.7f} (card) vs {loss32:.7f} (CPU): rel {loss_rel:.2e}")
+    grads_ok = judge_grads(tag, grads0, cpu)
+    stat_rel = {k: rel_diff(v.double(), stats32[k]) for k, v in stats0.items()}
+    worst_stat = max(stat_rel, key=stat_rel.get)
+    print(f"  {len(stat_rel)} running stats, worst {worst_stat} {stat_rel[worst_stat]:.2e}")
+    if not (loss_rel <= LOSS_RTOL and grads_ok and stat_rel[worst_stat] <= LOGIT_RTOL):
         raise AssertionError(f"{tag}: training step disagrees with the CPU plain path")
 
 
@@ -2158,7 +2187,7 @@ def bf16_step_calls(dev, reuse):
     captured with hooks under ``set_compute_dtype(torch.bfloat16)``:
     {net: [(x, w, g, in_idx, out_idx_t, label, with_dx)]}: the conv's input
     features x as the module took them (the first conv's in float32,
-    ``bf16_parts`` casts), the float32 weight w, the output gradient g in
+    ``kernel_parts`` casts), the float32 weight w, the output gradient g in
     bf16.  Leaves the compute dtype as it found it."""
     before = MT.config.compute_dtype()
     MT.set_compute_dtype(torch.bfloat16)
@@ -2184,7 +2213,7 @@ def bf16_step_calls(dev, reuse):
 def step_calls(name, model, run, n, prefix):
     """The ``n`` sparse conv calls of ``model`` in ``run`` (one training
     step), captured with hooks: [(x, w, g, in_idx, out_idx_t, label,
-    with_dx)] for ``bf16_parts``."""
+    with_dx)] for ``kernel_parts``."""
     calls, grads, _ = capture_step(sparse_convs(model), run)
     if len(calls) != n or len(grads) != n:
         raise AssertionError(f"{name}: captured {len(calls)} calls and {len(grads)} "
@@ -2197,36 +2226,39 @@ def step_calls(name, model, run, n, prefix):
     return out
 
 
-def bf16_parts(x, w, g, in_idx, out_idx_t, with_dx=True):
-    """One conv call's bf16 kernel calls: {part: (kernel, plain version,
-    bf16 arguments, float32 arguments, tolerance, bound ms, what sets it)}
-    for the forward, the input gradient (``with_dx``) and the weight
-    gradient.  The bf16 bound: 2 * pairs * Cin * Cout over the dense bf16
-    rate, or 2 bytes per feature and weight element, 4 per index and per
-    float32 dW element, over HBM_RATE."""
+def kernel_parts(x, w, g, in_idx, out_idx_t, with_dx=True, bf16=True):
+    """One conv call's kernel calls: {part: (kernel, plain version,
+    arguments, float32 arguments, tolerance, bound ms, what sets it)} for
+    the forward, the input gradient (``with_dx``) and, in bf16, the weight
+    gradient.  bf16: the arguments cast, the bound 2 * pairs * Cin * Cout
+    over the dense bf16 rate, or 2 bytes per feature and weight element, 4
+    per index and per float32 dW element, over HBM_RATE.  float32 (K1
+    alone): the arguments as they are, KERNEL_RTOL, the bound as ``bound``
+    sets it (4 bytes an element)."""
     K, cin, cout = w.shape
     n_in, n_out = x.shape[0], g.shape[0]
-    xb, wb, gb = x.bfloat16(), w.bfloat16(), g.bfloat16()
     x, w, g = x.float(), w.float(), g.float()
+    xb, wb, gb = (x.bfloat16(), w.bfloat16(), g.bfloat16()) if bf16 else (x, w, g)
+    size, rate, k1_rtol = (2, BF16_PEAK, K1_BF16_RTOL) if bf16 else (4, TF32_PEAK, KERNEL_RTOL)
     flop = 2 * pairs(in_idx, n_in) * cin * cout
     work = {
         "fwd": (gather_gemm, gather_gemm_reference, (xb, wb, in_idx), (x, w, in_idx),
-                K1_BF16_RTOL, flop,
-                2 * (n_in * cin + K * cin * cout + n_out * cout) + 4 * K * n_out),
-        "dw": (conv_dw, conv_dw_reference, (xb, gb, in_idx), (x, g, in_idx), DW_RTOL, flop,
-               2 * (n_in * cin + n_out * cout) + 4 * K * n_out + 4 * K * cin * cout),
+                k1_rtol, flop, size * (n_in * cin + K * cin * cout + n_out * cout) + 4 * K * n_out),
     }
+    if bf16:
+        work["dw"] = (conv_dw, conv_dw_reference, (xb, gb, in_idx), (x, g, in_idx), DW_RTOL, flop,
+                      2 * (n_in * cin + n_out * cout) + 4 * K * n_out + 4 * K * cin * cout)
     if with_dx:
         work["dx"] = (gather_gemm, gather_gemm_reference,
                       (gb, wb.transpose(1, 2).contiguous(), out_idx_t),
-                      (g, w.transpose(1, 2).contiguous(), out_idx_t), K1_BF16_RTOL,
+                      (g, w.transpose(1, 2).contiguous(), out_idx_t), k1_rtol,
                       2 * pairs(out_idx_t, n_out) * cin * cout,
-                      2 * (n_out * cout + K * cin * cout + n_in * cin) + 4 * K * n_in)
+                      size * (n_out * cout + K * cin * cout + n_in * cin) + 4 * K * n_in)
     parts = {}
     for p in ("fwd", "dx", "dw"):
         if p in work:
             kernel, plain, args, args32, rtol, f, nbytes = work[p]
-            ops_ms, bytes_ms = f / BF16_PEAK * 1e3, nbytes / HBM_RATE * 1e3
+            ops_ms, bytes_ms = f / rate * 1e3, nbytes / HBM_RATE * 1e3
             parts[p] = (kernel, plain, args, args32, rtol,
                         *((ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")))
     return parts
@@ -2235,11 +2267,11 @@ def bf16_parts(x, w, g, in_idx, out_idx_t, with_dx=True):
 def bf16_rows(x, w, g, in_idx, out_idx_t, label, with_dx=True):
     """Phase 28: one conv call's bf16 instances against their bf16 plain
     versions (forward, input gradient, weight gradient), with the float32
-    instances' time on the same map and the bf16 bound (``bf16_parts``)."""
+    instances' time on the same map and the bf16 bound (``kernel_parts``)."""
     K, cin, cout = w.shape
     n_in, n_out = x.shape[0], g.shape[0]
     row = dict(label=label, K=K, cin=cin, cout=cout, n_in=n_in, n_out=n_out)
-    for p, (kernel, plain, args, args32, rtol, bound_ms, bound_by) in bf16_parts(
+    for p, (kernel, plain, args, args32, rtol, bound_ms, bound_by) in kernel_parts(
             x, w, g, in_idx, out_idx_t, with_dx).items():
         row[p] = check(kernel, plain, args, rtol, label + {"fwd": "", "dx": " dX", "dw": " dW"}[p])
         row[p].update(f32_ms=cuda_ms(lambda: kernel(*args32)), bound_ms=bound_ms,
@@ -2775,9 +2807,15 @@ def fresh_geometry(dev, launches, reuse):
 # phases 36-37: the parallel package.  Two ranks share the one card over
 # gloo (NCCL refuses two ranks on one device); 1e-5 of max|g| for the
 # data-parallel gradients (the mean of the same two float32 sums, taken by
-# gloo), 1e-4 for the spatial run's output and gradients (eval mode: K2's
-# dW and batch norm's affine gradients split over the ranks and added
-# again, another order) and the column-parallel logits.  The
+# gloo), 1e-4 for the spatial run's output and the column-parallel logits.
+# The spatial run's gradients (eval mode: K2's dW and batch norm's affine
+# gradients split over the ranks and added again, another order) are not
+# held to the single process's: a pre-activation within ~1e-7 of 0 takes
+# either side of its ReLU's kink with the order of a sum, and the one
+# element's gradient then moves a leaf by 1e-4-1e-2 of itself (on some
+# scans the card's own runs and the CPU's float32 run each do).  The single
+# process's and each rank's are judged against CPU float64 runs that take
+# the same side of every kink (``relu_masks``, ``eval_grads_judged``).  The
 # column-parallel step is in train mode, where the input gradient's sum,
 # split by Cout and all-reduced, changes order inside batch norm's
 # ill-conditioned backward: its parameters after the step are held within
@@ -2810,6 +2848,74 @@ def sum_of_squares(net, x):
     y = net(x)
     (y.F.double() ** 2).sum().backward()
     return y
+
+
+@contextlib.contextmanager
+def relu_masks(held=None):
+    """Every ``MinkowskiReLU`` call inside, in call order: without ``held``,
+    record each call's mask (input > 0); with ``held``, apply the given
+    masks in place of the call's own (x * mask: the gradient passes where
+    the mask is 1), so that a run takes another run's side of each ReLU's
+    kink.  Yields the masks; with ``held``, its ``flips`` attribute lists
+    per call the elements whose own sign differs from the held mask and
+    their largest |x| over the call's largest."""
+    masks, real = HeldMasks(), MinkowskiReLU._fn
+
+    def fn(self, x):
+        own = x > 0
+        if held is None:
+            masks.append(own)
+            return real(self, x)
+        m = held[len(masks)].to(x.device)
+        differ = own != m
+        masks.append(m)
+        masks.flips.append((int(differ.sum()), (x.abs()[differ].max() / x.abs().max()).item()
+                            if differ.any() else 0.0))
+        return x * m.to(x.dtype)
+
+    MinkowskiReLU._fn = fn
+    try:
+        yield masks
+    finally:
+        MinkowskiReLU._fn = real
+
+
+class HeldMasks(list):
+    """``relu_masks``' masks, with the held run's flips."""
+
+    def __init__(self):
+        super().__init__()
+        self.flips = []
+
+
+def eval_grads_judged(tag, grads, cpu, ref=None):
+    """Phase 37b: an eval-mode run's gradients against the CPU float64 run
+    held to the same ReLU masks (``relu_masks``; ``cpu`` as ``cpu_steps``
+    returns it).  Without ``ref``: the run's median and worst leaf within
+    GRAD_FACTOR times the CPU float32 run's median and worst.  (The card's
+    3xTF32 products round to ~2^-21 against float32's 2^-24: on this step
+    it lies ~5x the CPU's distance at the median leaf and up to ~15x on a
+    leaf the CPU happens to round well, the `mma.sync` bodies alike, so
+    ``judge_grads``' leaf-by-leaf bound suits a train-mode step, where
+    batch norm's statistics set both runs' distance.)  With ``ref``, the
+    single process's distances on the same card: every leaf within
+    GRAD_FACTOR times ref's (or ref's median): sharding adds no more than
+    the rounding.  Prints; returns (passed, the run's distances)."""
+    grads32, grads64 = cpu[torch.float32][1], cpu[torch.float64][1]
+    card = {k: rel_diff(v.double(), grads64[k]) for k, v in grads.items()}
+    cpu32 = {k: rel_diff(grads32[k], grads64[k]) for k in card}
+    worst = max(card, key=card.get)
+    print(f"  {tag}: {len(card)} gradients against float64, median {median(card):.2e}, worst "
+          f"{worst} {card[worst]:.2e}; CPU float32 median {median(cpu32):.2e}, worst "
+          f"{max(cpu32.values()):.2e}")
+    if ref is None:
+        return (median(card) <= GRAD_FACTOR * median(cpu32)
+                and card[worst] <= GRAD_FACTOR * max(cpu32.values())), card
+    bound = {k: GRAD_FACTOR * max(ref[k], median(ref)) for k in card}
+    tight = max(card, key=lambda k: card[k] / bound[k])
+    print(f"    against the single process's: closest to its bound {tight} {card[tight]:.2e}, "
+          f"single process {ref[tight]:.2e}, bound {bound[tight]:.2e}")
+    return card[tight] <= bound[tight], card
 
 
 def rank_windows(km, xf, g, r):
@@ -2868,7 +2974,8 @@ def rank_ddp(rank, dev, tmp):
 def rank_spatial(rank, dev, tmp):
     """Phase 37b on one rank: its row block of one scan through MinkUNet34
     in eval mode under spatial execution, forward and the backward of
-    sum(out^2)."""
+    sum(out^2); writes its gradients and its ReLU masks (its block's rows)
+    for the spawning process's judge."""
     ref = torch.load(f"{tmp}/spatial.pt")
     mesh = parallel.make_spatial_mesh(device=dev)
     net = unet_from(torch.load(f"{tmp}/init.pt"), dev, False)
@@ -2894,7 +3001,7 @@ def rank_spatial(rank, dev, tmp):
         before = counts_now()
         sync(dev)
         t0 = time.perf_counter()
-        with MT.spatial_execution(mesh):
+        with relu_masks() as masks, MT.spatial_execution(mesh):
             y = sum_of_squares(net, xs)
         sync(dev)
         ms = (time.perf_counter() - t0) * 1e3
@@ -2903,8 +3010,9 @@ def rank_spatial(rank, dev, tmp):
     n = counts_since(before)
     collectives = dict(comm.counts)
     out = spatial.gather_rows(y.F.detach(), x.size, mesh)
-    errors = {k: rel_diff(p.grad.double().cpu(), ref["grads"][k].double())
-              for k, p in net.named_parameters()}
+    grads = {k: p.grad.detach().cpu() for k, p in net.named_parameters()}
+    torch.save(dict(grads=grads, masks=[m.cpu() for m in masks]), f"{tmp}/spatial_grads{rank}.pt")
+    errors = {k: rel_diff(g.double(), ref["grads"][k].double()) for k, g in grads.items()}
     mgr = x.coordinate_manager
     halos = {}
     for key, km in mgr._kernel_maps.items():
@@ -3081,10 +3189,28 @@ def parallel_path(dev, launches, reuse, fresh):
         coords0, feats0 = reuse["request"]
         net = unet_from(init, dev, False)
         x = MT.SparseTensor(torch.from_numpy(feats0).to(dev), torch.from_numpy(coords0).to(dev))
-        calls, grads, y = capture_step(sparse_convs(net), lambda: sum_of_squares(net, x))
-        torch.save(dict(scan=(x.C.cpu(), x.F.cpu()), out=y.F.detach().cpu(),
-                        grads={k: p.grad.detach().cpu() for k, p in net.named_parameters()}),
+        with relu_masks() as sp_masks:
+            calls, grads, y = capture_step(sparse_convs(net), lambda: sum_of_squares(net, x))
+        sp_masks = [m.cpu() for m in sp_masks]
+        sp_grads = {k: p.grad.detach().cpu() for k, p in net.named_parameters()}
+        torch.save(dict(scan=(x.C.cpu(), x.F.cpu()), out=y.F.detach().cpu(), grads=sp_grads),
                    f"{tmp}/spatial.pt")
+        sp_flips = []
+
+        def cpu_spatial(masks, tag):
+            """The same on the CPU plain path in float32 and float64, each
+            ReLU on the side of its kink that ``masks`` took."""
+            def run(dtype):
+                cpu_net = unet_from(init, "cpu", False).to(dtype)
+                with relu_masks(masks) as held:
+                    y = sum_of_squares(cpu_net, MT.SparseTensor(
+                        torch.from_numpy(feats0).to(dtype), torch.from_numpy(coords0)))
+                sp_flips.append((f"{tag}, CPU {dtype}", held.flips))
+                return (y.F.double() ** 2).sum(), cpu_net, len(coords0)
+            return cpu_steps(run, f"37b, the single process's ReLU masks" if tag == "single"
+                             else "37b, the ranks' ReLU masks", "voxels")
+
+        sp_cpu = cpu_spatial(sp_masks, "single")
         sp_ms = dict(k1=0.0, k1_rank=0.0, k2=0.0, k2_rank=0.0)
         for i, (m, inp, o) in enumerate(calls):
             km = m._kernel_map(inp, o.coordinate_map_key)
@@ -3154,10 +3280,31 @@ def parallel_path(dev, launches, reuse, fresh):
                            nprocs=PARALLEL_WORLD, start_method="spawn")
         spawn_s = time.perf_counter() - t0
         ranks = [torch.load(f"{tmp}/rank{r}.pt") for r in range(PARALLEL_WORLD)]
+        sp_ranks = [torch.load(f"{tmp}/spatial_grads{r}.pt") for r in range(PARALLEL_WORLD)]
         tp_step = torch.load(f"{tmp}/tp_step.pt")
+        # each call's mask over the whole map: the ranks' blocks in row order
+        rank_masks = [torch.cat(ms) for ms in zip(*(q["masks"] for q in sp_ranks))]
+        if [m.shape for m in rank_masks] != [m.shape for m in sp_masks]:
+            raise AssertionError("37b: the ranks' ReLU calls and the single process's differ")
+        same_masks = all(torch.equal(a, b) for a, b in zip(rank_masks, sp_masks))
+        rank_cpu = sp_cpu if same_masks else cpu_spatial(rank_masks, "ranks")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+    # 37b's gradients against the CPU's float64 run on the same side of every
+    # ReLU kink: the single process's, then each rank's against it
+    flips = [f for _, fl in sp_flips for f in fl]
+    margin = max(f[1] for f in flips)
+    print(f"  37b ReLU kinks: the ranks' masks {'equal' if same_masks else 'differ from'} the single "
+          f"process's; the CPU runs took the card's side of 0 on " + ", ".join(
+              f"{sum(f[0] for f in fl)} elements ({tag})" for tag, fl in sp_flips)
+          + f", each within {margin:.2e} of its call's largest |x| (limit {KERNEL_RTOL})")
+    sp_judged = {"single process": eval_grads_judged("37b single process", sp_grads, sp_cpu)}
+    for r, q in enumerate(sp_ranks):
+        sp_judged[f"rank {r}"] = eval_grads_judged(f"37b rank {r}", q["grads"], rank_cpu,
+                                                   sp_judged["single process"][1])
+    sp_judged = {k: v[0] and margin <= KERNEL_RTOL for k, v in sp_judged.items()}
+    del sp_grads, sp_ranks, sp_cpu, rank_cpu
     for r, res in enumerate(ranks):
         for part in ("ddp", "spatial", "tensor_parallel"):
             for k, v in res[part]["launches"].items():
@@ -3170,7 +3317,8 @@ def parallel_path(dev, launches, reuse, fresh):
               f"step {a['ms']:.2f} ms; collectives {a['comm']}; launches {a['launches']}")
         print(f"[37b spatial, rank {r} of 2] one scan of {b['rows']} voxels, eval mode, forward "
               f"and backward of sum(out^2) in {b['ms']:.2f} ms: output against the single "
-              f"process {b['rel_out']:.2e}, gradients worst {b['worst'][0]} {b['worst'][1]:.2e}; "
+              f"process {b['rel_out']:.2e}, gradients against its worst {b['worst'][0]} "
+              f"{b['worst'][1]:.2e} (judged above against float64: {sp_judged[f'rank {r}']}); "
               f"dropped {b['dropped']}; K1 computed {b['k1_fwd_rows']:,} output rows in the "
               f"{b['fwd_calls']} forward calls: its blocks hold {b['block_rows']:,}, the whole "
               f"maps {b['whole_rows']:,}; collectives {b['comm']}; launches {b['launches']}")
@@ -3183,7 +3331,8 @@ def parallel_path(dev, launches, reuse, fresh):
               f"launches {c['launches']}")
         if not (res["probe"] and a["worst"][1] <= DDP_RTOL
                 and abs(a["loss"] - a["want_loss"]) <= LOSS_RTOL * abs(a["want_loss"])
-                and b["rel_out"] <= SHARDED_RTOL and b["worst"][1] <= SHARDED_RTOL
+                and b["rel_out"] <= SHARDED_RTOL and sp_judged["single process"]
+                and sp_judged[f"rank {r}"]
                 and b["dropped"] == 0 and b["k1_fwd_rows"] == b["block_rows"] < b["whole_rows"]
                 and c["rel_out"] <= SHARDED_RTOL and c["moved"][1] <= SHARDED_RTOL * c["scale"]
                 and c["same_grads"]
@@ -4376,20 +4525,21 @@ PARTS = (("fwd", "K1 forward"), ("dx", "K1 input gradient"), ("dw", "K2 weight g
 
 
 def redesign_table(rows):
-    """Phase 42's rows as a markdown table, one line per distinct conv
-    (K, Cin, Cout, rows in and out), each part's device ms the mean over
-    its calls: new body / PR 8 body, the bound, the new body's plan."""
+    """Phase 42's and 44's rows as a markdown table, one line per distinct
+    conv (K, Cin, Cout, rows in and out), each part's device ms the mean
+    over its calls: new body / the ``mma.sync`` body, the bound, the new
+    body's plan."""
     groups = {}
     for r in rows:
         groups.setdefault((r["K"], r["cin"], r["cout"], r["n_in"], r["n_out"]), []).append(r)
-    lines = ["| conv (calls) | K1 fwd ms, new / PR 8 | K1 dX ms | K2 dW ms | bound ms, fwd / dX / dW"
+    lines = ["| conv (calls) | K1 fwd ms, new / mma.sync | K1 dX ms | K2 dW ms | bound ms, fwd / dX / dW"
              " | host µs | body tile ring S, fwd; dX; dW |",
              "| --- | --- | --- | --- | --- | --- | --- |"]
     for (K, cin, cout, n_in, n_out), rs in groups.items():
         def mean(p, key):
             return sum(r[p][key] for r in rs) / len(rs)
         parts = [p for p in ("fwd", "dx", "dw") if p in rs[0]]
-        cell = {p: f"{mean(p, 'ms'):.4f} / {mean(p, 'pr8_ms'):.4f}" if p in parts else "—"
+        cell = {p: f"{mean(p, 'ms'):.4f} / {mean(p, 'mma_ms'):.4f}" if p in parts else "—"
                 for p in ("fwd", "dx", "dw")}
         first = rs[0]
         lines.append(
@@ -4401,26 +4551,27 @@ def redesign_table(rows):
     return "\n".join(lines)
 
 
-def bf16_device_row(phase, net, call, parent=True):
-    """Phases 42-43: one bf16 conv call's parts (forward, input gradient,
-    weight gradient), each held to its plain version (K1 within
-    K1_BF16_RTOL, K2 within DW_RTOL), two launches bit-equal, the body the
-    plan chose (``wgmma`` wherever the kernel sees Cin > 4) with its tile,
-    ring and split, and on the device alone (``device_ms``) its ms beside
-    the float32 instance's and the plain version's, with the bound and the
-    wrapper's host µs; with ``parent`` the earlier bodies' ms too (``body=``:
-    the ``mma.sync`` body, or the SIMT stem, at their own plans)."""
+def device_row(phase, net, call, bf16=True, parent=True):
+    """Phases 42-44: one conv call's parts (``kernel_parts``: bf16 forward,
+    input gradient and weight gradient, or float32 K1's forward and input
+    gradient), each held to its plain version, two launches bit-equal, the
+    body the plan chose (``wgmma``, float32 ``wgmma_3xtf32``, wherever the
+    kernel sees Cin > 4) with its tile, ring and split, and on the device
+    alone (``device_ms``) its ms beside the plain version's (bf16: and the
+    float32 instance's), with the bound and the wrapper's host µs; with
+    ``parent`` the earlier bodies' ms too (``body=``: the ``mma.sync`` body,
+    or the SIMT stem, at their own plans)."""
     x, w, g, in_idx, out_idx_t, label, with_dx = call
     K, cin, cout = w.shape
     row = dict(net=net, label=label, K=K, cin=cin, cout=cout, n_in=x.shape[0], n_out=g.shape[0])
-    for p, (kernel, plain, args, args32, rtol, bound_ms, bound_by) in bf16_parts(
-            x, w, g, in_idx, out_idx_t, with_dx).items():
+    for p, (kernel, plain, args, args32, rtol, bound_ms, bound_by) in kernel_parts(
+            x, w, g, in_idx, out_idx_t, with_dx, bf16).items():
         tag = f"{phase} {net} {label} {p}"
         got = kernel(*args)
         plan = kernel.last_plan
         k_cin = args[1].shape[1] if kernel is gather_gemm else args[0].shape[1]
-        if plan.body != ("wgmma" if k_cin > 4 else "simt" if kernel is gather_gemm
-                         else "stem_mma"):
+        if plan.body != (("wgmma" if bf16 else "wgmma_3xtf32") if k_cin > 4
+                         else "simt" if kernel is gather_gemm else "stem_mma"):
             raise AssertionError(f"{tag}: Cin {k_cin} took the {plan.body} body")
         if not torch.equal(got, kernel(*args)):
             raise AssertionError(f"{tag}: two launches differ")
@@ -4434,18 +4585,18 @@ def bf16_device_row(phase, net, call, parent=True):
             body=plan.body, tile=f"{tile[0]}x{tile[1]}", stages=plan.stages,
             splits=plan.splits,
             max_abs_err=abs_err, max_rel_err=rel, ms=ms, host_us=host_us,
-            f32_ms=device_ms(lambda: kernel(*args32))[0],
             plain_ms=device_ms(lambda: plain(*args), graph=True)[0],
             bound_ms=bound_ms, bound_by=bound_by,
         )
+        if bf16:
+            row[p]["f32_ms"] = device_ms(lambda: kernel(*args32))[0]
         if parent:
-            row[p]["pr8_ms"] = device_ms(
+            row[p]["mma_ms"] = device_ms(
                 lambda: kernel(*args, body="simt" if k_cin <= 4 else "mma"))[0]
     parts = "  ".join(
         f"{p} {r['body']} {r['tile']} ring {r['stages']} S={r['splits']} "
-        + (f"{r['ms']:.4f}/{r['pr8_ms']:.4f}/" if parent else f"{r['ms']:.4f}/")
-        + f"{r['f32_ms']:.4f}/{r['plain_ms']:.4f} ms, "
-        f"bound {r['bound_ms']:.4f} ({r['bound_by']}), host {r['host_us']:.1f} us, "
+        + "/".join(f"{r[k]:.4f}" for k in ("ms", "mma_ms", "f32_ms", "plain_ms") if k in r)
+        + f" ms, bound {r['bound_ms']:.4f} ({r['bound_by']}), host {r['host_us']:.1f} us, "
         f"err {r['max_rel_err']:.1e}"
         for p in ("fwd", "dx", "dw") if p in row for r in (row[p],)
     )
@@ -4454,30 +4605,42 @@ def bf16_device_row(phase, net, call, parent=True):
     return row
 
 
-def bf16_redesign(dev, reuse):
-    """Phase 42: the bf16 bodies on every call of one bf16 MinkUNet34 and one
-    MinkowskiFCNN training step, timed on the device alone (``device_ms``)
-    beside the ``mma.sync`` bodies, the float32 instances and the plain versions
-    (``bf16_device_row``).  Returns the rows."""
+def redesign(phase, steps, bf16):
+    """Phases 42 and 44: ``device_row`` on every call of each net's step in
+    ``steps``, the table by distinct conv and each part's sums over the
+    step.  Returns the rows."""
     start = time.perf_counter()
-    steps = bf16_step_calls(dev, reuse)
+    columns = "new body / mma.sync body" + (" / float32 instance" if bf16 else "") + " / plain"
     rows = []
     for net, calls in steps.items():
-        print(f"[42 bf16 bodies, {net} training-step maps] {len(calls)} conv calls; device-only ms "
-              "(new body / PR 8 body / float32 instance / plain), bound, the wrapper's host µs "
+        print(f"[{phase} {'bf16' if bf16 else 'float32 K1'} bodies, {net} training-step maps] "
+              f"{len(calls)} conv calls; device-only ms ({columns}), bound, the wrapper's host µs "
               "per call; the body, its tile (K1: rows x Cout, K2: Cin x Cout), ring and split S")
-        net_rows = [bf16_device_row(42, net, call) for call in calls]
+        net_rows = [device_row(phase, net, call, bf16) for call in calls]
         print(redesign_table(net_rows))
         for p, name in PARTS:
             got = [r[p] for r in net_rows if p in r]
-            print(f"  {net}, sum over one step, {name}: new body {sum(q['ms'] for q in got):.3f} "
-                  f"ms, PR 8 body {sum(q['pr8_ms'] for q in got):.3f} ms, float32 instance "
-                  f"{sum(q['f32_ms'] for q in got):.3f} ms, plain {sum(q['plain_ms'] for q in got):.3f}"
-                  f" ms, bound {sum(q['bound_ms'] for q in got):.4f} ms; host "
-                  f"{sum(q['host_us'] for q in got) / 1e3:.3f} ms")
+            if got:
+                print(f"  {net}, sum over one step, {name}: new body "
+                      f"{sum(q['ms'] for q in got):.3f} ms, mma.sync body "
+                      f"{sum(q['mma_ms'] for q in got):.3f} ms, "
+                      + (f"float32 instance {sum(q['f32_ms'] for q in got):.3f} ms, " if bf16
+                         else "")
+                      + f"plain {sum(q['plain_ms'] for q in got):.3f} ms, bound "
+                      f"{sum(q['bound_ms'] for q in got):.4f} ms; host "
+                      f"{sum(q['host_us'] for q in got) / 1e3:.3f} ms")
         rows += net_rows
-    print(f"[42] {time.perf_counter() - start:.1f} s")
+        calls.clear()
+    print(f"[{phase}] {time.perf_counter() - start:.1f} s")
     return rows
+
+
+def bf16_redesign(dev, reuse):
+    """Phase 42: the bf16 bodies on every call of one bf16 MinkUNet34 and one
+    MinkowskiFCNN training step, timed on the device alone beside the
+    ``mma.sync`` bodies, the float32 instances and the plain versions
+    (``redesign``).  Returns the rows."""
+    return redesign(42, bf16_step_calls(dev, reuse), bf16=True)
 
 
 def gen_bf16_launches(tag, n, convs):
@@ -4522,15 +4685,18 @@ def judge_bf16_levels(tag, card, cpu16, cpu64):
             raise AssertionError(f"{tag}: level {level} logits disagree: {card64:.3e}")
 
 
-def gen_bf16_calls(dev, batch):
+def gen_bf16_calls(dev, batch, nets=("CompletionNet", "VAE")):
     """Phase 43d: every sparse conv call of one bf16 CompletionNet and one
     bf16 VAE training step on ``batch`` at the reference widths, from the
     seed-0 weights, captured with hooks as ``bf16_step_calls`` captures
-    MinkUNet34's (the compute dtype already bf16)."""
+    MinkUNet34's, in the compute dtype set (phase 43d sets bf16; phase 44
+    takes CompletionNet's alone in float32)."""
     steps = {}
     for name, cls, widths, n, inputs, prefix in (
             ("CompletionNet", CompletionNet, GEN_WIDTHS, COMPLETION_CONVS, completion_input, "comp"),
             ("VAE", VAE, VAE_WIDTHS, VAE_CONVS, vae_input, "vae")):
+        if name not in nets:
+            continue
         model = cls(generator=torch.Generator().manual_seed(0), device=dev, **widths).train()
 
         def run():
@@ -4769,7 +4935,7 @@ def generative_bf16(dev, launches, reuse):
             print(f"[43d bf16 kernels, {net} training-step maps] {len(calls)} conv calls; "
                   "device-only ms (bf16 / float32 instance / plain), bound, the wrapper's host µs "
                   "per call; the body, its tile (K1: rows x Cout, K2: Cin x Cout), ring and split S")
-            net_rows = [bf16_device_row(43, net, call, parent=False) for call in calls]
+            net_rows = [device_row(43, net, call, parent=False) for call in calls]
             for p, name in PARTS:
                 got = [r[p] for r in net_rows if p in r]
                 print(f"  {net}, sum over one bf16 step, {name}: bf16 "
@@ -4785,6 +4951,38 @@ def generative_bf16(dev, launches, reuse):
     finally:
         MT.set_compute_dtype(None)
     print(f"[43] {time.perf_counter() - start:.1f} s")
+    return rows
+
+
+def f32_step_calls(dev, reuse):
+    """Phase 44's calls: {net: [(x, w, g, in_idx, out_idx_t, label,
+    with_dx)]} of one float32 training step of MinkUNet34 (phase 9's
+    weights) on phase 9's first batch (two scans at 5 cm) and on two rooms
+    at 2 cm (``ROOM2CM``, ~326k voxels), and of CompletionNet on phase 18's
+    first batch (``gen_bf16_calls``)."""
+    rooms = [room_scan_voxels(seed=s, **ROOM2CM) for s in range(2)]
+    steps = {}
+    for name, scans, labels in (("scan 5 cm", reuse["raw"][0], reuse["labels"][0]),
+                                ("room 2 cm", rooms, None)):
+        coords, feats = collate(scans)
+        labels = labels_for(0, len(coords)) if labels is None else labels
+        unet = unet_from(reuse["unet_init"], dev, True)
+        steps[f"MinkUNet34 {name}"] = step_calls(
+            f"44 MinkUNet34 {name}", unet,
+            lambda: train_step(unet, None, coords, feats, labels, dev), MIN_LAUNCHES,
+            name.split()[0])
+        del unet
+    steps.update(gen_bf16_calls(dev, gen_batch(0), nets=("CompletionNet",)))
+    return steps
+
+
+def f32_redesign(dev, reuse):
+    """Phase 44: K1's float32 wgmma body on every call of one float32
+    MinkUNet34 training step at 5 and 2 cm and one CompletionNet step, on
+    the device alone beside the ``mma.sync`` body, the plain version and
+    the bound (``redesign``).  Returns the rows."""
+    rows = redesign(44, f32_step_calls(dev, reuse), bf16=False)
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -4836,12 +5034,13 @@ def main() -> int:
     dense_errs = dense_grid(dev, launches, reuse)
     redesign = bf16_redesign(dev, reuse)
     gen16 = generative_bf16(dev, launches, reuse)
+    f32_rows = f32_redesign(dev, reuse)
 
     bwd = (synth_bwd + real_bwd + fcnn_bwd + gen_rows + completion_bwd + vae_bwd + splat_bwd
            + shim_bwd + high_rows)
     errors = {
         "gather_gemm": [r["max_abs_err"] for r in rows + real]
-        + [r[p]["max_abs_err"] for r in bwd for p in ("fwd", "dx") if p in r]
+        + [r[p]["max_abs_err"] for r in bwd + f32_rows for p in ("fwd", "dx") if p in r]
         + par_errs["gather_gemm"] + example_errs["gather_gemm"] + high_errs["gather_gemm"]
         + multi_errs["gather_gemm"] + [e[0] for e in dense_errs["gather_gemm"]],
         "conv_dw": [r["dw"]["max_abs_err"] for r in bwd] + par_errs["conv_dw"]

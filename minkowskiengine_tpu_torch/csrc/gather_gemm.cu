@@ -13,6 +13,11 @@
 // windows or outlier lists.  The same kernel computes the input gradient
 // (the inverse map, W[k] transposed).
 //
+// Since the float32 wgmma body of gather_gemm_wgmma_f32.cu takes every
+// float32 call with Cin and Cout multiples of 8 and 16-byte aligned
+// operands, as gather_gemm_wgmma.cu takes the bf16 ones, the mma.sync
+// bodies here serve the odd or unaligned widths (and ``body="mma"``).
+//
 // Design, Cin > 4 (gather_gemm_mma_kernel):
 //   * one block of 128 threads (2 x 2 warps, 32 x 32 each) per 64 output
 //     rows x 64 output channels x range of offsets (the offset split);
@@ -54,11 +59,10 @@
 // costs the latency of its gathered rows (L2 hits) more than its 24 mma
 // per warp and k-step, so the ring depth and the blocks per SM, not the
 // tensor-core rate, bound it.  At 51k rows (S = 1) the gathers of X rows,
-// about 0.6 of the slots paired, bound it.  wgmma for the float32
-// instance is later work: its TF32 form takes only K-major shared
-// operands, and W[k] is (Cin, Cout) row-major (MN-major as B).  The bf16
-// form takes MN-major operands through its transpose bits, which the bf16
-// wgmma body (gather_gemm_wgmma.cu) uses.
+// about 0.6 of the slots paired, bound it.  The wgmma bodies answer both:
+// the bf16 one reads W[k] as it lies through wgmma's transpose bits; TF32
+// wgmma takes only K-major shared operands, so the float32 one transposes
+// and splits each stage's W[k] chunk in shared memory.
 //
 // Plain C interface, launched on the caller's stream; returns cudaError_t.
 

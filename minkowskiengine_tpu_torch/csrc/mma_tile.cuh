@@ -1,5 +1,6 @@
 // Building blocks shared by the sparse-convolution kernels (gather_gemm.cu,
-// conv_dw.cu, and the bf16 bodies gather_gemm_wgmma.cu, conv_dw_wgmma.cu):
+// conv_dw.cu, the bf16 bodies gather_gemm_wgmma.cu, conv_dw_wgmma.cu, and
+// the float32 body gather_gemm_wgmma_f32.cu):
 // rows gathered by index into shared memory with cp.async, float32
 // products on the tensor cores with 3xTF32, bf16 products with ldmatrix and
 // mma.sync m16n8k16, the compaction of an index column to its paired rows,

@@ -54,6 +54,8 @@ SIGNATURES = {
     "me_gather_gemm_bf16_wgmma": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P], _I),
     "me_conv_dw_bf16_wgmma": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P], _I),
     "me_conv_dw_bf16_stem": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P], _I),
+    # K1's float32 body on wgmma, as K1's bf16 one
+    "me_gather_gemm_f32_wgmma": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P], _I),
 }
 
 _lib = None

@@ -10,10 +10,13 @@ It replaces the JAX package's Pallas forward family behind
 which takes float32 or bf16 features.  The kernel has two instances: float32
 (3xTF32 tensor-core products) and bf16 (bf16 tensor-core products with a
 float32 sum, rounded to bf16 once at the end, as the Pallas body does).
-The plan picks the body from the shapes: bf16 calls with Cin and Cout
-multiples of 8 and 16-byte aligned operands run the ``wgmma`` body
-(``csrc/gather_gemm_wgmma.cu``); other Cin > 4 calls the ``mma.sync`` body
-(``"mma"``), Cin <= 4 the SIMT stem (``"simt"``).
+The plan picks the body from the shapes: calls with Cin and Cout multiples
+of 8 and 16-byte aligned operands run a ``wgmma`` body, bf16 ``"wgmma"``
+(``csrc/gather_gemm_wgmma.cu``) and float32 ``"wgmma_3xtf32"``
+(``csrc/gather_gemm_wgmma_f32.cu``, 3xTF32 warpgroup products; each
+stage's W[k] chunk is transposed and split into its tf32 halves in shared
+memory); other Cin > 4 calls the ``mma.sync`` body (``"mma"``), Cin <= 4
+the SIMT stem (``"simt"``).
 """
 
 from __future__ import annotations
@@ -32,7 +35,9 @@ BLOCKS_PER_SM = 2  # blocks per SM the offset split aims for
 WORKSPACE_CAP = 16 * 2**20  # bytes of (S, N_out, Cout) partials: stays in the 50 MB L2
 # the wgmma bodies' Cout tiles (wgmma N), K1's and K2's alike
 WGMMA_TILES = (16, 32, 48, 64, 96, 128, 192, 256)
-BODIES = ("wgmma", "mma", "simt")
+BODIES = ("wgmma", "wgmma_3xtf32", "mma", "simt")
+BF16_BODIES = ("wgmma", "mma", "simt")
+F32_BODIES = ("wgmma_3xtf32", "mma", "simt")
 
 
 class Plan(NamedTuple):
@@ -43,8 +48,8 @@ class Plan(NamedTuple):
     # elements per cp.async copy: float32 4 (16 bytes) or 1 (4 bytes); bf16 8
     # (16 bytes), 2 (4 bytes) or 1 (plain 2-byte loads, odd widths)
     vec: int
-    # "wgmma" (bf16, Hopper's warpgroup products), "mma" (mma.sync tensor
-    # cores) or "simt" (Cin <= 4, the stem)
+    # "wgmma" (bf16) or "wgmma_3xtf32" (float32), Hopper's warpgroup
+    # products; "mma" (mma.sync tensor cores) or "simt" (Cin <= 4, the stem)
     body: str
     tile: int = COUT_PER_TILE  # output channels per block (BN)
     stages: int = MMA_STAGES  # the ring's depth (the SIMT stem stages one tile at a time: 1)
@@ -54,37 +59,44 @@ class Plan(NamedTuple):
         return 4 * self.splits * n_out * cout if self.splits > 1 else 0
 
 
-def wgmma_tile(cout: int) -> int:
-    """The wgmma bodies' Cout tile: the fewest tiles of at most 256
-    channels, each rounded up to the next of ``WGMMA_TILES`` (96 -> one
-    96-wide tile, 336 -> two of 192, 1024 -> four of 256)."""
-    per_tile = -(-cout // -(-cout // WGMMA_TILES[-1]))
+def wgmma_tile(cout: int, widest: int = 256) -> int:
+    """The wgmma bodies' Cout tile: the fewest tiles of at most ``widest``
+    channels (K1's float32 body: 128), each rounded up to the next of
+    ``WGMMA_TILES`` (96 -> one 96-wide tile, 336 -> two of 192, 1024 ->
+    four of 256; at 128, 256 -> two of 128)."""
+    per_tile = -(-cout // -(-cout // widest))
     return next(t for t in WGMMA_TILES if t >= per_tile)
 
 
-def wgmma_stages(tile: int, row_tile: int = ROWS_PER_TILE) -> int:
-    """The K1 wgmma body's ring depth (``WTile::STAGES`` in
-    csrc/gather_gemm_wgmma.cu): as many stages of row_tile x 64 X and
-    64 x tile W[k] bf16 as fit beside the staged indices in the shared
-    memory of two blocks an SM (one warpgroup, tile <= 128) or one, at
-    most 8."""
+def wgmma_stages(tile: int, row_tile: int = ROWS_PER_TILE, f32: bool = False) -> int:
+    """The K1 wgmma bodies' ring depth (``WTile::STAGES`` in
+    csrc/gather_gemm_wgmma.cu, ``FTile::STAGES`` in
+    csrc/gather_gemm_wgmma_f32.cu): as many stages of row_tile rows of 128
+    bytes of X (64 bf16 or 32 float32) and W[k]'s chunk for the tile (64 x
+    tile bf16, 32 x tile float32) as fit beside the staged indices (and, for
+    float32, two pairs of the chunk's split tf32 tiles) in the shared memory
+    of two blocks an SM or one (``wgmma_blocks_per_sm``), at most 8."""
     fixed = 1024 + (32 * row_tile + 2 * 32 + 4) * 4
-    limit = (113 if wgmma_blocks_per_sm(tile, row_tile) == 2 else 227) * 1024
+    limit = (113 if wgmma_blocks_per_sm(tile, row_tile, f32) == 2 else 227) * 1024
+    if f32:  # W[k]'s chunk as it lies (rows padded by 16 bytes), and two pairs of split tiles
+        return min(8, (limit - fixed - 4 * tile * 128) // (row_tile * 128 + 32 * (tile + 4) * 4))
     return min(8, (limit - fixed) // (row_tile * 128 + tile * 128))
 
 
-def wgmma_row_tile(tile: int) -> int:
-    """Output rows per block of the K1 wgmma body: 128 for Cout tiles of 96
-    and more (two warpgroups share each stage's W[k] chunk, which is then
-    read from L2 half as often per row; W[k] outweighs the X rows there),
-    else 64."""
-    return 128 if tile >= 96 else ROWS_PER_TILE
+def wgmma_row_tile(tile: int, f32: bool = False) -> int:
+    """Output rows per block of the K1 wgmma bodies: 128 where two
+    warpgroups share each stage's W[k] chunk, which is then read from L2
+    half as often per row (W[k] outweighs the X rows there): bf16 Cout
+    tiles of 96 and more, every float32 tile (a float32 stage's W[k] chunk
+    outweighs its paired X rows from a 32-wide tile on); else 64."""
+    return 128 if f32 or tile >= 96 else ROWS_PER_TILE
 
 
-def wgmma_blocks_per_sm(tile: int, row_tile: int) -> int:
-    """Blocks of the K1 wgmma body an SM holds (``WTile::LIMIT``): two of
-    one warpgroup for Cout tiles up to 128, else one."""
-    return 2 if row_tile == ROWS_PER_TILE and tile <= 128 else 1
+def wgmma_blocks_per_sm(tile: int, row_tile: int, f32: bool = False) -> int:
+    """Blocks of a K1 wgmma body an SM holds (``WTile::LIMIT``; the float32
+    body one, ``FTile::LIMIT``): two of one warpgroup for bf16 Cout tiles up
+    to 128, else one."""
+    return 2 if not f32 and row_tile == ROWS_PER_TILE and tile <= 128 else 1
 
 
 def copy_width(cin: int, cout: int, aligned: bool, bf16: bool) -> int:
@@ -99,44 +111,48 @@ def copy_width(cin: int, cout: int, aligned: bool, bf16: bool) -> int:
     return 1
 
 
-def choose_body(cin: int, vec: int, bf16: bool, body: str | None) -> str:
-    """The body for these widths: Cin <= 4 the SIMT stem; bf16 with 16-byte
-    copies (Cin and Cout multiples of 8, aligned operands) ``wgmma``; else
-    ``mma``.  ``body`` asks for one, which must take the shapes."""
-    best = "simt" if cin <= 4 else "wgmma" if bf16 and vec == 8 else "mma"
+def choose_body(cin: int, cout: int, vec: int, bf16: bool, body: str | None) -> str:
+    """The body for these widths: Cin <= 4 the SIMT stem; 16-byte copies
+    (aligned operands) with Cin and Cout multiples of 8 a ``wgmma`` body,
+    ``"wgmma"`` for bf16 and ``"wgmma_3xtf32"`` for float32; else ``mma``.
+    ``body`` asks for one, which must take the shapes."""
+    wide = vec * (2 if bf16 else 4) == 16 and cin % 8 == 0 and cout % 8 == 0
+    best = ("simt" if cin <= 4 else ("wgmma" if bf16 else "wgmma_3xtf32") if wide
+            else "mma")
     if body is None:
         return best
     if body not in BODIES or (body == "simt") != (cin <= 4) or (
-            body == "wgmma" and best != "wgmma"):
-        raise ValueError(f"the {body!r} body does not take Cin {cin}, copy width {vec}"
-                         f"{', bf16' if bf16 else ', float32'}")
+            body.startswith("wgmma") and best != body):
+        raise ValueError(f"the {body!r} body does not take Cin {cin}, Cout {cout}, copy width "
+                         f"{vec}{', bf16' if bf16 else ', float32'}")
     return body
 
 
 def plan(n_out: int, k_vol: int, cin: int, cout: int, sms: int, aligned: bool = True,
          bf16: bool = False, body: str | None = None) -> Plan:
     """The body and its Cout tile and ring (``choose_body``; the wgmma
-    body's tiles from ``wgmma_tile`` and ``wgmma_row_tile``), and the
+    bodies' tiles from ``wgmma_tile`` and ``wgmma_row_tile``), and the
     offset split: when the row x Cout tiles number fewer than
-    ``BLOCKS_PER_SM`` per SM (the wgmma body: than the blocks the SMs
+    ``BLOCKS_PER_SM`` per SM (the wgmma bodies: than the blocks the SMs
     hold), each block takes a contiguous range of offsets, enough ranges to
-    fill the SMs (the wgmma body: no more than fill them once), no more
+    fill the SMs (the wgmma bodies: no more than fill them once), no more
     than ``k_vol``, and no more than keep the float32 workspace within
     ``WORKSPACE_CAP``.  ``aligned``: both input pointers are 16-byte
     aligned; ``bf16``: the bf16 instance; ``body``: a body to take in place
     of the plan's choice (to compare bodies)."""
     vec = copy_width(cin, cout, aligned, bf16)
-    body = choose_body(cin, vec, bf16, body)
+    body = choose_body(cin, cout, vec, bf16, body)
     tiles = -(-n_out // ROWS_PER_TILE) * -(-cout // COUT_PER_TILE)
     want = -(-BLOCKS_PER_SM * sms // tiles)
     tile, row_tile = COUT_PER_TILE, ROWS_PER_TILE
     stages = 1 if body == "simt" else MMA_STAGES
-    if body == "wgmma":  # as many ranges as fill one wave of the blocks the SMs hold
-        tile = wgmma_tile(cout)
-        row_tile = wgmma_row_tile(tile)
-        stages = wgmma_stages(tile, row_tile)
+    if body.startswith("wgmma"):  # as many ranges as fill one wave of the blocks the SMs hold
+        f32 = body == "wgmma_3xtf32"
+        tile = wgmma_tile(cout, 128 if f32 else 256)
+        row_tile = wgmma_row_tile(tile, f32)
+        stages = wgmma_stages(tile, row_tile, f32)
         tiles = -(-n_out // row_tile) * -(-cout // tile)
-        want = max(1, wgmma_blocks_per_sm(tile, row_tile) * sms // tiles)
+        want = max(1, wgmma_blocks_per_sm(tile, row_tile, f32) * sms // tiles)
     fit = WORKSPACE_CAP // (4 * n_out * cout)
     splits = max(1, min(k_vol, want, fit))
     per = -(-k_vol // splits)
@@ -195,16 +211,18 @@ def gather_gemm(x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor, *,
       w: (K, Cin, Cout), of x's type.
       idx: (K, N_out) int32.
       body: on the card, a body to run in place of the plan's choice
-        (``"wgmma"``, ``"mma"`` or ``"simt"``), to compare bodies on the
-        same inputs; it must take the shapes.  The CPU ignores it.
+        (``"wgmma"`` or ``"wgmma_3xtf32"`` by dtype, ``"mma"`` or
+        ``"simt"``), to compare bodies on the same inputs; it must take the
+        shapes.  The CPU ignores it.
 
     Returns (N_out, Cout) of x's type; bf16 is summed in float32 and rounded
     once.  ``gather_gemm.launches`` counts the float32 instance's launches
     and ``gather_gemm.bf16_launches`` the bf16 instance's, and
-    ``gather_gemm.bf16_body_launches`` the bf16 launches by body (CPU calls
-    run the plain version and count nothing); ``gather_gemm.last_plan`` is
-    the ``Plan`` of the last launch.  Two launches on the same inputs give
-    the same bits.
+    ``gather_gemm.float32_body_launches`` and
+    ``gather_gemm.bf16_body_launches`` each instance's launches by body
+    (CPU calls run the plain version and count nothing);
+    ``gather_gemm.last_plan`` is the ``Plan`` of the last launch.  Two
+    launches on the same inputs give the same bits.
     """
     _check(x, w, idx)
     if x.device.type == "cpu":
@@ -238,6 +256,8 @@ def gather_gemm(x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor, *,
                 None if ws is None else ws.data_ptr(), n_in, n_out, k_vol, cin, cout, p.splits)
         if p.body == "wgmma":
             err = lib.me_gather_gemm_bf16_wgmma(*args, p.tile, p.row_tile, stream)
+        elif p.body == "wgmma_3xtf32":
+            err = lib.me_gather_gemm_f32_wgmma(*args, p.tile, p.row_tile, stream)
         else:
             err = (lib.me_gather_gemm_bf16 if bf16 else lib.me_gather_gemm_f32)(*args, p.vec, stream)
     if err != 0:
@@ -247,11 +267,13 @@ def gather_gemm(x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor, *,
         gather_gemm.bf16_body_launches[p.body] += 1
     else:
         gather_gemm.launches += 1
+        gather_gemm.float32_body_launches[p.body] += 1
     gather_gemm.last_plan = p
     return out
 
 
 gather_gemm.launches = 0
 gather_gemm.bf16_launches = 0
-gather_gemm.bf16_body_launches = dict.fromkeys(BODIES, 0)
+gather_gemm.bf16_body_launches = dict.fromkeys(BF16_BODIES, 0)
+gather_gemm.float32_body_launches = dict.fromkeys(F32_BODIES, 0)
 gather_gemm.last_plan = None

@@ -52,7 +52,7 @@ def test_every_conv_of_both_steps_is_captured(steps):
 def test_parts_carry_bf16_arguments_and_the_bound(steps):
     for calls in steps.values():
         for x, w, g, in_idx, out_idx_t, label, with_dx in calls:
-            parts = cs.bf16_parts(x, w, g, in_idx, out_idx_t, with_dx)
+            parts = cs.kernel_parts(x, w, g, in_idx, out_idx_t, with_dx)
             assert set(parts) == ({"fwd", "dx", "dw"} if with_dx else {"fwd", "dw"})
             K, cin, cout = w.shape
             for p, (kernel, plain, args, args32, rtol, bound_ms, bound_by) in parts.items():
@@ -72,8 +72,27 @@ def test_parts_carry_bf16_arguments_and_the_bound(steps):
     n_in, n_out = x.shape[0], g.shape[0]
     flop = 2 * int(((in_idx >= 0) & (in_idx < n_in)).sum()) * cin * cout
     nbytes = 2 * (n_in * cin + K * cin * cout + n_out * cout) + 4 * K * n_out
-    fwd = cs.bf16_parts(x, w, g, in_idx, out_idx_t)["fwd"]
+    fwd = cs.kernel_parts(x, w, g, in_idx, out_idx_t)["fwd"]
     assert fwd[5] == pytest.approx(max(flop / cs.BF16_PEAK, nbytes / cs.HBM_RATE) * 1e3)
+
+
+def test_float32_parts_are_k1_alone_with_the_tf32_bound(steps):
+    for calls in steps.values():
+        for x, w, g, in_idx, out_idx_t, label, with_dx in calls:
+            parts = cs.kernel_parts(x, w, g, in_idx, out_idx_t, with_dx, bf16=False)
+            assert set(parts) == ({"fwd", "dx"} if with_dx else {"fwd"})
+            for p, (kernel, plain, args, args32, rtol, bound_ms, bound_by) in parts.items():
+                assert kernel is cs.gather_gemm and rtol == cs.KERNEL_RTOL
+                assert all(a.dtype == torch.float32 for a in args[:2] + args32[:2])
+    # the bound of one call by hand: 2 pairs Cin Cout over the TF32 rate, or
+    # 4 bytes a feature, weight element and index
+    x, w, g, in_idx, out_idx_t, _, _ = steps["MinkUNet34"][2]
+    K, cin, cout = w.shape
+    n_in, n_out = x.shape[0], g.shape[0]
+    flop = 2 * int(((out_idx_t >= 0) & (out_idx_t < n_out)).sum()) * cin * cout
+    nbytes = 4 * (n_out * cout + K * cin * cout + n_in * cin) + 4 * K * n_in
+    dx = cs.kernel_parts(x, w, g, in_idx, out_idx_t, bf16=False)["dx"]
+    assert dx[5] == pytest.approx(max(flop / cs.TF32_PEAK, nbytes / cs.HBM_RATE) * 1e3)
 
 
 def test_step_times_tool_refuses_without_a_card():

@@ -6,7 +6,7 @@ them on the card with
 (``--noconftest``: tests/conftest.py sets up JAX, which this file does not
 use and the card's machine need not have).
 Tolerance: max |Δ| / max |ref| <= 1e-5, the f32 summation-order bound that
-chip_smoke.py states.
+chip_smoke.py states (``KERNEL_RTOL``), for every float32 body.
 """
 
 import pytest
@@ -72,9 +72,13 @@ def _rel(got, want):
 )
 def test_offset_split_on_the_deep_levels(dev, K, n, cin, cout):
     x, w, idx = _inputs(dev, K, n, n, cin, cout, density=0.4)
+    want = gather_gemm_reference(x, w, idx)
     got = gather_gemm(x, w, idx)
+    assert gather_gemm.last_plan.splits > 1 and gather_gemm.last_plan.body == "wgmma_3xtf32"
+    assert _rel(got, want) <= 1e-5
+    got = gather_gemm(x, w, idx, body="mma")
     assert gather_gemm.last_plan.splits > 1 and gather_gemm.last_plan.body == "mma"
-    assert _rel(got, gather_gemm_reference(x, w, idx)) <= 1e-5
+    assert _rel(got, want) <= 1e-5
 
 
 @pytest.mark.parametrize("K,n,cin,cout", [(27, 20000, 96, 64), (1, 3000, 64, 96), (1, 40, 32, 32)])
@@ -121,7 +125,7 @@ def test_classification_shapes_forward_and_input_gradient(dev, K, cin, cout, n_i
     w = torch.randn(K, cin, cout, device=dev, generator=g) / (K * cin) ** 0.5
     go = torch.randn(n_out, cout, device=dev, generator=g)
     assert _rel(gather_gemm(x, w, in_idx), gather_gemm_reference(x, w, in_idx)) <= 1e-5
-    assert gather_gemm.last_plan.vec == 4 and gather_gemm.last_plan.body == "mma"
+    assert gather_gemm.last_plan.vec == 4 and gather_gemm.last_plan.body == "wgmma_3xtf32"
     wt = w.transpose(1, 2).contiguous()
     assert _rel(gather_gemm(go, wt, out_idx_t), gather_gemm_reference(go, wt, out_idx_t)) <= 1e-5
 
@@ -197,7 +201,7 @@ def test_generative_shapes_forward_and_input_gradient(dev, K, cin, cout, n_in, n
     w = torch.randn(K, cin, cout, device=dev, generator=g) / (K * cin) ** 0.5
     go = torch.randn(n_out, cout, device=dev, generator=g)
     assert _rel(gather_gemm(x, w, in_idx), gather_gemm_reference(x, w, in_idx)) <= 1e-5
-    assert gather_gemm.last_plan.body == ("simt" if cin <= 4 else "mma")
+    assert gather_gemm.last_plan.body == ("simt" if cin <= 4 else "wgmma_3xtf32")
     wt = w.transpose(1, 2).contiguous()
     assert _rel(gather_gemm(go, wt, out_idx_t), gather_gemm_reference(go, wt, out_idx_t)) <= 1e-5
 
@@ -256,6 +260,126 @@ def test_splat_map_forward_and_input_gradient(dev):
     assert _rel(gather_gemm(x, w, kmap.in_idx), gather_gemm_reference(x, w, kmap.in_idx)) <= 1e-5
     wt = w.transpose(1, 2).contiguous()
     assert _rel(gather_gemm(go, wt, kmap.out_idx_t), gather_gemm_reference(go, wt, kmap.out_idx_t)) <= 1e-5
+
+
+# --- the float32 wgmma body -------------------------------------------------
+# Every float32 call with Cin and Cout multiples of 8 and 16-byte aligned
+# operands takes it; each case is held to plain at 1e-5, forward and input
+# gradient, and to the mma.sync body it replaced (asked for with ``body=``).
+F32_WGMMA_CASES = [
+    # MinkUNet34's widths at a room2cm batch's rows (~326k at stride 1):
+    # the stride-1 block convs, the last level's concatenated input
+    (27, 326000, 96, 96), (27, 326000, 128, 96),
+    (27, 80000, 32, 32), (8, 20000, 32, 64),  # k = 2 strided: 8 offsets
+    (27, 5000, 64, 128), (27, 5000, 128, 256),
+    (27, 900, 256, 256), (27, 900, 384, 256),  # the deep levels: offsets split, S > 1
+    (27, 200, 256, 256), (8, 200, 256, 128),
+    (27, 3000, 192, 128), (27, 3000, 96, 192),  # Cout 192: two 96-wide tiles
+    # CompletionNet: its 16-wide levels, the k = 4 generative conv
+    (27, 1000000, 16, 16), (27, 50000, 16, 32), (64, 2000, 1024, 512),
+    # ragged Cin chunks (8, 24, 40, 336), Cout 8 and 1024, K = 125
+    (27, 3000, 8, 8), (27, 3000, 24, 40), (27, 3000, 336, 48), (27, 3000, 512, 1024),
+    (125, 700, 40, 24),
+]
+F32_WGMMA_IDS = [f"k{k}-{n}-{ci}to{co}" for k, n, ci, co in F32_WGMMA_CASES]
+
+
+@pytest.mark.parametrize("K,n,cin,cout", F32_WGMMA_CASES, ids=F32_WGMMA_IDS)
+def test_f32_wgmma_body_matches_plain_and_the_mma_body(dev, K, n, cin, cout):
+    """The forward on an injective map with holes, and the input gradient
+    through ``sparse_conv``'s autograd on the inverse map (``out_idx_t``,
+    W[k] transposed), on the wgmma body; the mma.sync body on the same
+    forward within the same tolerance of plain."""
+    in_idx, out_idx_t = _matching(dev, K, n, n)
+    g = torch.Generator(device=dev).manual_seed(6)
+    x = torch.randn(n, cin, device=dev, generator=g)
+    w = torch.randn(K, cin, cout, device=dev, generator=g) / (K * cin) ** 0.5
+    go = torch.randn(n, cout, device=dev, generator=g)
+    want = gather_gemm_reference(x, w, in_idx)
+    before = dict(gather_gemm.float32_body_launches)
+    xg = x.clone().requires_grad_()
+    out = sparse_conv(xg, w, in_idx, out_idx_t)
+    assert gather_gemm.last_plan.body == "wgmma_3xtf32"
+    assert _rel(out.detach(), want) <= 1e-5
+    out.backward(go)
+    assert gather_gemm.last_plan.body == "wgmma_3xtf32"
+    dx = gather_gemm_reference(go, w.transpose(1, 2).contiguous(), out_idx_t)
+    assert _rel(xg.grad, dx) <= 1e-5
+    assert gather_gemm.float32_body_launches["wgmma_3xtf32"] == before["wgmma_3xtf32"] + 2
+    assert _rel(gather_gemm(x, w, in_idx, body="mma"), want) <= 1e-5
+
+
+def test_f32_wgmma_two_launches_are_bit_equal(dev):
+    for shape in [(27, 618, 618, 384, 256), (27, 5000, 5000, 96, 96), (8, 3000, 3000, 16, 16),
+                  (27, 900, 900, 128, 192)]:
+        x, w, idx = _inputs(dev, *shape)
+        got = gather_gemm(x, w, idx)
+        assert gather_gemm.last_plan.body == "wgmma_3xtf32"
+        assert torch.equal(got, gather_gemm(x, w, idx))
+
+
+def test_f32_wgmma_rows_without_pairs_and_out_of_range_are_zero(dev):
+    """A row tile whose offsets are all -1 (every offset skipped by the
+    vote) and a row whose indices lie at or past N_in come out zero."""
+    x, w, idx = _inputs(dev, 8, 100, 300, 16, 16)
+    idx[:, :64] = -1
+    idx[:, 64] = 100
+    idx[:, 65] = 2**31 - 1
+    got = gather_gemm(x, w, idx)
+    assert gather_gemm.last_plan.body == "wgmma_3xtf32"
+    assert torch.all(got[:66] == 0)
+    assert _rel(got, gather_gemm_reference(x, w, idx)) <= 1e-5
+
+
+def test_f32_wgmma_body_by_shape(dev):
+    """Odd and unaligned widths keep the mma.sync body, Cin <= 4 the SIMT
+    stem, and the wgmma body refuses what it does not take."""
+    for shape, body in [((27, 800, 700, 12, 64), "mma"), ((27, 800, 700, 64, 36), "mma"),
+                        ((27, 800, 700, 4, 32), "simt"), ((27, 800, 700, 64, 64), "wgmma_3xtf32")]:
+        x, w, idx = _inputs(dev, *shape)
+        got = gather_gemm(x, w, idx)
+        assert gather_gemm.last_plan.body == body
+        assert _rel(got, gather_gemm_reference(x, w, idx)) <= 1e-5
+    x, w, idx = _inputs(dev, 27, 801, 700, 64, 64)
+    xu = x.flatten()[1:1 + 800 * 64].view(800, 64)  # 4 bytes past a 16-byte boundary
+    assert xu.data_ptr() % 16 != 0
+    got = gather_gemm(xu, w, idx)
+    assert gather_gemm.last_plan.body == "mma"
+    assert _rel(got, gather_gemm_reference(xu, w, idx)) <= 1e-5
+    with pytest.raises(ValueError):
+        gather_gemm(xu, w, idx, body="wgmma_3xtf32")
+    with pytest.raises(ValueError):
+        gather_gemm(x[:, :12].contiguous(), w[:, :12].contiguous(), idx, body="wgmma_3xtf32")
+    with pytest.raises(ValueError):
+        gather_gemm(x, w, idx, body="wgmma")  # the bf16 body
+
+
+def test_f32_minkunet34_training_step_counts(dev):
+    """A float32 MinkUNet34 training step launches 109 K1 calls: the Cin = 3
+    stem's forward on the SIMT body, the other 54 forwards and 54 input
+    gradients on the wgmma body; a request 55, 54 on the wgmma body."""
+    import numpy as np
+
+    import minkowskiengine_tpu_torch as MT
+    from minkowskiengine_tpu_torch.models import MinkUNet34
+
+    rng = np.random.RandomState(0)
+    pts = np.unique(rng.randint(0, 60, size=(12000, 3)), axis=0)
+    coords = np.concatenate([np.zeros((len(pts), 1), np.int64), pts], 1)
+    net = MinkUNet34(3, 20, D=3, generator=torch.Generator().manual_seed(0), device=dev).train()
+    x = MT.SparseTensor(torch.randn(len(pts), 3, device=dev),
+                        torch.from_numpy(coords).int().to(dev), device=dev)
+    before = dict(gather_gemm.float32_body_launches)
+    net(x).F.square().mean().backward()
+    torch.cuda.synchronize()
+    delta = {k: v - before[k] for k, v in gather_gemm.float32_body_launches.items()}
+    assert delta == {"wgmma_3xtf32": 108, "mma": 0, "simt": 1}
+    # a request (no gradient): the 54 forwards on the wgmma body, the stem on SIMT
+    before = dict(gather_gemm.float32_body_launches)
+    with torch.no_grad():
+        net.eval()(MT.SparseTensor(x.F, x.C, device=dev))
+    delta = {k: v - before[k] for k, v in gather_gemm.float32_body_launches.items()}
+    assert delta == {"wgmma_3xtf32": 54, "mma": 0, "simt": 1}
 
 
 # --- the bf16 instance -------------------------------------------------------

@@ -80,7 +80,9 @@ IDS = [f"k{k}-{ci}to{co}-{n_in}to{n_out}" for k, ci, co, n_in, n_out in CONVS]
 
 
 def _check_offset_split(n_out, k_vol, cin, cout):
-    p = gg.plan(n_out, k_vol, cin, cout, SMS)
+    """The float32 ``mma.sync`` body's plan (asked for: the plan gives these
+    widths the wgmma body, ``test_f32_wgmma_plans``), or the SIMT stem's."""
+    p = gg.plan(n_out, k_vol, cin, cout, SMS, body="simt" if cin <= 4 else "mma")
     tiles = -(-n_out // gg.ROWS_PER_TILE) * -(-cout // gg.COUT_PER_TILE)
     assert 1 <= p.splits <= k_vol
     assert p.offsets_per_split * (p.splits - 1) < k_vol <= p.offsets_per_split * p.splits
@@ -160,9 +162,10 @@ def test_generative_plans():
     """The new cases of the generative slice: the k = 4 conv (K = 64, 1024 ->
     512) on 122 rows in, 3,384 out, and its input gradient on 122 rows; Cout
     = 16, a multiple of 4, keeps K2's 16-byte copies inside a 32-wide tile."""
-    fwd = gg.plan(3384, 64, 1024, 512, SMS)
+    fwd = gg.plan(3384, 64, 1024, 512, SMS, body="mma")
     assert fwd.splits == 1 and fwd.body == "mma" and fwd.vec == 4
-    dx = gg.plan(122, 64, 512, 1024, SMS)
+    assert gg.plan(3384, 64, 1024, 512, SMS).body == "wgmma_3xtf32"
+    dx = gg.plan(122, 64, 512, 1024, SMS, body="mma")
     assert dx.splits == 8 and dx.offsets_per_split == 8
     assert dx.workspace_bytes(122, 1024) <= gg.WORKSPACE_CAP
     p = dw.plan(27, 16, 16, 4716408, SMS)
@@ -199,7 +202,7 @@ def test_bf16_plans_keep_the_tiles_and_splits():
     (the workspace stays float32).  The wgmma bodies' plans are pinned by
     ``test_bf16_wgmma_plans``."""
     for args in [(125, 27, 384, 256), (51000, 27, 96, 96), (618, 8, 128, 256)]:
-        a = gg.plan(*args, SMS)
+        a = gg.plan(*args, SMS, body="mma")
         b = gg.plan(*args, SMS, bf16=True, body="mma")
         assert a._replace(vec=0) == b._replace(vec=0)
     a, b = gg.plan(3000, 27, 64, 33, SMS), gg.plan(3000, 27, 64, 33, SMS, bf16=True)
@@ -315,7 +318,7 @@ def test_bf16_body_by_shape_not_by_failure():
     assert gg.plan(1000, 27, 64, 64, SMS, aligned=False, bf16=True).body == "mma"
     assert gg.plan(1000, 27, 6, 70, SMS, bf16=True).body == "mma"  # even widths
     assert gg.plan(1000, 27, 64, 33, SMS, bf16=True).body == "mma"  # odd Cout
-    assert gg.plan(1000, 27, 64, 64, SMS).body == "mma"  # float32
+    assert gg.plan(1000, 27, 64, 64, SMS).body == "wgmma_3xtf32"  # float32
     assert dw.plan(27, 64, 64, 1000, SMS, bf16=True).body == "wgmma"
     assert dw.plan(27, 64, 64, 1000, SMS, aligned=False, bf16=True).body == "mma"
     assert dw.plan(27, 5, 64, 1000, SMS, bf16=True).body == "mma"
@@ -332,3 +335,121 @@ def test_bf16_body_by_shape_not_by_failure():
     ]:
         with pytest.raises(ValueError):
             bad()
+
+
+def _check_f32_wgmma_plan(n_out, k_vol, cin, cout):
+    """K1's float32 plan on one call: the SIMT stem for Cin <= 4, else the
+    wgmma body (every width on these nets is a multiple of 8) with a Cout
+    tile of at most 128 that covers Cout <= 128 at once, 128-row tiles, its
+    ring, and an offset split that fills the SMs at most once, within the
+    workspace cap."""
+    p = gg.plan(n_out, k_vol, cin, cout, SMS)
+    if cin <= 4:
+        assert (p.body, p.tile, p.stages) == ("simt", 64, 1)
+        return p
+    assert p.body == "wgmma_3xtf32" and p.vec == 4
+    assert p.tile == gg.wgmma_tile(cout, 128) and p.tile % 16 == 0 and p.tile <= 128
+    n_tiles = -(-cout // p.tile)
+    assert n_tiles == -(-cout // 128)  # X gathered once per row tile for Cout <= 128
+    assert n_tiles * p.tile - cout < 32 * n_tiles  # each tile pads less than a 32-wide step
+    assert p.row_tile == 128  # two warpgroups share each stage's W[k] chunk
+    assert p.stages == gg.wgmma_stages(p.tile, p.row_tile, f32=True) and 4 <= p.stages <= 8
+    tiles = -(-n_out // p.row_tile) * n_tiles
+    assert 1 <= p.splits <= k_vol
+    assert p.offsets_per_split * (p.splits - 1) < k_vol <= p.offsets_per_split * p.splits
+    assert p.workspace_bytes(n_out, cout) <= gg.WORKSPACE_CAP
+    held = gg.wgmma_blocks_per_sm(p.tile, p.row_tile, f32=True) * SMS
+    assert tiles * p.splits <= max(tiles, held)
+    if tiles >= held:
+        assert p.splits == 1
+    return p
+
+
+@pytest.mark.parametrize("k_vol,cin,cout,n_in,n_out", CONVS, ids=IDS)
+def test_f32_wgmma_plans(k_vol, cin, cout, n_in, n_out):
+    """Every distinct conv of a MinkUNet34, a MinkowskiFCNN, a CompletionNet
+    and a VAE step in float32: the forward and the input gradient (Cin and
+    Cout swapped, rows out at n_in) on K1's float32 wgmma body, the stems
+    on SIMT; the deep levels split their offsets."""
+    checked = [(n_out, _check_f32_wgmma_plan(n_out, k_vol, cin, cout))]
+    if cin > 4:
+        checked.append((n_in, _check_f32_wgmma_plan(n_in, k_vol, cout, cin)))
+    for n, p in checked:
+        if n >= 51028:
+            assert p.splits == 1
+        if n <= 618 and k_vol > 1 and p.body == "wgmma_3xtf32":
+            assert p.splits > 1
+
+
+@pytest.mark.parametrize(
+    "n_out,cin,cout,tile,row_tile,stages",
+    [
+        (51028, 96, 96, 96, 128, 5),      # the stride-1 block convs: W[k] shared by 128 rows
+        (51028, 128, 96, 96, 128, 5),
+        (12533, 32, 32, 32, 128, 8),
+        (2817, 64, 64, 64, 128, 7),
+        (618, 128, 128, 128, 128, 4),
+        (618, 384, 256, 128, 128, 4),     # two 128-wide tiles: W[k] outweighs the X rows
+        (2817, 128, 192, 96, 128, 5),
+        (4716408, 16, 16, 16, 128, 8),    # CompletionNet's 16-wide level: no padding to 64
+        (9538, 512, 1024, 128, 128, 4),   # FCNN conv5c: eight 128-wide tiles
+    ],
+)
+def test_f32_wgmma_row_tiles_and_rings(n_out, cin, cout, tile, row_tile, stages):
+    p = gg.plan(n_out, 27, cin, cout, SMS)
+    assert (p.body, p.tile, p.row_tile, p.stages) == ("wgmma_3xtf32", tile, row_tile, stages)
+
+
+@pytest.mark.parametrize(
+    "cin,cout,aligned,body",
+    [
+        (64, 64, True, "wgmma_3xtf32"), (8, 8, True, "wgmma_3xtf32"),
+        (336, 48, True, "wgmma_3xtf32"),  # a ragged last Cin chunk of 16
+        (64, 64, False, "mma"),           # not 16-byte aligned
+        (12, 64, True, "mma"),            # Cin a multiple of 4, not of 8
+        (64, 36, True, "mma"),            # Cout a multiple of 4, not of 8
+        (64, 33, True, "mma"),            # odd Cout: 4-byte copies
+        (5, 64, True, "mma"),
+        (4, 64, True, "simt"), (3, 32, True, "simt"), (1, 16, True, "simt"),
+    ],
+)
+def test_f32_body_by_shape(cin, cout, aligned, body):
+    """The float32 plan takes the wgmma body for Cin and Cout multiples of 8
+    with aligned operands, the mma.sync body for other Cin > 4, the SIMT
+    stem for Cin <= 4, from the shapes alone; the bf16 plan on the same
+    shapes is what it was (``wgmma`` only for its own 16-byte copies)."""
+    assert gg.plan(3000, 27, cin, cout, SMS, aligned).body == body
+    bf16 = gg.plan(3000, 27, cin, cout, SMS, aligned, bf16=True).body
+    assert bf16 == ("simt" if cin <= 4 else "wgmma" if aligned and cin % 8 == 0
+                    and cout % 8 == 0 else "mma")
+
+
+def test_f32_body_asked_for_must_take_the_shapes():
+    for bad in [
+        lambda: gg.plan(1000, 27, 64, 33, SMS, body="wgmma_3xtf32"),   # odd Cout
+        lambda: gg.plan(1000, 27, 12, 64, SMS, body="wgmma_3xtf32"),   # Cin % 8
+        lambda: gg.plan(1000, 27, 64, 64, SMS, aligned=False, body="wgmma_3xtf32"),
+        lambda: gg.plan(1000, 27, 3, 32, SMS, body="wgmma_3xtf32"),    # the stem
+        lambda: gg.plan(1000, 27, 64, 64, SMS, bf16=True, body="wgmma_3xtf32"),
+        lambda: gg.plan(1000, 27, 64, 64, SMS, body="wgmma"),          # the bf16 body
+        lambda: gg.plan(1000, 27, 64, 64, SMS, body="tf32"),
+    ]:
+        with pytest.raises(ValueError):
+            bad()
+    assert gg.plan(1000, 27, 64, 64, SMS, body="mma").body == "mma"
+
+
+@pytest.mark.parametrize("n_out,k_vol,cin,cout", [(51028, 27, 96, 96), (618, 27, 384, 256),
+                                                  (125, 8, 256, 256), (3000, 27, 12, 64),
+                                                  (2000, 125, 3, 32)])
+def test_bf16_plans_unchanged_by_the_f32_body(n_out, k_vol, cin, cout):
+    """The bf16 plans are the ones the bf16 bodies had before the float32
+    wgmma body: its tile, row tile, ring and blocks an SM are separate."""
+    p = gg.plan(n_out, k_vol, cin, cout, SMS, bf16=True)
+    if p.body == "wgmma":
+        assert p.row_tile == (128 if p.tile >= 96 else 64)
+        fixed = 1024 + (32 * p.row_tile + 2 * 32 + 4) * 4
+        limit = (113 if p.row_tile == 64 and p.tile <= 128 else 227) * 1024
+        assert p.stages == min(8, (limit - fixed) // (p.row_tile * 128 + p.tile * 128))
+    assert "wgmma_3xtf32" not in gg.gather_gemm.bf16_body_launches
+    assert "wgmma" not in gg.gather_gemm.float32_body_launches

@@ -57,7 +57,7 @@ def main(argv=None) -> int:
         for x, w, g, in_idx, out_idx_t, label, with_dx in calls:
             row = dict(net=net, label=label, K=w.shape[0], cin=w.shape[1], cout=w.shape[2],
                        n_in=x.shape[0], n_out=g.shape[0])
-            for p, (kernel, _, kargs, _, _, bound_ms, _) in cs.bf16_parts(
+            for p, (kernel, _, kargs, _, _, bound_ms, _) in cs.kernel_parts(
                     x, w, g, in_idx, out_idx_t, with_dx).items():
                 ms, host_us = cs.device_ms(lambda: kernel(*kargs))
                 row[p] = dict(ms=ms, host_us=host_us, bound_ms=bound_ms,
