@@ -14,8 +14,10 @@ a 7-D sparse U-Net (multi-word coordinate keys) and a 16-D conv; the
 multi-process examples on one NCCL rank and on two gloo ranks sharing the
 card; the dense bbox grid: the row-grid probe against the key search
 and the dense-grid conv route against K1 and K2, with its gate refit;
-the bf16 bodies of both kernels timed on the device alone; and last,
-CompletionNet and the VAE in bf16, each held to its own keep masks.
+the bf16 bodies of both kernels timed on the device alone; CompletionNet
+and the VAE in bf16, each held to its own keep masks; K1's float32 bodies
+on MinkUNet34's and CompletionNet's step maps; and last, K1 and K2 on every
+conv call of a Point Transformer V3 step.
 
 Run from the root of a checkout, with one CUDA card visible:
 
@@ -391,6 +393,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    the plain version's and the bound, with the wrapper's host µs; per net
    the step's sums and a table by distinct conv (phase 42's ``redesign``).
 
+45. K1 and K2 on Point Transformer V3's maps: one float32 training step of
+   ``PointTransformerV3`` at the published widths (seed-0 weights) on
+   three rooms at 2 cm (``ROOM2CM``, seeds 0-2), each cropped to the
+   ``PTV3_CROP`` voxels nearest a drawn voxel and moved to a non-negative
+   grid, as the benchmark's ``ptv3.train.room2cm`` cell feeds it: 307,200
+   rows.  The step launches exactly 45 K1 (23 forward, 22 input gradients,
+   the 6 -> 32 stem's forward on the ``mma.sync`` body, the rest on
+   ``wgmma_3xtf32``) and 23 float32 K2 (all ``mma.sync``).  Every call's
+   forward, input gradient and weight gradient, each held to its plain
+   version (K1 within KERNEL_RTOL, K2 within DW_RTOL), two launches
+   bit-equal, timed on the device alone beside the ``mma.sync`` body
+   (``body="mma"``; K2's float32 body is that body), the plain version and
+   the bound, with the wrapper's host µs; the step's sums and a table by
+   distinct conv (``redesign``).
+
 Bound of a kernel call: the larger of its useful operations (2 · pairs ·
 Cin · Cout) over the H100's 495 TFLOP/s dense TF32 tensor peak and its
 bytes (each input read once, the output written once) over 3.35 TB/s.  The
@@ -440,7 +457,7 @@ from minkowskiengine_tpu_torch.kernels.conv_dw import conv_dw, conv_dw_reference
 from minkowskiengine_tpu_torch.kernels.gather_gemm import gather_gemm, gather_gemm_reference
 from minkowskiengine_tpu_torch.models import (
     VAE, CompletionNet, MinkowskiFCNN, MinkowskiSplatFCNN, MinkUNet14A, MinkUNet34, MinkUNet34C,
-    ResNet18, ResNetBase,
+    PointTransformerV3, ResNet18, ResNetBase,
 )
 from minkowskiengine_tpu_torch.modules import SEBasicBlock
 from minkowskiengine_tpu_torch.nn.conv import MinkowskiConvolutionBase, _conv_out_key
@@ -516,6 +533,11 @@ ROOM_POINTS, ROOM_VOXEL, IGNORE = 400_000, 0.05, -100
 # phase 44's rooms at 2 cm: 200,000 points each on a 4 x 5 x 2.5 m room with
 # six boxes, ~163k voxels a room, the size upstream's indoor example serves
 ROOM2CM = dict(voxel_size=0.02, n_points=200_000, extent=(4.0, 5.0, 2.5), n_objects=6)
+# phase 45: PTv3's batch, three such rooms each cropped to its 102,400
+# voxels nearest a drawn voxel (Pointcept's SphereCrop); a 5^3 stem and 22
+# 3^3 CPE convs; float32 K1 launches by body and K2 launches of one step
+PTV3_ROOMS, PTV3_CROP, PTV3_CONVS = 3, 102_400, 23
+PTV3_K1_BODIES = {"wgmma_3xtf32": 2 * PTV3_CONVS - 2, "mma": 1}
 # phase 27: channelwise conv and SPMM, card against CPU: sums of at most 27
 # products per row forward; the input gradient's and SPMM's sums run
 # through CUDA's index_add atomics (at most 27 and 8 terms per row, summed
@@ -2226,15 +2248,17 @@ def step_calls(name, model, run, n, prefix):
     return out
 
 
-def kernel_parts(x, w, g, in_idx, out_idx_t, with_dx=True, bf16=True):
+def kernel_parts(x, w, g, in_idx, out_idx_t, with_dx=True, bf16=True, with_dw=None):
     """One conv call's kernel calls: {part: (kernel, plain version,
     arguments, float32 arguments, tolerance, bound ms, what sets it)} for
     the forward, the input gradient (``with_dx``) and, in bf16, the weight
-    gradient.  bf16: the arguments cast, the bound 2 * pairs * Cin * Cout
-    over the dense bf16 rate, or 2 bytes per feature and weight element, 4
-    per index and per float32 dW element, over HBM_RATE.  float32 (K1
-    alone): the arguments as they are, KERNEL_RTOL, the bound as ``bound``
-    sets it (4 bytes an element)."""
+    gradient (``with_dw``, by default in bf16 alone).  bf16: the arguments
+    cast, the bound 2 * pairs * Cin * Cout over the dense bf16 rate, or 2
+    bytes per feature and weight element, 4 per index and per float32 dW
+    element, over HBM_RATE.  float32: the arguments as they are,
+    KERNEL_RTOL (K2: DW_RTOL), the bound as ``bound`` sets it (4 bytes an
+    element)."""
+    with_dw = bf16 if with_dw is None else with_dw
     K, cin, cout = w.shape
     n_in, n_out = x.shape[0], g.shape[0]
     x, w, g = x.float(), w.float(), g.float()
@@ -2245,9 +2269,9 @@ def kernel_parts(x, w, g, in_idx, out_idx_t, with_dx=True, bf16=True):
         "fwd": (gather_gemm, gather_gemm_reference, (xb, wb, in_idx), (x, w, in_idx),
                 k1_rtol, flop, size * (n_in * cin + K * cin * cout + n_out * cout) + 4 * K * n_out),
     }
-    if bf16:
+    if with_dw:
         work["dw"] = (conv_dw, conv_dw_reference, (xb, gb, in_idx), (x, g, in_idx), DW_RTOL, flop,
-                      2 * (n_in * cin + n_out * cout) + 4 * K * n_out + 4 * K * cin * cout)
+                      size * (n_in * cin + n_out * cout) + 4 * K * n_out + 4 * K * cin * cout)
     if with_dx:
         work["dx"] = (gather_gemm, gather_gemm_reference,
                       (gb, wb.transpose(1, 2).contiguous(), out_idx_t),
@@ -4551,12 +4575,27 @@ def redesign_table(rows):
     return "\n".join(lines)
 
 
-def device_row(phase, net, call, bf16=True, parent=True):
-    """Phases 42-44: one conv call's parts (``kernel_parts``: bf16 forward,
+def expected_body(kernel, k_cin, k_cout, bf16):
+    """The body the plan should choose for a call whose kernel sees Cin
+    ``k_cin`` and Cout ``k_cout``: bf16 ``wgmma`` wherever Cin > 4 (K1's
+    stem ``simt``, K2's ``stem_mma``); float32 K1 ``wgmma_3xtf32`` where
+    both are multiples of 8, ``mma`` at other Cin > 4, ``simt`` below;
+    float32 K2 ``mma`` at Cin > 4, ``simt`` below."""
+    if k_cin <= 4:
+        return "simt" if kernel is gather_gemm or not bf16 else "stem_mma"
+    if bf16:
+        return "wgmma"
+    if kernel is conv_dw:
+        return "mma"
+    return "wgmma_3xtf32" if k_cin % 8 == 0 and k_cout % 8 == 0 else "mma"
+
+
+def device_row(phase, net, call, bf16=True, parent=True, with_dw=None):
+    """Phases 42-45: one conv call's parts (``kernel_parts``: bf16 forward,
     input gradient and weight gradient, or float32 K1's forward and input
-    gradient), each held to its plain version, two launches bit-equal, the
-    body the plan chose (``wgmma``, float32 ``wgmma_3xtf32``, wherever the
-    kernel sees Cin > 4) with its tile, ring and split, and on the device
+    gradient, with ``with_dw`` K2's weight gradient too), each held to its
+    plain version, two launches bit-equal, the body the plan chose
+    (``expected_body``) with its tile, ring and split, and on the device
     alone (``device_ms``) its ms beside the plain version's (bf16: and the
     float32 instance's), with the bound and the wrapper's host µs; with
     ``parent`` the earlier bodies' ms too (``body=``: the ``mma.sync`` body,
@@ -4565,14 +4604,14 @@ def device_row(phase, net, call, bf16=True, parent=True):
     K, cin, cout = w.shape
     row = dict(net=net, label=label, K=K, cin=cin, cout=cout, n_in=x.shape[0], n_out=g.shape[0])
     for p, (kernel, plain, args, args32, rtol, bound_ms, bound_by) in kernel_parts(
-            x, w, g, in_idx, out_idx_t, with_dx, bf16).items():
+            x, w, g, in_idx, out_idx_t, with_dx, bf16, with_dw).items():
         tag = f"{phase} {net} {label} {p}"
         got = kernel(*args)
         plan = kernel.last_plan
         k_cin = args[1].shape[1] if kernel is gather_gemm else args[0].shape[1]
-        if plan.body != (("wgmma" if bf16 else "wgmma_3xtf32") if k_cin > 4
-                         else "simt" if kernel is gather_gemm else "stem_mma"):
-            raise AssertionError(f"{tag}: Cin {k_cin} took the {plan.body} body")
+        k_cout = args[1].shape[2] if kernel is gather_gemm else args[1].shape[1]
+        if plan.body != expected_body(kernel, k_cin, k_cout, bf16):
+            raise AssertionError(f"{tag}: Cin {k_cin}, Cout {k_cout} took the {plan.body} body")
         if not torch.equal(got, kernel(*args)):
             raise AssertionError(f"{tag}: two launches differ")
         abs_err, rel = held(got, plain(*args), rtol, tag)
@@ -4605,18 +4644,19 @@ def device_row(phase, net, call, bf16=True, parent=True):
     return row
 
 
-def redesign(phase, steps, bf16):
-    """Phases 42 and 44: ``device_row`` on every call of each net's step in
-    ``steps``, the table by distinct conv and each part's sums over the
+def redesign(phase, steps, bf16, with_dw=None):
+    """Phases 42, 44 and 45: ``device_row`` on every call of each net's step
+    in ``steps``, the table by distinct conv and each part's sums over the
     step.  Returns the rows."""
     start = time.perf_counter()
     columns = "new body / mma.sync body" + (" / float32 instance" if bf16 else "") + " / plain"
     rows = []
     for net, calls in steps.items():
-        print(f"[{phase} {'bf16' if bf16 else 'float32 K1'} bodies, {net} training-step maps] "
+        kind = "bf16" if bf16 else "float32 K1 and K2" if with_dw else "float32 K1"
+        print(f"[{phase} {kind} bodies, {net} training-step maps] "
               f"{len(calls)} conv calls; device-only ms ({columns}), bound, the wrapper's host µs "
               "per call; the body, its tile (K1: rows x Cout, K2: Cin x Cout), ring and split S")
-        net_rows = [device_row(phase, net, call, bf16) for call in calls]
+        net_rows = [device_row(phase, net, call, bf16, with_dw=with_dw) for call in calls]
         print(redesign_table(net_rows))
         for p, name in PARTS:
             got = [r[p] for r in net_rows if p in r]
@@ -4986,6 +5026,63 @@ def f32_redesign(dev, reuse):
     return rows
 
 
+def ptv3_batch(seed=0):
+    """Phase 45's batch: ``PTV3_ROOMS`` rooms at 2 cm (``ROOM2CM``, seeds
+    0-2), each cropped to its ``PTV3_CROP`` voxels nearest a voxel drawn
+    from ``seed`` (squared grid distance) and moved to a grid from 0, with
+    6 normal feature channels and seeded labels: (coordinates with the
+    batch index, features, labels)."""
+    draw = np.random.RandomState(seed)
+    coords = []
+    for b in range(PTV3_ROOMS):
+        vox = room_scan_voxels(seed=b, **ROOM2CM)[0][:, 1:]
+        d = ((vox - vox[draw.randint(len(vox))]) ** 2).sum(1)
+        keep = np.sort(np.argsort(d, kind="stable")[:PTV3_CROP])
+        kept = vox[keep] - vox[keep].min(0)
+        coords.append(np.concatenate([np.full((len(kept), 1), b, np.int32), kept], 1))
+    coords = torch.from_numpy(np.concatenate(coords))
+    feats = torch.randn(len(coords), 6, generator=torch.Generator().manual_seed(seed))
+    return coords, feats, labels_for(seed, len(coords))
+
+
+def ptv3_step_calls(dev, batch=None, **widths):
+    """Phase 45's calls: {"PTv3": [(x, w, g, in_idx, out_idx_t, label,
+    with_dx)]} of one float32 training step of ``PointTransformerV3``
+    (seed-0 weights, published widths unless ``widths`` names others) on
+    ``batch`` (``ptv3_batch()``), the order lists fixed, and the step's K1
+    launches by body and K2 launches, which must be ``PTV3_K1_BODIES`` and
+    ``PTV3_CONVS`` on the card."""
+    coords, feats, labels = ptv3_batch() if batch is None else batch
+    model = PointTransformerV3(generator=torch.Generator().manual_seed(0), device=dev,
+                               **widths).train()
+    orders = [[(s + i) % 4 for i in range(4)] for s in range(len(model.enc))]
+
+    def run():
+        x = MT.SparseTensor(feats.to(dev), coords.to(dev))
+        loss = torch.nn.functional.cross_entropy(model(x, orders).F, labels.to(dev))
+        loss.backward()
+
+    zero_counts()
+    gather_gemm.float32_body_launches.update(dict.fromkeys(gather_gemm.float32_body_launches, 0))
+    calls = step_calls("45 PTv3", model, run, PTV3_CONVS, "ptv3")
+    k1 = {k: v for k, v in gather_gemm.float32_body_launches.items() if v}
+    if dev.type == "cuda" and (k1 != PTV3_K1_BODIES or conv_dw.launches != PTV3_CONVS):
+        raise AssertionError(f"45 PTv3: K1 launches by body {k1}, K2 launches {conv_dw.launches}")
+    print(f"[45 PTv3] {len(coords)} rows; one step launches K1 {k1} and K2 {conv_dw.launches}")
+    del model
+    return {"PTv3": calls}
+
+
+def ptv3_redesign(dev):
+    """Phase 45: K1 and K2 on every conv call of one float32 PTv3 training
+    step on the benchmark cell's cropped 2 cm rooms, on the device alone
+    beside the ``mma.sync`` body, the plain version and the bound
+    (``redesign``).  Returns the rows."""
+    rows = redesign(45, ptv3_step_calls(dev), bf16=False, with_dw=True)
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -5035,15 +5132,16 @@ def main() -> int:
     redesign = bf16_redesign(dev, reuse)
     gen16 = generative_bf16(dev, launches, reuse)
     f32_rows = f32_redesign(dev, reuse)
+    ptv3_rows = ptv3_redesign(dev)
 
     bwd = (synth_bwd + real_bwd + fcnn_bwd + gen_rows + completion_bwd + vae_bwd + splat_bwd
            + shim_bwd + high_rows)
     errors = {
         "gather_gemm": [r["max_abs_err"] for r in rows + real]
-        + [r[p]["max_abs_err"] for r in bwd + f32_rows for p in ("fwd", "dx") if p in r]
+        + [r[p]["max_abs_err"] for r in bwd + f32_rows + ptv3_rows for p in ("fwd", "dx") if p in r]
         + par_errs["gather_gemm"] + example_errs["gather_gemm"] + high_errs["gather_gemm"]
         + multi_errs["gather_gemm"] + [e[0] for e in dense_errs["gather_gemm"]],
-        "conv_dw": [r["dw"]["max_abs_err"] for r in bwd] + par_errs["conv_dw"]
+        "conv_dw": [r["dw"]["max_abs_err"] for r in bwd + ptv3_rows] + par_errs["conv_dw"]
         + example_errs["conv_dw"] + high_errs["conv_dw"] + multi_errs["conv_dw"]
         + [e[0] for e in dense_errs["conv_dw"]],
         "gather_gemm_bf16": [r[p]["max_abs_err"] for r in bf16_bwd + redesign + gen16

@@ -114,9 +114,13 @@ PAGES = [
     ),
     (
         "pooling.md",
-        "Pooling",
+        "Pooling and serialized attention",
         "Local, global, and direct pooling. Global ops accept a "
-        "SparseTensor or a TensorField, as in the reference.",
+        "SparseTensor or a TensorField, as in the reference. Point "
+        "Transformer V3's layers: multi-head attention inside windows of a "
+        "map's rows along a space-filling curve (the manager's `serialize` "
+        "and `window_plan`; on the card PyTorch's memory-efficient kernel, "
+        "on the CPU the math path), and the serialized pooling pair.",
         [
             "MinkowskiSumPooling",
             "MinkowskiAvgPooling",
@@ -126,6 +130,9 @@ PAGES = [
             "MinkowskiGlobalSumPooling",
             "MinkowskiGlobalAvgPooling",
             "MinkowskiGlobalMaxPooling",
+            "MinkowskiSerializedAttention",
+            "MinkowskiSerializedPooling",
+            "MinkowskiSerializedUnpooling",
             "PoolingMode",
             "MinkowskiLocalPoolingFunction",
             "MinkowskiLocalPoolingTransposeFunction",
@@ -162,6 +169,7 @@ PAGES = [
             "MinkowskiInstanceNorm",
             "MinkowskiInstanceNormFunction",
             "MinkowskiStableInstanceNorm",
+            "MinkowskiLayerNorm",
         ],
     ),
     (
@@ -240,8 +248,9 @@ PAGES = [
         "models.md",
         "Models",
         "The model zoo: ResNet14/18/34/50/101, MinkUNet14/18/34/50/101 "
-        "(+A/B/C/D variants), the classification nets, and the "
-        "completion/VAE generative nets. Every constructor takes "
+        "(+A/B/C/D variants), the classification nets, the "
+        "completion/VAE generative nets and Point Transformer V3. Every "
+        "constructor takes "
         "`generator=` (weights drawn on the CPU, the same on any device) "
         "and `device=`.",
         [("models", models)],
@@ -258,6 +267,7 @@ HOMES = [
     ("nn.union", "broadcast_prune_union.md"),
     ("nn.interpolation", "broadcast_prune_union.md"),
     ("nn.norm", "normalization.md"),
+    ("nn.serialized", "pooling.md"),
     ("nn", "nonlinearity.md"),
     ("sparse_matrix_functions", "sparse_matrix.md"),
     ("sparse_tensor", "sparse_tensor.md"),

@@ -52,6 +52,9 @@ from .kernel_map import (
 )
 from .lookup import find_rows
 from .map import CoordinateFieldMap, CoordinateMap, PaddedCoordinateMap, bucket_capacity
+from .serialize import (
+    CURVES, MAX_DEPTH, Serialization, WindowPlan, build_window_plan, serialize_rows,
+)
 from .unique import unique_coordinates, unique_coordinates_padded
 from ..ops.dense_conv import (
     DensePlan, bbox_values, build_dense_plan, build_dense_plan_traced, build_row_grid,
@@ -254,6 +257,12 @@ class CoordinateManager:
         self._bboxes: Dict[tuple, np.ndarray] = {}
         self._dense_plans: Dict[tuple, Optional[DensePlan]] = {}
         self._row_grids: Dict[tuple, torch.Tensor] = {}
+        # serialized attention: each map's rows along a curve, by (map, curve);
+        # its scenes' row offsets (device, host) and curve depth, by map; its
+        # window plans, by (map, curve, window size)
+        self._serializations: Dict[tuple, Serialization] = {}
+        self._scene_offsets: Dict[tuple, tuple] = {}
+        self._window_plans: Dict[tuple, WindowPlan] = {}
 
     def _record(self, *entry) -> None:
         if not self._frozen:
@@ -331,6 +340,9 @@ class CoordinateManager:
         self._bboxes.clear()
         self._dense_plans.clear()
         self._row_grids.clear()
+        self._serializations.clear()
+        self._scene_offsets.clear()
+        self._window_plans.clear()
 
     def get_coordinates(self, key: CoordinateMapKey) -> torch.Tensor:
         return self._get_map(key).coordinates
@@ -904,6 +916,65 @@ class CoordinateManager:
                 )
                 self._record("stride_map", in_key.get_key(), out_key.get_key())
         return self._stride_maps[ck]
+
+    # ------------------------------------------------------------------
+    # serialization (coords/serialize.py)
+    # ------------------------------------------------------------------
+    def serialize(self, key: CoordinateMapKey, orders=CURVES) -> List[Serialization]:
+        """The map's rows along each curve of ``orders``, each built once and
+        cached under the map's key.  The first call on a map reads its
+        scenes' row offsets (one host read, ``sync.serialize.offsets``); the
+        curves' depth comes from the bbox read with the map's row count."""
+        k = key.get_key()
+        missing = [c for c in dict.fromkeys(orders) if (k, c) not in self._serializations]
+        if missing:
+            with P.coords_call("serialize"):
+                m = self._get_map(key)
+                if k not in self._scene_offsets:
+                    self._scene_offsets[k] = self._offsets_and_depth(key)
+                depth = self._scene_offsets[k][2]
+                for c in missing:
+                    self._serializations[(k, c)] = serialize_rows(
+                        m.coordinates, m.tensor_stride, depth, c)
+        return [self._serializations[(k, c)] for c in orders]
+
+    def _offsets_and_depth(self, key: CoordinateMapKey):
+        """(offsets on the device, the same on the host, curve depth): the
+        first row of each scene and the end, and the bit length of the
+        largest grid coordinate."""
+        if self.D != 3:
+            raise ValueError(f"serialization orders 3-D maps; this manager has D = {self.D}")
+        m = self._get_map(key)
+        bbox = self._bboxes.get(key.get_key())
+        if bbox is None:  # a map built in replay: its bbox was not read
+            with P.host_read("serialize.bbox"):
+                bbox = np.asarray(bbox_values(m.coordinates).tolist()).reshape(2, -1)
+        if m.size and bbox[0, 1:].min() < 0:
+            raise ValueError("serialization takes non-negative coordinates (each scene's grid "
+                             "relative to its minimum)")
+        top = max((int(bbox[1, 1 + d]) // s for d, s in enumerate(m.tensor_stride)), default=0)
+        depth = int(top).bit_length() if m.size else 0
+        if depth > MAX_DEPTH:
+            raise ValueError(f"serialization depth {depth} above {MAX_DEPTH}")
+        scenes = int(bbox[1, 0]) + 1 if m.size else 0
+        batch = m.coordinates[:, 0].contiguous()
+        offsets = torch.searchsorted(batch, torch.arange(scenes + 1, device=batch.device,
+                                                         dtype=batch.dtype))
+        with P.host_read("serialize.offsets", coords=True):
+            host = offsets.tolist()
+        return offsets, host, depth
+
+    def window_plan(self, key: CoordinateMapKey, curve: str, patch_size: int) -> WindowPlan:
+        """The window plan of serialized attention on the map along
+        ``curve`` with windows of ``patch_size`` rows, built once and cached
+        under (map, curve, window size)."""
+        ck = (key.get_key(), curve, int(patch_size))
+        if ck not in self._window_plans:
+            (ser,) = self.serialize(key, (curve,))
+            with P.attn_part("plan"):
+                offsets, host, _ = self._scene_offsets[key.get_key()]
+                self._window_plans[ck] = build_window_plan(ser, offsets, host, patch_size)
+        return self._window_plans[ck]
 
     # ------------------------------------------------------------------
     # dense bbox grids

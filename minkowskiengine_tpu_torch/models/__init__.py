@@ -22,6 +22,7 @@ from .minkunet import (
     MinkUNet101,
     MinkUNetBase,
 )
+from .ptv3 import PointTransformerV3
 from .resnet import ResNet14, ResNet18, ResNet34, ResNet50, ResNet101, ResNetBase
 from .vae import VAE, Decoder, Encoder
 
@@ -38,6 +39,7 @@ __all__ = [
     "MinkowskiFCNN",
     "MinkowskiPointNet",
     "MinkowskiSplatFCNN",
+    "PointTransformerV3",
     "ResNetBase",
     "ResNet14",
     "ResNet18",

@@ -68,13 +68,18 @@ class MinkowskiLeakyReLU(MinkowskiNonlinearityBase):
 
 
 class MinkowskiGELU(MinkowskiNonlinearityBase):
-    """GELU in its tanh form, as the JAX package's ``jax.nn.gelu`` (default
-    ``approximate=True``) computes it.  The reference wraps
-    ``torch.nn.GELU()``, the exact erf form; the two differ by up to ~5e-4
-    (ROADMAP queue 3)."""
+    """GELU, by default in its tanh form, as the JAX package's
+    ``jax.nn.gelu`` (default ``approximate=True``) computes it.  The
+    reference wraps ``torch.nn.GELU()``, the exact erf form, which
+    ``approximate=False`` gives, as JAX's keyword does (Point Transformer V3
+    takes it); the two differ by up to ~5e-4 (ROADMAP queue 3)."""
+
+    def __init__(self, approximate: bool = True):
+        super().__init__()
+        self.approximate = "tanh" if approximate else "none"
 
     def _fn(self, x):
-        return TF.gelu(x, approximate="tanh")
+        return TF.gelu(x, approximate=self.approximate)
 
 
 # The formulas on feature tensors; the modules below and

@@ -44,6 +44,9 @@ biased variance over the item's rows (its origin-map segment), then
 ``weight`` and ``bias`` of shape (1, C) under the reference's names
 (MinkowskiNormalization.py:361-399).
 
+``MinkowskiLayerNorm``: ``torch.nn.LayerNorm`` over each row's features
+(Point Transformer V3's norm; the JAX package has none).
+
 ``MinkowskiInstanceNormFunction``: the reference's autograd Function
 (MinkowskiNormalization.py:194-310) as an ``.apply`` shim, the same global
 pooling and broadcast written in torch ops; autograd gives its backward.
@@ -150,6 +153,18 @@ class MinkowskiBatchNorm(nn.Module):
                     w, b = block.replicated(w), block.replicated(b)
                 out = out * w + b
             return input._wrap(out.to(feats.dtype))
+
+
+class MinkowskiLayerNorm(nn.Module):
+    """Layer norm over each row's features (``torch.nn.LayerNorm`` as
+    ``.ln``: state-dict names ``ln.weight`` and ``ln.bias``)."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5, device=None):
+        super().__init__()
+        self.ln = nn.LayerNorm(num_features, eps=eps, device=resolve_device(device))
+
+    def forward(self, input):
+        return input._wrap(self.ln(input.F))
 
 
 def _own(stats):

@@ -22,16 +22,21 @@ has no span), with ``me.coords.unique``, ``me.coords.probe_grid``,
 ``me.coords.kernel_map.in_idx``, ``me.coords.kernel_map.out_idx_t`` and
 ``me.coords.pool_map`` inside; the sparse conv is ``me.conv.fwd``,
 ``me.conv.dx`` and ``me.conv.dw`` around K1's and K2's launches
-``me.k1.<body>`` and ``me.k2.<body>``; every host read of a device value
+``me.k1.<body>`` and ``me.k2.<body>``; serialized attention (Point
+Transformer V3) is ``me.attn.plan`` (a map's window plan),
+``me.attn.fwd`` and ``me.attn.bwd`` (the gathers, the fused attention and
+the scatter, and their backward), and ordering a map along its curves is
+``me.coords.serialize``; every host read of a device value
 is ``me.sync.<site>``; tensor construction and the multi-op layers are
 ``me.tensor.*`` and ``me.nn.*``.
 
 **Counters**, always on: a count and host seconds (``time.perf_counter``)
-under three boundaries.  ``sync.<site>``: each host read at that site
+under four boundaries.  ``sync.<site>``: each host read at that site
 (``host_read``), each of which waits for the card's queue to drain;
 ``coords``: the coordinate phase's outermost building calls (a nested call
 is not counted again) and the generative decoder's keep read; ``conv``:
-the sparse conv's forward and each part of its backward.  ::
+the sparse conv's forward and each part of its backward; ``attn``: each
+part of serialized attention.  ::
 
     MT.utils.profiling.reset_counters()
     train_step(...)
@@ -154,6 +159,12 @@ def conv_part(part: str) -> _Counted:
     """One part of the sparse conv (``fwd``, ``dx``, ``dw``): the span
     ``me.conv.<part>`` and the ``conv`` counter."""
     return _Counted("conv", "conv." + part)
+
+
+def attn_part(part: str) -> _Counted:
+    """One part of serialized attention (``plan``, ``fwd``, ``bwd``): the
+    span ``me.attn.<part>`` and the ``attn`` counter."""
+    return _Counted("attn", "attn." + part)
 
 
 def host_read(site: str, coords: bool = False, reads: int = 1) -> _Counted:
