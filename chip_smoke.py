@@ -408,6 +408,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    the bound, with the wrapper's host µs; the step's sums and a table by
    distinct conv (``redesign``).
 
+46. Serialized attention on Point Transformer V3's windows: the same step's
+   22 attention calls (14 encoder and 8 decoder blocks), captured with
+   their q, k, v rows, window plans and output gradients; the step runs
+   exactly 22 forward and 22 backward launches of the port's kernel
+   (``csrc/serialized_attention.cu``).  Each call's forward and backward
+   (the backward call's zeroing and summing into the rows included) held
+   to the plain version in float64 within ATTN_RTOL (max |Δ| / max |ref|
+   of the output and the q, k, v gradients), timed on the device alone
+   beside the plain version, PyTorch's memory-efficient attention on the
+   same windows (``library_ms``: the yardstick, which the port does not
+   call) and the bound, 4 L² d (forward) and 10 L² d (backward)
+   operations a window of L rows and head over 495 TFLOP/s; the step's
+   sums.
+
 Bound of a kernel call: the larger of its useful operations (2 · pairs ·
 Cin · Cout) over the H100's 495 TFLOP/s dense TF32 tensor peak and its
 bytes (each input read once, the output written once) over 3.35 TB/s.  The
@@ -452,6 +466,7 @@ from minkowskiengine_tpu_torch.coords.kernel_map import (
     _invert_matching, build_kernel_map, build_stride_map,
 )
 from minkowskiengine_tpu_torch.coords.manager import region_offsets_for
+from minkowskiengine_tpu_torch.kernels import attention as attn
 from minkowskiengine_tpu_torch.kernels import build
 from minkowskiengine_tpu_torch.kernels.conv_dw import conv_dw, conv_dw_reference
 from minkowskiengine_tpu_torch.kernels.gather_gemm import gather_gemm, gather_gemm_reference
@@ -462,6 +477,7 @@ from minkowskiengine_tpu_torch.models import (
 from minkowskiengine_tpu_torch.modules import SEBasicBlock
 from minkowskiengine_tpu_torch.nn.conv import MinkowskiConvolutionBase, _conv_out_key
 from minkowskiengine_tpu_torch.nn.nonlinearity import MinkowskiDropout, MinkowskiReLU
+from minkowskiengine_tpu_torch.nn import serialized
 from minkowskiengine_tpu_torch.nn.norm import MinkowskiBatchNorm, MinkowskiSyncBatchNorm
 from minkowskiengine_tpu_torch.ops import functional as conv_ops
 from minkowskiengine_tpu_torch.ops.dense_conv import build_row_grid, dense_conv
@@ -538,6 +554,9 @@ ROOM2CM = dict(voxel_size=0.02, n_points=200_000, extent=(4.0, 5.0, 2.5), n_obje
 # 3^3 CPE convs; float32 K1 launches by body and K2 launches of one step
 PTV3_ROOMS, PTV3_CROP, PTV3_CONVS = 3, 102_400, 23
 PTV3_K1_BODIES = {"wgmma_3xtf32": 2 * PTV3_CONVS - 2, "mma": 1}
+# phase 46: PTv3's attention calls a step (one a block), and the kernel's
+# bound against float64: 3xTF32 products leave ~1e-6 of max |ref|
+PTV3_BLOCKS, ATTN_RTOL = 22, 5e-6
 # phase 27: channelwise conv and SPMM, card against CPU: sums of at most 27
 # products per row forward; the input gradient's and SPMM's sums run
 # through CUDA's index_add atomics (at most 27 and 8 terms per row, summed
@@ -5083,6 +5102,125 @@ def ptv3_redesign(dev):
     return rows
 
 
+def ptv3_attention_calls(dev, batch=None, **widths):
+    """Phase 46's calls: [(label, qkv, plan, heads, scale, dout)] of each
+    serialized attention call of one float32 training step of
+    ``PointTransformerV3`` (seed-0 weights, published widths unless
+    ``widths`` names others) on ``batch`` (``ptv3_batch()``), the order
+    lists fixed; on the card the step must launch ``PTV3_BLOCKS`` forward
+    and backward kernels."""
+    coords, feats, labels = ptv3_batch() if batch is None else batch
+    model = PointTransformerV3(generator=torch.Generator().manual_seed(0), device=dev,
+                               **widths).train()
+    orders = [[(s + i) % 4 for i in range(4)] for s in range(len(model.enc))]
+    calls, original = [], serialized.attention
+
+    def recording(qkv, plan, heads, scale):
+        out = original(qkv, plan, heads, scale)
+        c = qkv.shape[1] // 3
+        call = [f"{len(calls):>2} {heads:>2}x{c // heads} {qkv.shape[0]:>6} rows "
+                f"{plan.n_full}+{len(plan.short)} windows", qkv.detach().clone(), plan, heads,
+                scale, None]
+        calls.append(call)
+        out.register_hook(lambda g: call.__setitem__(5, g.detach().clone()))
+        return out
+
+    serialized.attention = recording
+    try:
+        launched = (attn.attention.fwd_launches, attn.attention.bwd_launches)
+        x = MT.SparseTensor(feats.to(dev), coords.to(dev))
+        torch.nn.functional.cross_entropy(model(x, orders).F, labels.to(dev)).backward()
+        launched = (attn.attention.fwd_launches - launched[0],
+                    attn.attention.bwd_launches - launched[1])
+    finally:
+        serialized.attention = original
+    if dev.type == "cuda" and launched != (PTV3_BLOCKS, PTV3_BLOCKS):
+        raise AssertionError(f"46 PTv3: attention launches {launched}")
+    print(f"[46 PTv3] {len(coords)} rows; one step launches the attention kernel {launched[0]} "
+          f"times forward and {launched[1]} backward")
+    del model
+    return calls
+
+
+def sdpa_ms(qkv, plan, heads, scale):
+    """PyTorch's memory-efficient attention on the call's windows (the
+    yardstick: the port does not call it): device-only ms of the forward and
+    of the backward, the full windows in one call and each short one in its
+    own, as the port called it before its kernel."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    fn = torch.nn.functional.scaled_dot_product_attention
+    packed = qkv.index_select(0, plan.rows)
+    c = qkv.shape[1] // 3
+    parts = []
+    for first, windows, n in attn._segments(plan):
+        t = packed[first:first + windows * n].view(windows, n, 3, heads, c // heads)
+        parts.append([x.contiguous().requires_grad_(True) for x in t.permute(2, 0, 3, 1, 4)])
+    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        outs = [fn(q, k, v, scale=scale) for q, k, v in parts]
+        grads = [torch.randn_like(o) for o in outs]
+        fwd = device_ms(lambda: [fn(q, k, v, scale=scale) for q, k, v in parts])[0]
+        bwd = device_ms(lambda: [torch.autograd.grad(o, qkv_, g, retain_graph=True)
+                                 for qkv_, o, g in zip(parts, outs, grads)])[0]
+    return fwd, bwd
+
+
+def attention_row(label, qkv, plan, heads, scale, dout):
+    """Phase 46: one attention call, forward and backward, held to the plain
+    version in float64 and timed on the device alone beside the plain
+    version, SDPA and the bound."""
+    c = qkv.shape[1] // 3
+    out, lse = attn._launch_forward(qkv, plan, heads, scale)
+    grad = attn._launch_backward(qkv, out, lse, dout, plan, heads, scale)
+    o64, l64 = attn.attention_forward_reference(qkv.double(), plan, heads, scale)
+    g64 = attn.attention_backward_reference(qkv.double(), o64, l64, dout.double(), plan, heads,
+                                            scale)
+    errs = [float((a.double() - b).abs().max() / b.abs().max())
+            for a, b in zip((out, *grad.split(c, 1)), (o64, *g64.split(c, 1)))]
+    del o64, l64, g64
+    if max(errs) > ATTN_RTOL:
+        raise AssertionError(f"46 {label}: output, dq, dk, dv off float64 by {errs}")
+    squares = plan.n_full * plan.patch_size ** 2 + sum(n * n for n in plan.short)
+    row = dict(label=label, err=max(errs), bound_ms=4 * squares * c / 495e12 * 1e3,
+               ms=device_ms(lambda: attn._launch_forward(qkv, plan, heads, scale))[0],
+               bwd_ms=device_ms(lambda: attn._launch_backward(qkv, out, lse, dout, plan, heads,
+                                                               scale))[0],
+               plain_ms=device_ms(lambda: attn.attention_forward_reference(qkv, plan, heads,
+                                                                           scale), graph=True)[0],
+               plain_bwd_ms=device_ms(lambda: attn.attention_backward_reference(
+                   qkv, out, lse, dout, plan, heads, scale), graph=True)[0])
+    row["library_ms"], row["library_bwd_ms"] = sdpa_ms(qkv, plan, heads, scale)
+    print(f"  {label}: kernel {row['ms']:.3f} + {row['bwd_ms']:.3f} ms, plain "
+          f"{row['plain_ms']:.3f} + {row['plain_bwd_ms']:.3f}, SDPA {row['library_ms']:.3f} + "
+          f"{row['library_bwd_ms']:.3f}, bound {row['bound_ms']:.4f} + {2.5 * row['bound_ms']:.4f}; "
+          f"worst error {row['err']:.1e}")
+    return row
+
+
+def ptv3_attention(dev):
+    """Phase 46: the 22 serialized attention calls of one float32 PTv3
+    training step on the benchmark cell's cropped 2 cm rooms, each held to
+    float64 and timed on the device alone (``attention_row``).  Returns the
+    step's sums."""
+    start = time.perf_counter()
+    calls = ptv3_attention_calls(dev)
+    print(f"[46 attention, PTv3 training-step windows] {len(calls)} calls; device-only ms, forward "
+          "+ backward: the kernel, plain, PyTorch's memory-efficient attention, the bound")
+    rows = []
+    while calls:
+        rows.append(attention_row(*calls.pop(0)))
+        torch.cuda.empty_cache()
+    sums = {k: sum(r[k] for r in rows) for k in
+            ("ms", "bwd_ms", "plain_ms", "plain_bwd_ms", "library_ms", "library_bwd_ms", "bound_ms")}
+    sums["err"] = max(r["err"] for r in rows)
+    print(f"  PTv3, sum over one step: kernel {sums['ms']:.3f} + {sums['bwd_ms']:.3f} ms, plain "
+          f"{sums['plain_ms']:.3f} + {sums['plain_bwd_ms']:.3f}, SDPA {sums['library_ms']:.3f} + "
+          f"{sums['library_bwd_ms']:.3f}, bound {sums['bound_ms']:.4f} + "
+          f"{2.5 * sums['bound_ms']:.4f} ms; worst error {sums['err']:.1e}")
+    print(f"[46] {time.perf_counter() - start:.1f} s")
+    return sums
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -5133,6 +5271,7 @@ def main() -> int:
     gen16 = generative_bf16(dev, launches, reuse)
     f32_rows = f32_redesign(dev, reuse)
     ptv3_rows = ptv3_redesign(dev)
+    attn_sums = ptv3_attention(dev)
 
     bwd = (synth_bwd + real_bwd + fcnn_bwd + gen_rows + completion_bwd + vae_bwd + splat_bwd
            + shim_bwd + high_rows)
@@ -5178,7 +5317,19 @@ def main() -> int:
         "bound_ms": timing[name][2],
         "bound_by": "operations" if 2 * timing[name][3] >= timing[name][2] else "bytes",
         "library_ms": None,  # no one PyTorch call gathers rows by a map and multiplies
-    } for name, (source, replaces) in KERNELS.items()]}))
+    } for name, (source, replaces) in KERNELS.items()] + [{
+        "name": "serialized_attention",
+        "route": "cuda",
+        "source": "minkowskiengine_tpu_torch/csrc/serialized_attention.cu",
+        "replaces": None,  # the JAX package has no attention
+        "launches": 2 * PTV3_BLOCKS,
+        "max_rel_err": attn_sums["err"],
+        "ms": attn_sums["ms"] + attn_sums["bwd_ms"],
+        "plain_ms": attn_sums["plain_ms"] + attn_sums["plain_bwd_ms"],
+        "bound_ms": 3.5 * attn_sums["bound_ms"],
+        "bound_by": "operations",
+        "library_ms": attn_sums["library_ms"] + attn_sums["library_bwd_ms"],
+    }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

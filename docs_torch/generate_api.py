@@ -119,8 +119,8 @@ PAGES = [
         "SparseTensor or a TensorField, as in the reference. Point "
         "Transformer V3's layers: multi-head attention inside windows of a "
         "map's rows along a space-filling curve (the manager's `serialize` "
-        "and `window_plan`; on the card PyTorch's memory-efficient kernel, "
-        "on the CPU the math path), and the serialized pooling pair.",
+        "and `window_plan`; on the card the port's fused attention kernel, "
+        "on the CPU its plain version), and the serialized pooling pair.",
         [
             "MinkowskiSumPooling",
             "MinkowskiAvgPooling",

@@ -120,7 +120,11 @@ class WindowPlan:
     ``rows``: the map rows of every window, the full windows' first (``n_full``
     windows of K rows, flattened), then each short window's; ``select``: for
     each map row, its place in that sequence in the first window that holds
-    it; ``short``: the lengths of the short windows, on the host.
+    it; ``short``: the lengths of the short windows, on the host.  What the
+    attention kernel reads (``kernels/attention.py``): ``bounds``, (windows
+    + 1,) int32, window w at places ``bounds[w]`` to ``bounds[w + 1] - 1``
+    of ``rows``; ``kernel_rows``, ``rows`` as int32, with ``~row`` at each
+    place that does not own its row (``select[rows[p]] != p``).
     """
 
     rows: torch.Tensor
@@ -128,6 +132,8 @@ class WindowPlan:
     n_full: int
     patch_size: int
     short: Tuple[int, ...]
+    bounds: torch.Tensor
+    kernel_rows: torch.Tensor
 
 
 def _ranges(lengths: torch.Tensor, total: int):
@@ -174,4 +180,13 @@ def build_window_plan(ser: Serialization, offsets: torch.Tensor, offsets_host: L
     in_full = (first_window[scene_q] + j_q) * K + p - torch.minimum(j_q * K, w - K)
     in_short = n_full * K + short_first[scene_q] + p
     place = torch.where(w > K, in_full, in_short)
-    return WindowPlan(rows, place[ser.inverse], n_full, K, short)
+    select = place[ser.inverse]
+
+    # the short windows' scenes, in order (a stable sort puts them first)
+    short_scenes = torch.argsort((short_n == 0).to(torch.int8), stable=True)[:len(short)]
+    places = n_full * K + n_short
+    bounds = torch.cat([torch.arange(n_full, device=dev) * K, n_full * K + short_first[short_scenes],
+                        torch.full((1,), places, device=dev, dtype=order.dtype)]).to(torch.int32)
+    owned = torch.zeros(places, dtype=torch.bool, device=dev).index_fill_(0, select, True)
+    kernel_rows = torch.where(owned, rows, ~rows).to(torch.int32)
+    return WindowPlan(rows, select, n_full, K, short, bounds, kernel_rows)

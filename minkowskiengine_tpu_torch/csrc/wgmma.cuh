@@ -2,7 +2,9 @@
 // bodies: wgmma.mma_async m64nNk16 with bf16 operands read from shared
 // memory through matrix descriptors (gather_gemm_wgmma.cu, conv_dw_wgmma.cu)
 // and m64nNk8 with tf32 operands, A from registers and B from shared memory
-// (K1's float32 body, gather_gemm_wgmma_f32.cu), each into a float32
+// (K1's float32 body, gather_gemm_wgmma_f32.cu, and the attention kernels,
+// serialized_attention.cu) or both from shared memory (the attention
+// backward's dQ), each into a float32
 // accumulator in registers; the descriptors, the swizzled shared-memory
 // layouts the descriptors describe, and the fences.
 //
@@ -400,6 +402,65 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2], const uint32_t (&a
     wgmma_m64n128k8_tf32(d, a, db, scale_d);
   } else {
     static_assert(N == 0, "no tf32 wgmma instance for this N");
+  }
+}
+
+// tf32 products with A and B both K-major in shared memory (the attention
+// backward's dQ = dS K, serialized_attention.cu)
+__device__ __forceinline__ void wgmma_m64n16k8_tf32_ss(float (&d)[8], uint64_t da, uint64_t db,
+                                                       int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_m64n32k8_tf32_ss(float (&d)[16], uint64_t da, uint64_t db,
+                                                       int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_m64n64k8_tf32_ss(float (&d)[32], uint64_t da, uint64_t db,
+                                                       int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x N, float32) = or += A (64 x 8) B (8 x N), tf32, both K-major from
+// shared memory
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[N / 2], uint64_t da, uint64_t db,
+                                              int scale_d) {
+  if constexpr (N == 16) {
+    wgmma_m64n16k8_tf32_ss(d, da, db, scale_d);
+  } else if constexpr (N == 32) {
+    wgmma_m64n32k8_tf32_ss(d, da, db, scale_d);
+  } else if constexpr (N == 64) {
+    wgmma_m64n64k8_tf32_ss(d, da, db, scale_d);
+  } else {
+    static_assert(N == 0, "no shared-memory tf32 wgmma instance for this N");
   }
 }
 

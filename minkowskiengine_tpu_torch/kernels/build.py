@@ -38,7 +38,7 @@ LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 # exported C functions: (argument types, result type); pointers and the
 # stream are c_void_p so ctypes passes them at full width
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     # (x, w, idx, out, workspace, n_in, n_out, k_vol, cin, cout, splits, vec,
     #  stream) -> cudaError_t
@@ -56,6 +56,12 @@ SIGNATURES = {
     "me_conv_dw_bf16_stem": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P], _I),
     # K1's float32 body on wgmma, as K1's bf16 one
     "me_gather_gemm_f32_wgmma": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P], _I),
+    # serialized attention: (qkv, rows, bounds, out, lse, positions, windows,
+    # max_len, heads, d, scale, stream); its backward (qkv, rows, bounds,
+    # out, dout, lse, delta, dqkv, positions, windows, max_len, heads, d,
+    # scale, stream)
+    "me_attention_fwd_f32": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P], _I),
+    "me_attention_bwd_f32": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P], _I),
 }
 
 _lib = None

@@ -2,16 +2,14 @@
 Transformer V3, Wu et al., CVPR 2024, arXiv:2312.10035; Pointcept's
 ``point_transformer_v3m1_base.py``).
 
-``MinkowskiSerializedAttention``: the qkv Linear, the rows gathered in the
+``MinkowskiSerializedAttention``: the qkv Linear, the rows taken in the
 order of one space-filling curve and cut into windows (the manager's
 window plan, ``coords/serialize.py``), multi-head attention inside each
 window, each row's output taken from the first window that holds it, and
-the proj Linear.  The attention is
-``torch.nn.functional.scaled_dot_product_attention``: on the card pinned to
-the memory-efficient backend for float32 (``sdpa_kernel``; a shape it
-cannot take raises, it never falls back to the math path), on the CPU the
-math path.  Full windows go in one call; a scene with no more rows than a
-window is one call of its own length.
+the proj Linear.  The attention is the port's fused kernel
+(``kernels/attention.py``): on the card one launch a call, full and short
+windows together, the plan's gather in its loads; on the CPU its plain
+version.
 
 ``MinkowskiSerializedPooling``: Linear, then the max over each 2×2×2 cell
 (``MinkowskiMaxPooling(2, 2)`` on the manager's stride map: the curve code
@@ -27,8 +25,8 @@ from typing import Optional
 
 import torch
 from torch import nn
-from torch.nn.functional import scaled_dot_product_attention
 
+from ..kernels.attention import attention
 from ..sparse_tensor import SparseTensor
 from ..utils import profiling as P
 from .nonlinearity import MinkowskiGELU
@@ -37,48 +35,13 @@ from .ops import MinkowskiLinear
 from .pooling import MinkowskiMaxPooling
 
 
-def _backend(device: torch.device):
-    from torch.nn.attention import SDPBackend
-
-    return SDPBackend.EFFICIENT_ATTENTION if device.type == "cuda" else SDPBackend.MATH
-
-
-def _attend(qkv: torch.Tensor, heads: int, scale: float) -> torch.Tensor:
-    """Attention inside each window of (windows, L, 3C) packed rows; (windows·L, C)."""
-    w, length, c3 = qkv.shape
-    d = c3 // (3 * heads)
-    q, k, v = qkv.view(w, length, 3, heads, d).permute(2, 0, 3, 1, 4)
-    out = scaled_dot_product_attention(q, k, v, scale=scale)  # (windows, heads, L, d)
-    return out.transpose(1, 2).reshape(w * length, heads * d)
-
-
 def serialized_attention(qkv: torch.Tensor, plan, heads: int, scale: float) -> torch.Tensor:
     """(N, C) attention outputs of (N, 3C) packed q, k, v rows over a
-    ``WindowPlan``: every window's rows in one gather, the full windows in
-    one call, each short window in its own, and each row's output from the
-    first window that holds it.  The span ``me.attn.bwd`` holds the backward
-    from the last gather to the first."""
-    from torch.nn.attention import sdpa_kernel
-
-    K = plan.patch_size
-    with P.attn_part("fwd"), sdpa_kernel(_backend(qkv.device)):
-        packed = qkv.index_select(0, plan.rows)
-        full, *short = packed.split([plan.n_full * K, *plan.short])
-        outs = [_attend(full.view(plan.n_full, K, -1), heads, scale)] if plan.n_full else []
-        outs += [_attend(s.unsqueeze(0), heads, scale) for s in short]
-        out = torch.cat(outs).index_select(0, plan.select)
-    if out.grad_fn is not None and packed.grad_fn is not None:
-        part = P.attn_part("bwd")
-
-        def enter(grad_outputs):
-            part.__enter__()
-
-        def leave(grad_inputs, grad_outputs):
-            part.__exit__(None, None, None)
-
-        out.grad_fn.register_prehook(enter)
-        packed.grad_fn.register_hook(leave)
-    return out
+    ``WindowPlan``, each row's output from the first window that holds it
+    (``kernels.attention.attention``).  The span ``me.attn.fwd`` holds the
+    forward, ``me.attn.bwd`` its backward."""
+    with P.attn_part("fwd"):
+        return attention(qkv, plan, heads, scale)
 
 
 class MinkowskiSerializedAttention(nn.Module):

@@ -11,8 +11,9 @@ TF32; the published model's parameter count.
 
 Card (marked ``cuda``; skips where no card is visible, decided inside the
 test): one float32 training step at the published widths on three 2 cm
-rooms cropped to 102,400 voxels runs every attention call on the
-memory-efficient kernel, and every synchronizing CUDA call of the step lies
+rooms cropped to 102,400 voxels runs every attention call on the port's
+attention kernel (one forward and one backward launch a block, no
+PyTorch attention), and every synchronizing CUDA call of the step lies
 in an ``me.sync.*`` span, as many as the ``sync.*`` counters count.
 """
 
@@ -29,7 +30,7 @@ import torch
 import minkowskiengine_tpu_torch as MT
 import plain_ptv3 as plain
 from minkowskiengine_tpu_torch.coords.serialize import CURVES, hilbert_code, morton_code
-from minkowskiengine_tpu_torch.nn import serialized
+from minkowskiengine_tpu_torch.kernels.attention import attention
 from minkowskiengine_tpu_torch.utils import profiling as P
 from minkowskiengine_tpu_torch.utils.datasets import make_room_scan
 from test_torch_tracing import SYNC_CALLS, sync_counts, trace_events
@@ -252,7 +253,10 @@ def cell_step(dev):
 
 
 @pytest.mark.cuda
-def test_a_card_step_runs_memory_efficient_attention_and_counts_its_syncs(tmp_path, monkeypatch):
+def test_a_card_step_runs_memory_efficient_attention_and_counts_its_syncs(tmp_path):
+    """The step's attention runs on the port's kernel alone: 22 forward and 22
+    backward launches (14 encoder and 8 decoder blocks), by its counters and
+    in the trace, and no kernel or call of PyTorch's attention."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -260,14 +264,6 @@ def test_a_card_step_runs_memory_efficient_attention_and_counts_its_syncs(tmp_pa
     step = cell_step(dev)
     step()
     step()  # kernels built, plans and allocator warm
-    calls = []
-    sdpa = serialized.scaled_dot_product_attention
-
-    def counted(*args, **kw):
-        calls.append(args[0].shape)
-        return sdpa(*args, **kw)
-
-    monkeypatch.setattr(serialized, "scaled_dot_product_attention", counted)
     lines = Counter()
 
     def note(message, category, filename, lineno, file=None, line=None):
@@ -287,8 +283,8 @@ def test_a_card_step_runs_memory_efficient_attention_and_counts_its_syncs(tmp_pa
             torch.cuda.set_sync_debug_mode(0)
             warnings.showwarning = saved
     torch.cuda.synchronize()
-    calls.clear()
     before = P.counters()
+    launches = (attention.fwd_launches, attention.bwd_launches)
     with torch.profiler.profile(
         activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA],
         on_trace_ready=torch.profiler.tensorboard_trace_handler(str(tmp_path)),
@@ -297,16 +293,20 @@ def test_a_card_step_runs_memory_efficient_attention_and_counts_its_syncs(tmp_pa
             step()
         counted_syncs = sync_counts(before, P.counters())
         torch.cuda.synchronize()
+    counted = (attention.fwd_launches - launches[0], attention.bwd_launches - launches[1])
     xs = trace_events(tmp_path)
     host = [e for e in xs if e.get("cat") != "gpu_user_annotation"]
     (lo, hi), = [(e["ts"], e["ts"] + e["dur"]) for e in host if e["name"] == "test.step"]
-    kernels = Counter(e["name"].split("(")[0] for e in xs if e.get("cat") == "kernel")
-    fwd = sum(n for k, n in kernels.items() if k.startswith("fmha_cutlassF"))
-    bwd = sum(n for k, n in kernels.items() if k.startswith("fmha_cutlassB"))
-    math_ops = [e for e in host if "scaled_dot_product_attention_math" in e["name"]]
-    print(f"\n{len(calls)} attention calls; fmha forward {fwd}, backward {bwd}; "
+    kernels = Counter(e["name"] for e in xs if e.get("cat") == "kernel")
+    fwd = sum(n for k, n in kernels.items() if "attention_fwd_3xtf32_kernel" in k)
+    bwd = sum(n for k, n in kernels.items() if "attention_bwd_3xtf32_kernel" in k)
+    library = [k for k in kernels if k.startswith("fmha_") or "flash" in k.lower()]
+    sdpa = [e["name"] for e in host if "scaled_dot_product" in e["name"]
+            or "efficient_attention" in e["name"]]
+    print(f"\nattention launches {counted}; kernels forward {fwd}, backward {bwd}; "
           f"syncs {counted_syncs}; synchronizing lines {dict(lines)}")
-    assert calls and fwd == len(calls) and bwd == len(calls) and not math_ops
+    assert counted == (22, 22) and (fwd, bwd) == (22, 22), (counted, fwd, bwd)
+    assert not library and not sdpa, (library, sdpa[:3])
     spans = [(e["tid"], e["ts"], e["ts"] + e["dur"]) for e in host
              if e["name"].startswith("me.sync.")]
     syncs = [e for e in host if e.get("cat") == "cuda_runtime" and e["name"] in SYNC_CALLS

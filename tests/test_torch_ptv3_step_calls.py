@@ -89,3 +89,38 @@ def test_float32_parts_carry_k2_and_the_bodies(small):
     nbytes = 4 * (n_in * cin + n_out * cout) + 4 * K * n_out + 4 * K * cin * cout
     dw = cs.kernel_parts(x, w, g, in_idx, out_idx_t, bf16=False, with_dw=True)["dw"]
     assert dw[5] == pytest.approx(max(flop / cs.TF32_PEAK, nbytes / cs.HBM_RATE) * 1e3)
+
+
+@pytest.fixture(scope="module")
+def attention_calls(small):
+    """Phase 46's calls of the same small step."""
+    (batch, _) = small
+    return cs.ptv3_attention_calls(torch.device("cpu"), batch, **SMALL)
+
+
+def test_every_attention_call_of_the_step_is_captured(attention_calls):
+    blocks = sum(SMALL["enc_depths"]) + sum(SMALL["dec_depths"])
+    assert len(attention_calls) == blocks
+    for label, qkv, plan, heads, scale, dout in attention_calls:
+        c = qkv.shape[1] // 3
+        assert qkv.dtype == torch.float32 and dout.shape == (qkv.shape[0], c)
+        assert scale == pytest.approx((c // heads) ** -0.5)
+        assert int(plan.bounds[-1]) == plan.rows.numel() == plan.kernel_rows.numel()
+
+
+def test_each_attention_call_is_held_and_timed(attention_calls, monkeypatch):
+    """``attention_row`` with the card's parts stood in for: the kernel's
+    launches by the plain versions (what the CPU runs), the timings by one
+    call each."""
+    from minkowskiengine_tpu_torch.kernels import attention as A
+
+    timed = []
+    monkeypatch.setattr(cs, "device_ms", lambda fn, graph=False: (timed.append(fn()), (1.0, None))[1])
+    monkeypatch.setattr(cs, "sdpa_ms", lambda *args: (2.0, 3.0))
+    monkeypatch.setattr(A, "_launch_forward", A.attention_forward_reference)
+    monkeypatch.setattr(A, "_launch_backward", A.attention_backward_reference)
+    for call in attention_calls:
+        row = cs.attention_row(*call)
+        assert row["err"] <= cs.ATTN_RTOL and row["bound_ms"] > 0
+        assert (row["ms"], row["library_ms"], row["library_bwd_ms"]) == (1.0, 2.0, 3.0)
+    assert len(timed) == 4 * len(attention_calls)
