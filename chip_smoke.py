@@ -12,8 +12,7 @@ the halo-exchange spatial conv and column-parallel convs; then the ported
 examples, indoor.py's MinkUNet34C segmentation chain at full width first;
 a 7-D sparse U-Net (multi-word coordinate keys) and a 16-D conv; the
 multi-process examples on one NCCL rank and on two gloo ranks sharing the
-card; the dense bbox grid: the row-grid probe against the key search
-and the dense-grid conv route against K1 and K2, with its gate refit;
+card; the dense bbox grid: the row-grid probe against the key search;
 the bf16 bodies of both kernels timed on the device alone; CompletionNet
 and the VAE in bf16, each held to its own keep masks; K1's float32 bodies
 on MinkUNet34's and CompletionNet's step maps; and last, K1 and K2 on every
@@ -64,7 +63,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    input needs none) and ``conv_dw`` 55 times.
 10. gradient parity: step 0 again on the CPU plain path with the same
    weights; loss, every parameter gradient and the BN running statistics
-   must agree with the card's.
+   must agree with the card's, and its train-mode logits with the CPU
+   float32 run's, as phase 14c holds logits.
 11. classification inference: ``MinkowskiFCNN(3, 40, embedding_channel=1024,
    channels=(32, 48, 64, 96, 128), D=3)`` (the reference ModelNet40
    example's widths; weights from torch.Generator seed 0, eval mode)
@@ -319,31 +319,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    1e-4 of max|single|.
 
 41. the dense bbox grid, on MinkUNet34's maps of phase 9's batch 0 (two
-   surface-26k scans): (a) the probe: each map's grid (shape, cells,
-   bytes, the row grid's build), every kernel map of an eager forward
-   built again through the row grids and through the key search,
-   bit-equal to each other and to the manager's, both timed (CUDA
-   events); the stride maps between the levels and an interpolation map
-   on each level, the same way; the eager coordinate phase (host ms and
-   syncs, as phase 33 counts them) on three fresh batches with the grid on
-   and off (off: the manager's cell cap patched to 0), equal maps, no more
-   syncs with the grid; the compiled replay with grids on those batches:
-   one graph, one sync, maps bit-equal to eager, plans at the grid
-   floors.  (b) the dense-grid route (one cuDNN conv over the bbox grid)
-   against K1 and K2 on each stride-1 conv shape of the model on its real
-   map: forward, input gradient and weight gradient timed both ways, the
-   route held to the plain path within KERNEL_RTOL (forward, dX) and
-   DW_RTOL (dW), K1 and K2 held as everywhere, with each part's bound.
-   (c) the gate: its cost model fitted to (a) and (b), beside the
-   constants in ``ops/dense_conv.py``, and each conv's decision, map cached
-   or not; a training step under DEFAULT dispatch (the dense-routed convs
-   counted, every K1 and K2 call held, loss and gradients judged against
-   phase 10's CPU runs as phase 10 judges them, its logits against a CPU
-   forward in float32 and float64 as phase 14c judges logits); the same
-   step with the stem forced onto the route: the route's output and weight
-   gradient held against the plain sparse conv on their own inputs
-   (KERNEL_RTOL, DW_RTOL), the loss against the CPU's (LOSS_RTOL); one
-   bf16 step under DEFAULT, judged as phase 30's.
+   surface-26k scans): the probe.  Each map's grid (shape, cells, bytes,
+   the row grid's build), every kernel map of an eager forward built
+   again through the row grids and through the key search, bit-equal to
+   each other and to the manager's, both timed (CUDA events); the stride
+   maps between the levels and an interpolation map on each level, the
+   same way; the eager coordinate phase (host ms and syncs, as phase 33
+   counts them) on three fresh batches with the grid on and off (off: the
+   manager's cell cap patched to 0), equal maps, no more syncs with the
+   grid; the compiled replay with grids on those batches: one graph, one
+   sync, maps bit-equal to eager, plans at the grid floors.
 
 42. the bf16 bodies on the device alone: every K1 and K2 call of one bf16
    MinkUNet34 training step and one bf16 MinkowskiFCNN step (phase 28's
@@ -460,8 +445,7 @@ import torch.multiprocessing as mp
 import minkowskiengine_tpu_torch as MT
 from minkowskiengine_tpu_torch import parallel
 import minkowskiengine_tpu_torch.coords.manager as TM
-import minkowskiengine_tpu_torch.nn.conv as conv_mod
-import minkowskiengine_tpu_torch.ops.dense_conv as DC
+from minkowskiengine_tpu_torch.coords.grid import build_row_grid
 from minkowskiengine_tpu_torch.coords.kernel_map import (
     _invert_matching, build_kernel_map, build_stride_map,
 )
@@ -480,7 +464,6 @@ from minkowskiengine_tpu_torch.nn.nonlinearity import MinkowskiDropout, Minkowsk
 from minkowskiengine_tpu_torch.nn import serialized
 from minkowskiengine_tpu_torch.nn.norm import MinkowskiBatchNorm, MinkowskiSyncBatchNorm
 from minkowskiengine_tpu_torch.ops import functional as conv_ops
-from minkowskiengine_tpu_torch.ops.dense_conv import build_row_grid, dense_conv
 from minkowskiengine_tpu_torch.parallel import comm, spatial
 from minkowskiengine_tpu_torch.utils import hostengine
 from minkowskiengine_tpu_torch.utils.collation import sparse_collate
@@ -1168,6 +1151,7 @@ def segmentation_and_classification(dev, launches):
         if step == 0:
             loss0 = loss.item()
             grads0 = {k: p.grad.detach().cpu().clone() for k, p in net.named_parameters()}
+            logits0 = out.F.detach().double().cpu()
         opt.step()
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
@@ -1190,16 +1174,28 @@ def segmentation_and_classification(dev, launches):
 
     # 10. gradient parity with the CPU plain path: step 0 again in float32,
     # and in float64 as the yardstick of float32 rounding
+    cpu_logits = {}
+
     def cpu_unet_step(dtype):
         cpu_net = MinkUNet34(3, 20, D=3, device="cpu").train()
         cpu_net.load_state_dict(init)
         cpu_net.to(dtype)
         coords, feats = batches[0]
-        loss, _ = train_step(cpu_net, None, coords, feats.to(dtype), labels[0], "cpu")
+        loss, out = train_step(cpu_net, None, coords, feats.to(dtype), labels[0], "cpu")
+        cpu_logits[dtype] = out.F.detach().double()
         return loss, cpu_net, len(coords)
 
     unet_cpu = cpu_steps(cpu_unet_step, "10 parity", "voxels")
     judge_step("10 parity", loss0, grads0, stats0, unet_cpu)
+    # the train-mode logits, held as phase 14c holds logits
+    vs32 = rel_diff(logits0, cpu_logits[torch.float32])
+    card64 = rel_diff(logits0, cpu_logits[torch.float64])
+    cpu64 = rel_diff(cpu_logits[torch.float32], cpu_logits[torch.float64])
+    print(f"  logits {tuple(logits0.shape)} against the CPU float32 run {vs32:.2e}; against "
+          f"float64: card {card64:.2e}, CPU float32 {cpu64:.2e}")
+    if not (vs32 <= LOGIT_RTOL or card64 <= GRAD_FACTOR * cpu64):
+        raise AssertionError(f"10 parity: logits disagree with the CPU plain path, {vs32:.3e}")
+    del cpu_logits, logits0
 
     # 11. classification inference: three batches of 32 shapes, counted
     fcnn = MinkowskiFCNN(
@@ -3572,7 +3568,7 @@ def examples_path(dev, launches):
             raise AssertionError(f"indoor logits disagree: {rel:.3e}")
     del cpu_model, ref, answers
 
-    # COPY_GEMM keeps a conv on K1/K2 (it only keeps JAX's off its dense route)
+    # COPY_GEMM selects nothing: the same K1/K2 calls as DEFAULT
     x = MT.TensorField(
         torch.from_numpy(indoor.normalize_color(colors)).to(dev),
         MT.utils.batched_coordinates([points / INDOOR_VOXEL], dtype=torch.float32).to(dev),
@@ -4131,10 +4127,8 @@ def multi_process_examples(dev, launches):
     print(f"[40] {time.perf_counter() - start:.1f} s")
     return errors
 
-# phase 41: the dense bbox grid.  The stride-1 convs of MinkUNet34: its
-# stem and the distinct block convs (SLICE_SHAPES with equal strides)
-DENSE_SHAPES = [s for s in SLICE_SHAPES if s[4] == s[5]]
-# the scans of phase 41a's eager coordinate phases, grid on and off
+# phase 41: the dense bbox grid; the scans of its eager coordinate phases,
+# grid on and off
 GRID_SEEDS = FRESH_SEEDS[:3]
 
 
@@ -4156,10 +4150,9 @@ def same_map(a, b):
 
 
 def probe_tables(mgr):
-    """41a's per-map tables: each map's grid (cells, bytes, row grid built
-    in ms), each kernel map, stride map and interpolation map built through
-    the grids and through the search, bit-equal, both timed.  Returns the
-    kernel maps' (K, rows, grid ms)."""
+    """Phase 41's per-map tables: each map's grid (cells, bytes, row grid
+    built in ms), each kernel map, stride map and interpolation map built
+    through the grids and through the search, bit-equal, both timed."""
     print("  coordinate maps: rows, grid shape, cells, int32 row grid, its build (CUDA events)")
     levels = {}
     for key_t, m in mgr._maps.items():
@@ -4172,14 +4165,12 @@ def probe_tables(mgr):
         print(f"    {str(key_t):>18} {m.size:>6} rows, grid {plan.grid_shape} = {plan.cells:,} "
               f"cells, {4 * (plan.cells + 1) / 2**20:.2f} MiB, built in {ms:.4f} ms")
     print("  kernel maps: K, rows out, grid build ms / search build ms, bit-equal")
-    builds = []
     for ck, km in mgr._kernel_maps.items():
         grid, search = rebuild_kernel_map(mgr, ck, True), rebuild_kernel_map(mgr, ck, False)
         if not (same_map(grid, search) and same_map(grid, km)):
-            raise AssertionError(f"41a: kernel map {ck[:4]} differs between the grid and the search")
+            raise AssertionError(f"41: kernel map {ck[:4]} differs between the grid and the search")
         g_ms = cuda_ms(lambda: rebuild_kernel_map(mgr, ck, True))
         s_ms = cuda_ms(lambda: rebuild_kernel_map(mgr, ck, False))
-        builds.append((km.kernel_volume, km.n_out, g_ms))
         print(f"    {str(ck[0][0]) + '->' + str(ck[1][0]):>22} k={ck[2][0]} s={ck[3][0]}"
               f"{' T' if ck[6] else '  '} K={km.kernel_volume:<3} rows {km.n_out:>6}: "
               f"{g_ms:.4f} / {s_ms:.4f} ms")
@@ -4191,7 +4182,7 @@ def probe_tables(mgr):
         grid = build_stride_map(fm, cm, cm.tensor_stride, probe=pg)
         search = build_stride_map(fm, cm, cm.tensor_stride)
         if not torch.equal(grid, search):
-            raise AssertionError(f"41a: stride map {fine[0]}->{coarse[0]} differs")
+            raise AssertionError(f"41: stride map {fine[0]}->{coarse[0]} differs")
         g_ms = cuda_ms(lambda: build_stride_map(fm, cm, cm.tensor_stride, probe=pg))
         s_ms = cuda_ms(lambda: build_stride_map(fm, cm, cm.tensor_stride))
         samples = fm.coordinates.float() + 0.5 * fm.tensor_stride[0]
@@ -4205,122 +4196,19 @@ def probe_tables(mgr):
         finally:
             TM._MAX_GRID_CELLS = cap
         if not all(torch.equal(a, b) for a, b in zip(ig, isearch)):
-            raise AssertionError(f"41a: interpolation map on {coarse[0]} differs")
+            raise AssertionError(f"41: interpolation map on {coarse[0]} differs")
         i_g_ms = cuda_ms(interp)
         print(f"    stride {fine[0]}->{coarse[0]} ({fm.size} rows): {g_ms:.4f} / {s_ms:.4f} ms; "
               f"interpolation on {coarse[0]} ({len(samples)} samples x 8 corners): "
               f"{i_g_ms:.4f} / {i_s_ms:.4f} ms")
-    return builds
 
 
-def route_row(mgr, name, K, cin, cout, ts, gen, dev):
-    """41b: one stride-1 conv on its real map, the route against K1 and K2:
-    forward, input gradient and weight gradient, each held against the plain
-    path and timed (CUDA events); the route's parts are the differences of
-    forward+part and forward timings."""
-    key = MT.CoordinateMapKey((ts,) * 3, "")
-    ks = round(K ** (1 / 3))
-    km = mgr.kernel_map(key, key, kernel_size=ks)
-    plan = mgr.dense_plan(key)
-    n = mgr.size(key)
-    x = torch.randn(n, cin, device=dev, generator=gen)
-    w = torch.randn(K, cin, cout, device=dev, generator=gen) / (K * cin) ** 0.5
-    g = torch.randn(n, cout, device=dev, generator=gen)
-    wt = w.transpose(1, 2).contiguous()
-    size, dil = (ks,) * 3, (1,) * 3
-    xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
-
-    def fwd():
-        with torch.no_grad():
-            return dense_conv(x, w, plan, size, dil)
-
-    def fwd_dx():
-        return torch.autograd.grad(dense_conv(xr, w, plan, size, dil), xr, g)[0]
-
-    def fwd_dw():
-        return torch.autograd.grad(dense_conv(x, wr, plan, size, dil), wr, g)[0]
-
-    ref = {
-        "fwd": gather_gemm_reference(x, w, km.in_idx),
-        "dx": gather_gemm_reference(g, wt, km.out_idx_t),
-        "dw": conv_dw_reference(x, g, km.in_idx),
-    }
-    row = dict(label=name, K=K, cin=cin, cout=cout, ts=ts, rows=n, cells=plan.cells,
-               grid=plan.grid_shape, pairs=pairs(km.in_idx, n))
-    route_total = cuda_ms(fwd)
-    row["route"] = {"fwd": dict(ms=route_total)}
-    for part, fn in (("dx", fwd_dx), ("dw", fwd_dw)):
-        row["route"][part] = dict(ms=cuda_ms(fn) - route_total)
-    for part, fn in (("fwd", fwd), ("dx", fwd_dx), ("dw", fwd_dw)):
-        rtol = DW_RTOL if part == "dw" else KERNEL_RTOL
-        row["route"][part]["max_abs_err"], row["route"][part]["max_rel_err"] = held(
-            fn(), ref[part], rtol, f"41b {name} route {part}")
-    row["k1k2"] = {
-        "fwd": check(gather_gemm, gather_gemm_reference, (x, w, km.in_idx), KERNEL_RTOL, name),
-        "dx": check(gather_gemm, gather_gemm_reference, (g, wt, km.out_idx_t), KERNEL_RTOL,
-                    name + " dX"),
-        "dw": check(conv_dw, conv_dw_reference, (x, g, km.in_idx), DW_RTOL, name + " dW"),
-    }
-    flop = 2 * row["pairs"] * cin * cout
-    nbytes = {
-        "fwd": 4 * (n * cin + K * cin * cout + K * n + n * cout),
-        "dx": 4 * (n * cout + K * cin * cout + K * n + n * cin),
-        "dw": 4 * (n * cin + n * cout + K * n + K * cin * cout),
-    }
-    row["bound"] = {p: bound(flop, nbytes[p]) for p in nbytes}
-    return row
-
-
-def fit_gate(rows, builds):
-    """Least squares (relative residuals, coefficients >= 0) of the gate's
-    cost model (ops/dense_conv.py) to 41b's times: the route's fwd + dX +
-    dW against its fixed cost, cells x K and cells x K x Cin x Cout; K1 +
-    K1 + K2 against a fixed cost and rows x K x Cin32 x Cout32; the kernel
-    map's build (41a, through the grid) against a fixed cost and rows x K;
-    and the route's largest measured / fitted time, the margin by which
-    the gate's prediction must win."""
-    def nnls(A, y):
-        A, y = A / y[:, None], np.ones_like(y)
-        best = None
-        for mask in range(1, 2 ** A.shape[1]):
-            cols = [j for j in range(A.shape[1]) if mask >> j & 1]
-            coef = np.linalg.lstsq(A[:, cols], y, rcond=None)[0]
-            if (coef < 0).any():
-                continue
-            res = float(((A[:, cols] @ coef - y) ** 2).sum())
-            if best is None or res < best[0]:
-                full = np.zeros(A.shape[1])
-                full[cols] = coef
-                best = (res, full)
-        return best[1]
-
-    t32 = lambda c: -(-c // 32) * 32  # noqa: E731
-    A = np.array([[1.0, r["cells"] * r["K"], r["cells"] * r["K"] * r["cin"] * r["cout"]]
-                  for r in rows])
-    y = np.array([1e3 * sum(r["route"][p]["ms"] for p in r["route"]) for r in rows])
-    dense = nnls(A, y)
-    sparse = nnls(np.array([[1.0, r["rows"] * r["K"] * t32(r["cin"]) * t32(r["cout"])]
-                            for r in rows]),
-                  np.array([1e3 * sum(r["k1k2"][p]["ms"] for p in r["k1k2"]) for r in rows]))
-    kmap = nnls(np.array([[1.0, K * n] for K, n, _ in builds]),
-                np.array([1e3 * ms for _, _, ms in builds]))
-    return {
-        "_DENSE_US_FIXED": dense[0], "_DENSE_US_PER_CELL_OFFSET": dense[1],
-        "_DENSE_US_PER_MAC": dense[2], "_DENSE_WORST_RATIO": float((y / (A @ dense)).max()),
-        "_SPARSE_US_FIXED": sparse[0],
-        "_SPARSE_US_PER_MAC": sparse[1], "_KMAP_BUILD_US_FIXED": kmap[0],
-        "_KMAP_BUILD_US_PER_PAIR": kmap[1],
-    }
-
-
-def dense_grid(dev, launches, reuse):
+def dense_grid(dev, reuse):
     """Phase 41: the dense bbox grid on MinkUNet34's maps: the probe against
-    the search (41a), the dense-grid route against K1 and K2 (41b), the
-    gate refit and a training step under DEFAULT dispatch (41c).  Returns
-    the K1 and K2 errors of the calls it held."""
+    the search, map by map, then the eager coordinate phase with the grid on
+    and off, and the compiled replay at the grid floors."""
     start = time.perf_counter()
-    init, raw, labels = reuse["unet_init"], reuse["raw"], reuse["labels"]
-    smi = reuse["smi"]
+    init, raw, smi = reuse["unet_init"], reuse["raw"], reuse["smi"]
     coords, feats = collate(raw[0])
     recorder = unet_from(init, dev, False)
     x = MT.SparseTensor(feats.to(dev), coords.to(dev))
@@ -4328,10 +4216,8 @@ def dense_grid(dev, launches, reuse):
         recorder(x)
     mgr = x.coordinate_manager
 
-    # 41a. the probe against the search, map by map, then the eager
-    # coordinate phase with the grid on and off
-    print(f"[41a grid probe] phase 9's batch 0, {len(coords)} voxels; {smi}")
-    builds = probe_tables(mgr)
+    print(f"[41 grid probe] phase 9's batch 0, {len(coords)} voxels; {smi}")
+    probe_tables(mgr)
 
     def eager_phase(c, f):
         clock = CoordinateClock()
@@ -4357,14 +4243,14 @@ def dense_grid(dev, launches, reuse):
             grid_off(eager_phase, c, f)
         on, clock_on = eager_phase(c, f)
         off, clock_off = grid_off(eager_phase, c, f)
-        same_geometry(f"41a batch {i} grid off", off.export_geometry(), on)
+        same_geometry(f"41 batch {i} grid off", off.export_geometry(), on)
         eager.append((c, f, on))
         print(f"  batch {i}: {len(c)} voxels; eager coordinate phase host ms / syncs: grid on "
               f"{clock_on.ms:.2f} / {clock_on.syncs}, grid off {clock_off.ms:.2f} / "
               f"{clock_off.syncs}; {len(on._row_grids)} row grids, "
               f"{sum(g.numel() for g in on._row_grids.values()) * 4 / 2**20:.1f} MiB")
         if clock_on.syncs > clock_off.syncs:
-            raise AssertionError(f"41a: the grid added host syncs ({clock_on.syncs} > {clock_off.syncs})")
+            raise AssertionError(f"41: the grid added host syncs ({clock_on.syncs} > {clock_off.syncs})")
     replayer = MT.GeometryReplayer(mgr)
     for s in WARM_SEEDS:
         replayer(collate([scan(s), scan(s + 1)])[0].to(dev))
@@ -4372,179 +4258,15 @@ def dense_grid(dev, launches, reuse):
     for i, (c, f, want) in enumerate(eager):
         (geo, fp, ok), ms, syncs = host_phase(lambda: compiled.run(c, f))
         if not ok or syncs != 1 or compiled.captures != 1:
-            raise AssertionError(f"41a compiled replay: ok {ok}, syncs {syncs}, "
+            raise AssertionError(f"41 compiled replay: ok {ok}, syncs {syncs}, "
                                  f"captures {compiled.captures}")
-        same_geometry(f"41a compiled batch {i}", geo, want)
+        same_geometry(f"41 compiled batch {i}", geo, want)
         if any(p.grid_shape != compiled.grid_floors[k] for k, p in geo.dense_plans.items()):
-            raise AssertionError("41a: the compiled plans are not at the grid floors")
+            raise AssertionError("41: the compiled plans are not at the grid floors")
         print(f"  compiled replay with grids, batch {i}: {ms:.2f} ms host, {syncs} sync, one "
               f"graph, maps bit-equal to eager, {len(geo.dense_plans)} plans at the grid floors")
-    del compiled, replayer, eager
-
-    # 41b. the dense-grid route against K1 and K2 on each stride-1 conv
-    print(f"[41b route against K1] stride-1 convs on phase 9's batch 0 maps; ms route / K1-K2 "
-          f"(CUDA events), bound by useful pairs; {smi}")
-    gen = torch.Generator(device=dev).manual_seed(41)
-    rows = []
-    errors = {"gather_gemm": [], "conv_dw": []}
-    for name, K, cin, cout, ts, _ in DENSE_SHAPES:
-        r = route_row(mgr, name, K, cin, cout, ts, gen, dev)
-        rows.append(r)
-        for p, kernel in (("fwd", "gather_gemm"), ("dx", "gather_gemm"), ("dw", "conv_dw")):
-            errors[kernel].append((r["k1k2"][p]["max_abs_err"], r["k1k2"][p]["max_rel_err"]))
-        route, k1 = r["route"], r["k1k2"]
-        print(f"  {name:>8} K={K:<3} {cin:>3}->{cout:<3} ts {ts:>2}: {r['rows']:>6} rows, "
-              f"{r['cells']:>9,} cells ({r['pairs']:,} pairs); " + ", ".join(
-                  f"{p} {route[p]['ms']:.4f} / {k1[p]['ms']:.4f} (plain {k1[p]['plain_ms']:.4f}, "
-                  f"bound {r['bound'][p][0]:.4f} {r['bound'][p][1]}; route err "
-                  f"{route[p]['max_rel_err']:.1e})" for p in ("fwd", "dx", "dw")))
-    total = {w: sum(sum(r[w][p]["ms"] for p in r[w]) for r in rows) for w in ("route", "k1k2")}
-    print(f"  over the {len(rows)} shapes: route {total['route']:.3f} ms, K1 + K2 "
-          f"{total['k1k2']:.3f} ms")
-
-    # 41c. the gate: refit, decisions, and a training step under DEFAULT
-    fit = fit_gate(rows, builds)
-    print(f"[41c gate] constants fitted to this run / in ops/dense_conv.py; {smi}")
-    for k, v in fit.items():
-        print(f"  {k} = {v:.4g} / {getattr(DC, k):.4g}")
-    committed = {k: getattr(DC, k) for k in fit}
-
-    def picks(r, constants):
-        plan = mgr.dense_plan(MT.CoordinateMapKey((r["ts"],) * 3, ""))
-        for k, v in constants.items():
-            setattr(DC, k, v)
-        try:
-            return ["dense" if DC.dense_conv_beneficial(
-                plan, r["rows"], r["K"], r["cin"], r["cout"], map_cached=cached) else "sparse"
-                for cached in (True, False)]
-        finally:
-            for k, v in committed.items():
-                setattr(DC, k, v)
-
-    for r in rows:
-        route = sum(r["route"][p]["ms"] for p in r["route"])
-        k1 = sum(r["k1k2"][p]["ms"] for p in r["k1k2"])
-        print(f"  {r['label']:>8}: route {route:.3f} ms, K1 + K2 {k1:.3f} ms -> gate with the map "
-              "cached / without: {} / {} (committed constants), {} / {} (this run's fit)".format(
-                  *picks(r, committed), *picks(r, fit)))
-    del mgr, recorder, x
-    routed = []
-    real_route = conv_mod.dense_conv
-
-    def counted_route(feats, *a):
-        routed.append(feats.requires_grad)
-        return real_route(feats, *a)
-
-    def default_step(tag, prepare=None):
-        net = unet_from(init, dev, True)
-        if prepare is not None:
-            prepare(net)
-        c, f = collate(raw[0])
-        routed.clear()
-        conv_mod.dense_conv = counted_route
-        zero_counts()
-        try:
-            with every_call_held(errors, tag):
-                loss, out = train_step(net, None, c, f, labels[0], dev)
-                torch.cuda.synchronize()
-        finally:
-            conv_mod.dense_conv = real_route
-        n = take_launches(launches)
-        return net, loss, out, n, len(c)
-
-    net, loss, out, n, n_vox = default_step("41c")
-    want = (MIN_LAUNCHES + MIN_DX_LAUNCHES - len(routed) - sum(routed), MIN_LAUNCHES - len(routed))
-    print(f"  training step under DEFAULT dispatch, {n_vox} voxels: {len(routed)} convs on the "
-          f"dense route, {n['gather_gemm']} K1 and {n['conv_dw']} K2 launches, each call held")
-    if (n["gather_gemm"], n["conv_dw"]) != want or out.F.shape != (n_vox, 20):
-        raise AssertionError(f"41c: launches {n}, expected {want}")
-    judge_step("41c parity", loss.item(),
-               {k: p.grad.detach().cpu() for k, p in net.named_parameters()},
-               {k: v.cpu() for k, v in net.state_dict().items() if "running" in k},
-               reuse["unet_cpu"])
-    # the step's logits against the CPU plain path's (train mode, the same
-    # weights and batch), in float32 and float64, by PERF.md's rule
-    c, f = collate(raw[0])
-    cpu_logits = {}
-    for dtype in (torch.float32, torch.float64):
-        cpu_net = unet_from(init, "cpu", True).to(dtype)
-        with torch.no_grad():
-            cpu_logits[dtype] = cpu_net(MT.SparseTensor(f.to(dtype), c, device="cpu")).F.double()
-    card = out.F.detach().double().cpu()
-    vs32, card64 = rel_diff(card, cpu_logits[torch.float32]), rel_diff(card, cpu_logits[torch.float64])
-    cpu64 = rel_diff(cpu_logits[torch.float32], cpu_logits[torch.float64])
-    print(f"  logits ({n_vox}, 20) against the CPU float32 run {vs32:.2e}; against float64: card "
-          f"{card64:.2e}, CPU float32 {cpu64:.2e}")
-    if not (vs32 <= LOGIT_RTOL or card64 <= GRAD_FACTOR * cpu64):
-        raise AssertionError(f"41c: logits disagree with the CPU plain path, {vs32:.3e}")
-    del net, loss, out, cpu_net, cpu_logits
-    # the stem forced onto the route (the gate keeps it sparse): the same
-    # step with the stem's conv through cuDNN.  The route's calls are held
-    # as every K1 and K2 call is, against the plain sparse conv on their
-    # own inputs: its output (KERNEL_RTOL) and its weight gradient
-    # (DW_RTOL); the loss against the CPU's (LOSS_RTOL).  Downstream, the
-    # train-mode gradients amplify the stem's float32 rounding, whatever
-    # computes it (phase 10's float64 yardstick), so they are printed
-    # against the CPU runs, and phase 41c's DEFAULT step holds them.
-    stem = {}
-
-    def hook_stem(net):
-        def capture(m, a, o):
-            stem.update(x=a[0], out=o)
-            o.F.register_hook(lambda g: stem.__setitem__("g", g))
-        net.conv0p1s1.register_forward_hook(capture)
-
-    real_gate = conv_mod.dense_conv_beneficial
-    conv_mod.dense_conv_beneficial = lambda plan, rows, K, *a, **k: K == 125
-    try:
-        net, loss, out, n, _ = default_step("41c stem routed", hook_stem)
-    finally:
-        conv_mod.dense_conv_beneficial = real_gate
-    x_in = stem["x"]
-    km = x_in.coordinate_manager.kernel_map(x_in.coordinate_map_key, x_in.coordinate_map_key,
-                                            kernel_size=5)
-    xs, w = x_in.F.detach(), net.conv0p1s1.kernel.detach()
-    route_fwd = held(stem["out"].F.detach(), gather_gemm_reference(xs, w, km.in_idx), KERNEL_RTOL,
-                     "41c stem route forward")
-    route_dw = held(net.conv0p1s1.kernel.grad, conv_dw_reference(xs, stem["g"], km.in_idx),
-                    DW_RTOL, "41c stem route dW")
-    loss32, grads32, _ = reuse["unet_cpu"][torch.float32]
-    grads64 = reuse["unet_cpu"][torch.float64][1]
-    loss_rel = abs(loss.item() - loss32) / abs(loss32)
-    card64 = {k: rel_diff(p.grad.detach().double().cpu(), grads64[k])
-              for k, p in net.named_parameters()}
-    cpu64 = {k: rel_diff(g.double(), grads64[k]) for k, g in grads32.items()}
-    worst = max(card64, key=card64.get)
-    print(f"  the same step with the stem forced onto the route: {len(routed)} conv on the route, "
-          f"{n['gather_gemm']} K1 and {n['conv_dw']} K2 launches, each call held; the route's "
-          f"forward {route_fwd[1]:.2e} and weight gradient {route_dw[1]:.2e} of max|plain|; loss "
-          f"{loss.item():.7f} vs {loss32:.7f} (CPU), rel {loss_rel:.2e}; gradients against "
-          f"float64: median {median(card64):.2e} (CPU float32 {median(cpu64):.2e}), worst "
-          f"{worst} {card64[worst]:.2e} (CPU float32 {cpu64[worst]:.2e})")
-    if len(routed) != 1 or (n["gather_gemm"], n["conv_dw"]) != (
-            MIN_LAUNCHES + MIN_DX_LAUNCHES - 1, MIN_LAUNCHES - 1):
-        raise AssertionError(f"41c stem routed: {len(routed)} routed, launches {n}")
-    if not (loss_rel <= LOSS_RTOL and all(torch.isfinite(p.grad).all() for p in net.parameters())):
-        raise AssertionError(f"41c stem routed: loss rel {loss_rel:.2e}, or a gradient not finite")
-    del net, loss, out, stem, x_in, km
-    MT.set_compute_dtype(torch.bfloat16)
-    try:
-        net, loss, out, n, _ = default_step("41c bf16")
-        card = bf16_step_record(loss, net)
-    finally:
-        MT.set_compute_dtype(None)
-    want = (MIN_LAUNCHES + MIN_DX_LAUNCHES - len(routed) - sum(routed), MIN_LAUNCHES - len(routed))
-    print(f"  bf16 training step under DEFAULT dispatch: {len(routed)} convs on the dense route, "
-          f"{n['gather_gemm_bf16']} bf16 K1 and {n['conv_dw_bf16']} bf16 K2 launches, each call held")
-    if (out.F.dtype != torch.bfloat16 or n["gather_gemm"] or n["conv_dw"]
-            or (n["gather_gemm_bf16"], n["conv_dw_bf16"]) != want):
-        raise AssertionError(f"41c bf16: logits {out.F.dtype}, launches {n}, expected {want}")
-    judge_bf16("41c bf16 parity", card, reuse["unet_cpu16"], reuse["unet_cpu"][torch.float64])
-    del net, loss, out
-    print("  phase 41's K1/K2 calls against their plain versions: " + ", ".join(
-        f"{len(v)} {k}, worst rel err {max(e[1] for e in v):.2e}" for k, v in errors.items() if v))
+    del compiled, replayer, eager, mgr, recorder, x
     print(f"[41] {time.perf_counter() - start:.1f} s")
-    return errors
 
 
 def step_inputs(dev):
@@ -5266,7 +4988,7 @@ def main() -> int:
     high_errs, high_rows = high_dimensional(dev, launches)
     multi_errs = multi_process_examples(dev, launches)
     reuse["smi"] = smi
-    dense_errs = dense_grid(dev, launches, reuse)
+    dense_grid(dev, reuse)
     redesign = bf16_redesign(dev, reuse)
     gen16 = generative_bf16(dev, launches, reuse)
     f32_rows = f32_redesign(dev, reuse)
@@ -5279,15 +5001,12 @@ def main() -> int:
         "gather_gemm": [r["max_abs_err"] for r in rows + real]
         + [r[p]["max_abs_err"] for r in bwd + f32_rows + ptv3_rows for p in ("fwd", "dx") if p in r]
         + par_errs["gather_gemm"] + example_errs["gather_gemm"] + high_errs["gather_gemm"]
-        + multi_errs["gather_gemm"] + [e[0] for e in dense_errs["gather_gemm"]],
+        + multi_errs["gather_gemm"],
         "conv_dw": [r["dw"]["max_abs_err"] for r in bwd + ptv3_rows] + par_errs["conv_dw"]
-        + example_errs["conv_dw"] + high_errs["conv_dw"] + multi_errs["conv_dw"]
-        + [e[0] for e in dense_errs["conv_dw"]],
+        + example_errs["conv_dw"] + high_errs["conv_dw"] + multi_errs["conv_dw"],
         "gather_gemm_bf16": [r[p]["max_abs_err"] for r in bf16_bwd + redesign + gen16
-                             for p in ("fwd", "dx") if p in r]
-        + [e[0] for e in dense_errs.get("gather_gemm_bf16", [])],
-        "conv_dw_bf16": [r["dw"]["max_abs_err"] for r in bf16_bwd + redesign + gen16]
-        + [e[0] for e in dense_errs.get("conv_dw_bf16", [])],
+                             for p in ("fwd", "dx") if p in r],
+        "conv_dw_bf16": [r["dw"]["max_abs_err"] for r in bf16_bwd + redesign + gen16],
     }
     # per training step of MinkUNet34, MinkowskiFCNN, CompletionNet, the VAE,
     # MinkowskiSplatFCNN and the 7-D U-Net, on their real maps

@@ -25,9 +25,10 @@ without the model, and the result is handed to the step as a
 A Geometry's maps hold exact row counts, like every map the model sees;
 the padded capacities live only inside the replay.  It is a plain
 dataclass, not a pytree: the step takes it as an argument as it is.  Its
-dense plans (``ops/dense_conv.py``) serve the dense-grid conv route in a
-step on a frozen view, and the replayers ratchet each map's grid shape
-(``grid_floors``) as they ratchet its capacity.
+dense plans (``coords/grid.py``) give a step on a frozen view the row
+grids that its map builds look coordinates up in, and the replayers
+ratchet each map's grid shape (``grid_floors``) as they ratchet its
+capacity.
 """
 
 from __future__ import annotations
@@ -38,7 +39,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from ..ops.dense_conv import DensePlan
+from .grid import DensePlan
 from .kernel_map import KernelMap
 from .keys import PAD_KEY
 from .manager import CoordinateManager, CoordinateMapKey, UntraceableReplay

@@ -20,7 +20,7 @@ rows are collision slots, not offsets (``stride_map_to_kernel_map``).
 Every lookup has two routes to one answer.  The search route looks the
 query keys up in the map's sorted keys (``lookup.find_rows``).  The grid
 route gathers the query's cell from the probed map's dense bbox row grid
-(``grid_lookup``; ``ops/dense_conv.py::build_row_grid``), which the manager
+(``grid_lookup``; ``coords/grid.py::build_row_grid``), which the manager
 passes as ``probe`` for every map whose grid fits.  The inverse matching
 ``out_idx_t`` is then a probe of the output map with the offsets negated,
 in place of ``_invert_matching``.  The grid route gathers each (offset,
@@ -132,7 +132,7 @@ def grid_lookup(row_grid, mins, grid_shape, tensor_stride, q: torch.Tensor) -> t
     (JAX ``grid_lookup``; the reference's hash probes,
     src/coordinate_map_gpu.cu:320-359).
 
-    ``row_grid``: (cells + 1,) int32 from ``ops.dense_conv.build_row_grid``;
+    ``row_grid``: (cells + 1,) int32 from ``coords.grid.build_row_grid``;
     ``mins``: (D+1,) int32 device bbox minima; ``grid_shape``: (B,
     E_1..E_D); ``tensor_stride``: the map's, a D-tuple.  -1 where absent.
     """

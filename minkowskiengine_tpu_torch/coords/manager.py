@@ -21,7 +21,7 @@ whole replay in one CUDA graph).
 
 Each map's bounding box is read in the same host transfer as its row count
 (``_register_unique``, ``prune``).  From it the manager builds the map's
-dense plan and row grid (``dense_plan``, ``ops/dense_conv.py``), recorded
+dense plan and row grid (``dense_plan``, ``coords/grid.py``), recorded
 in the oplog as JAX records it, and looks coordinates up in any map whose
 grid holds at most ``_MAX_GRID_CELLS`` cells by one gather from the grid
 (``_probe_grid_for``): kernel maps, stride maps, origin, union and
@@ -47,6 +47,9 @@ from ..types import (
 )
 from ..utils import profiling as P
 from . import keys as K
+from .grid import (
+    DensePlan, bbox_values, build_dense_plan, build_dense_plan_traced, build_row_grid,
+)
 from .kernel_map import (
     KernelMap, build_kernel_map, build_stride_map, grid_lookup, stride_map_to_kernel_map,
 )
@@ -56,9 +59,6 @@ from .serialize import (
     CURVES, MAX_DEPTH, Serialization, WindowPlan, build_window_plan, serialize_rows,
 )
 from .unique import unique_coordinates, unique_coordinates_padded
-from ..ops.dense_conv import (
-    DensePlan, bbox_values, build_dense_plan, build_dense_plan_traced, build_row_grid,
-)
 
 # row grids above this many cells leave their map to the key search (64 MB
 # of int32 cells); the grids of real scans lie far below it
@@ -980,7 +980,7 @@ class CoordinateManager:
     # dense bbox grids
     # ------------------------------------------------------------------
     def dense_plan(self, key: CoordinateMapKey) -> Optional[DensePlan]:
-        """The map's dense plan (``ops/dense_conv.py``), built once and
+        """The map's dense plan (``coords/grid.py``), built once and
         cached; None for an empty map.  Its grid shape ratchets the map's
         grid floor.  In a deferred replay a map with a grid floor gets its
         plan at the floor's shape with no host sync, and the check that

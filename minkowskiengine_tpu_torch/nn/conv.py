@@ -14,15 +14,16 @@ the conv's autograd Function, which casts it (its gradient stays float32),
 and the volume-1 product and the bias run in the features' dtype.  The
 channelwise conv casts nothing, as in JAX.
 
-The dense-grid route (``ops/dense_conv.py``): a stride-1 HYPER_CUBE conv
-whose output is its input map may run as one cuDNN conv over the map's
-bbox grid, when the gate (``dense_conv_beneficial``, fitted on the H100)
-says it costs less than K1 and K2.  ``_dense_dispatch`` keeps JAX's
-conditions (JAX nn/conv.py:177-240), with "the backend is a TPU" read as
-"the features are on the card": on the CPU the port never routes dense,
-as JAX on the CPU does not.  ``ConvolutionMode.COPY_GEMM`` keeps a conv
-off the route and changes nothing else; transposed, strided and
-non-cube convs and spatial execution stay sparse.
+Every conv module runs the same code on the CPU and on the card: the
+volume-1 product, or the kernel map and ``sparse_conv_kmap``.  JAX's
+dense-grid route (JAX nn/conv.py:177-240, one dense conv over the map's
+bbox grid) is not carried over: on the H100 it took 4.9-28.4 times as long
+as the sparse conv on each stride-1 conv of MinkUNet34, and its gate,
+fitted there, routed no conv of the benchmark's models.  The bbox grid
+itself serves the coordinate phase's lookups (``coords/grid.py``).
+``ConvolutionMode`` is kept for the reference's signature and selects
+nothing: ``COPY_GEMM``, which in JAX keeps a conv off the dense route,
+runs as ``DEFAULT`` does.
 
 Parallel execution (``parallel/``): on a row block (spatial execution) a
 conv runs the halo path (``sparse_conv_kmap``), or, at volume 1, its
@@ -45,7 +46,6 @@ from ..config import compute_dtype, spatial_execution_ctx
 from ..coords.manager import CoordinateManager, CoordinateMapKey
 from ..kernel_generator import KernelGenerator
 from ..ops import functional as F
-from ..ops.dense_conv import dense_conv, dense_conv_beneficial
 from ..sparse_tensor import SparseTensor, whole_rows
 from ..types import ConvolutionMode, RegionType, resolve_device
 
@@ -120,7 +120,7 @@ class MinkowskiConvolutionBase(nn.Module):
     volume-1 kernel, and an optional ``bias`` stored (1, Cout).  Both are
     drawn from U(±1/√(fan·K)) (reference: MinkowskiConvolution.py:330-339)
     with ``generator`` on the CPU, then moved to ``device`` (default: the
-    CUDA card).
+    CUDA card).  ``convolution_mode`` is kept and selects nothing.
     """
 
     def __init__(
@@ -182,33 +182,6 @@ class MinkowskiConvolutionBase(nn.Module):
         self.kernel = uniform(kernel_shape)
         self.bias = uniform((1, self.out_channels)) if bias else None
 
-    def _dense_dispatch(self, input: SparseTensor, coordinates, feats) -> bool:
-        """Whether this call takes the dense-grid route (module docstring)."""
-        kg = self.kernel_generator
-        if (
-            spatial_execution_ctx() is not None  # the halo path needs the kernel map
-            or input.row_block is not None
-            or coordinates is not None
-            or self.is_transpose
-            or self.expand_coordinates
-            or not kg.requires_strided_coordinates  # stride != 1
-            or kg.region_type != RegionType.HYPER_CUBE
-            or kg.axis_types is not None
-            or not feats.is_cuda
-            or self.convolution_mode == ConvolutionMode.COPY_GEMM
-        ):
-            return False
-        key, mgr = input.coordinate_map_key, input.coordinate_manager
-        plan = mgr.dense_plan(key)
-        cached = mgr.has_kernel_map(
-            key, key, stride=kg.kernel_stride, kernel_size=kg.kernel_size,
-            dilation=kg.kernel_dilation, region_type=RegionType.HYPER_CUBE,
-        )
-        return dense_conv_beneficial(
-            plan, feats.shape[0], kg.kernel_volume, self.kernel.shape[-2], self.kernel.shape[-1],
-            map_cached=cached,
-        )
-
     def _kernel_map(self, input: SparseTensor, out_key: CoordinateMapKey):
         return _kernel_map_between(
             self.kernel_generator, input.coordinate_map_key, out_key,
@@ -238,13 +211,6 @@ class MinkowskiConvolutionBase(nn.Module):
             kernel = self.kernel if block is None else block.replicated(self.kernel)
             outfeat = feats @ kernel.to(feats.dtype)
             out_key = input.coordinate_map_key
-        elif self._dense_dispatch(input, coordinates, feats):
-            kg = self.kernel_generator
-            out_key = input.coordinate_map_key
-            plan = input.coordinate_manager.dense_plan(out_key)
-            outfeat = dense_conv(
-                feats, self.kernel.to(feats.dtype), plan, kg.kernel_size, kg.kernel_dilation
-            )
         else:
             if block is not None and spatial_execution_ctx() != (block.mesh, block.axis_name):
                 raise ValueError(

@@ -20,6 +20,7 @@ import minkowskiengine_tpu as ME
 import minkowskiengine_tpu_torch as MT
 import minkowskiengine_tpu_torch.coords.manager as TM
 from minkowskiengine_tpu_torch.coords import CapacityFloorExceeded, UntraceableReplay
+from minkowskiengine_tpu_torch.coords import grid as G
 
 from test_torch_replay import no_host_sync
 
@@ -168,6 +169,55 @@ def test_plans_equal_jax():
     tp, jp = tm.dense_plan(pk), jm.dense_plan(jpk)
     assert tp.grid_shape == jp.grid_shape
     np.testing.assert_array_equal(tp.flat_idx.numpy(), np.asarray(jp.flat_idx)[: tm.size(pk)])
+
+
+@pytest.mark.parametrize("D", [1, 2, 3, 4])
+def test_grid_module_plan_and_row_grid_equal_jax(D):
+    """``coords/grid.py`` on a map, without the manager, against the plan
+    and row grid the JAX manager builds: grid shape, cells and minima, and
+    the row grid cell for cell."""
+    c = cloud(D, seed=40 + D, n=150, misaligned=True)
+    stride = 1 if D % 2 else 2
+    tm, jm = port_manager(D), ME.CoordinateManager(D=D)
+    tk, jk = (mgr.stride(mgr.insert_and_map(c)[0], stride) for mgr in (tm, jm))
+    tmap = tm._get_map(tk)
+    tp, jp = G.build_dense_plan(tmap), jm.dense_plan(jk)
+    assert tp.grid_shape == jp.grid_shape and tp.cells == jp.cells
+    np.testing.assert_array_equal(tp.flat_idx.numpy(), np.asarray(jp.flat_idx)[: tmap.size])
+    np.testing.assert_array_equal(tp.mins.numpy(), np.asarray(jp.mins))
+    grid = G.build_row_grid(tp.flat_idx, tp.cells)
+    np.testing.assert_array_equal(grid.numpy(), np.asarray(jm._probe_grid_for(jk)[0]))
+    assert grid[-1] == -1 and int((grid >= 0).sum()) == tmap.size
+
+
+def test_grid_module_gives_an_empty_map_no_plan():
+    tm, jm = port_manager(3), ME.CoordinateManager(D=3)
+    c = cloud(3, seed=45)
+    tk, _ = tm.insert_and_map(c)
+    jk, _ = jm.insert_and_map(c)
+    none = np.zeros(len(c), bool)
+    tpk, _, _ = tm.prune(tk, torch.from_numpy(none))
+    jpk, _, _ = jm.prune(jk, none)
+    assert tm.size(tpk) == 0
+    assert G.build_dense_plan(tm._get_map(tpk)) is None and tm.dense_plan(tpk) is None
+    assert jm.dense_plan(jpk) is None
+
+
+def test_grid_module_traced_plan_at_the_eager_floor_equals_the_eager_plan():
+    """At a floor equal to the eager grid shape, the traced plan is the
+    eager plan and its check holds; a floor one cell short fails it."""
+    c = cloud(3, seed=46, misaligned=True)
+    mgr = port_manager(3)
+    key = mgr.stride(mgr.insert_and_map(c)[0], 2)
+    m = mgr._get_map(key)
+    eager = G.build_dense_plan(m)
+    bbox = G.bbox_values(m.coordinates, m.valid_mask()).view(2, -1)
+    traced, ok = G.build_dense_plan_traced(m, bbox, eager.grid_shape)
+    assert bool(ok) and traced.grid_shape == eager.grid_shape
+    assert torch.equal(traced.flat_idx, eager.flat_idx) and torch.equal(traced.mins, eager.mins)
+    extents = (np.asarray(bbox[1, 1:]) - np.asarray(bbox[0, 1:])) // 2 + 1
+    short = (eager.grid_shape[0], int(extents[0]) - 1) + eager.grid_shape[2:]
+    assert not bool(G.build_dense_plan_traced(m, bbox, short)[1])
 
 
 def test_seven_dimensional_cloud_keeps_the_search():
