@@ -15,8 +15,9 @@ multi-process examples on one NCCL rank and on two gloo ranks sharing the
 card; the dense bbox grid: the row-grid probe against the key search;
 the bf16 bodies of both kernels timed on the device alone; CompletionNet
 and the VAE in bf16, each held to its own keep masks; K1's float32 bodies
-on MinkUNet34's and CompletionNet's step maps; and last, K1 and K2 on every
-conv call of a Point Transformer V3 step.
+on MinkUNet34's and CompletionNet's step maps; K1 and K2 on every conv
+call of a Point Transformer V3 step and its attention; and last, the
+kernel maps' grid-probe kernel against its plain version.
 
 Run from the root of a checkout, with one CUDA card visible:
 
@@ -407,6 +408,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    operations a window of L rows and head over 495 TFLOP/s; the step's
    sums.
 
+47. The grid-probe kernel (``csrc/grid_probe.cu``) against its plain
+   version, ``_build_in_idx_grid``'s ATen ops on the card, on the 10
+   kernel maps of one MinkUNet34 step (an eager forward) on phase 9's first
+   batch (two scans at 5 cm) and on two rooms at 2 cm (``ROOM2CM``).  The
+   forward must build its 10 maps in 10 launches of the kernel, its 20
+   halves all on the kernel route (``build_kernel_map.route_builds``);
+   each map it built, and the map built again through the kernel (one
+   launch, both halves), equal the plain version index for index (the
+   largest |kernel - plain| is the kernels line's ``max_abs_err``); per
+   map and per step the device-only ms of each (``device_ms``), the
+   device operations each launches (profiler), and the bytes bound: the
+   2 · K · N int32 it writes and the D + 1 int32 coordinates of each row
+   it reads, over 3.35 TB/s.
+
 Bound of a kernel call: the larger of its useful operations (2 · pairs ·
 Cin · Cout) over the H100's 495 TFLOP/s dense TF32 tensor peak and its
 bytes (each input read once, the output written once) over 3.35 TB/s.  The
@@ -447,11 +462,12 @@ from minkowskiengine_tpu_torch import parallel
 import minkowskiengine_tpu_torch.coords.manager as TM
 from minkowskiengine_tpu_torch.coords.grid import build_row_grid
 from minkowskiengine_tpu_torch.coords.kernel_map import (
-    _invert_matching, build_kernel_map, build_stride_map,
+    _build_in_idx_grid, _invert_matching, build_kernel_map, build_stride_map,
 )
 from minkowskiengine_tpu_torch.coords.manager import region_offsets_for
 from minkowskiengine_tpu_torch.kernels import attention as attn
 from minkowskiengine_tpu_torch.kernels import build
+from minkowskiengine_tpu_torch.kernels import grid_probe as GP
 from minkowskiengine_tpu_torch.kernels.conv_dw import conv_dw, conv_dw_reference
 from minkowskiengine_tpu_torch.kernels.gather_gemm import gather_gemm, gather_gemm_reference
 from minkowskiengine_tpu_torch.models import (
@@ -465,7 +481,7 @@ from minkowskiengine_tpu_torch.nn import serialized
 from minkowskiengine_tpu_torch.nn.norm import MinkowskiBatchNorm, MinkowskiSyncBatchNorm
 from minkowskiengine_tpu_torch.ops import functional as conv_ops
 from minkowskiengine_tpu_torch.parallel import comm, spatial
-from minkowskiengine_tpu_torch.utils import hostengine
+from minkowskiengine_tpu_torch.utils import hostengine, profiling
 from minkowskiengine_tpu_torch.utils.collation import sparse_collate
 from minkowskiengine_tpu_torch.utils.quantization import quantize_label_reference
 from minkowskiengine_tpu_torch.utils.datasets import (
@@ -540,6 +556,10 @@ PTV3_K1_BODIES = {"wgmma_3xtf32": 2 * PTV3_CONVS - 2, "mma": 1}
 # phase 46: PTv3's attention calls a step (one a block), and the kernel's
 # bound against float64: 3xTF32 products leave ~1e-6 of max |ref|
 PTV3_BLOCKS, ATTN_RTOL = 22, 5e-6
+# phase 47: the kernel maps of a MinkUNet34 step (the k = 5 stem, four
+# k = 2 strided maps, a k = 3 map a level; the transposed ones are swaps);
+# the H100's published HBM bandwidth, in bytes a millisecond
+UNET_MAPS, HBM_BYTES_PER_MS = 10, 3.35e9
 # phase 27: channelwise conv and SPMM, card against CPU: sums of at most 27
 # products per row forward; the input gradient's and SPMM's sums run
 # through CUDA's index_add atomics (at most 27 and 8 terms per row, summed
@@ -4943,6 +4963,115 @@ def ptv3_attention(dev):
     return sums
 
 
+def count_device_operations(fn):
+    """The device operations (kernels, copies, memsets) that ``fn``
+    launches, counted in a profiler trace."""
+    with tempfile.TemporaryDirectory() as tmp:
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(f"{tmp}/trace.json")
+        with open(f"{tmp}/trace.json") as f:
+            events = json.load(f)["traceEvents"]
+    return len(profiling.device_operations(events))
+
+
+def probe_routes(mgr, cache_key):
+    """(kernel, plain, bound ms) of a cached forward kernel map: the kernel
+    and the plain builds each return (in_idx, out_idx_t)."""
+    in_k, out_k, ks, _, dil, rtype, _, _, _ = cache_key
+    am, bm = mgr._maps[in_k], mgr._maps[out_k]
+    offs = region_offsets_for(rtype, ks, dil, am.tensor_stride, None)
+    offs = np.concatenate([np.zeros((len(offs), 1), np.int64), offs], 1)
+    pa, pb = (mgr._probe_grid_for(MT.CoordinateMapKey(*k)) for k in (in_k, out_k))
+    if pa is None or pb is None:
+        raise AssertionError(f"47: kernel map {cache_key[:4]} has a map without a grid")
+
+    def kernel():
+        km = build_kernel_map(am, bm, offs, probe=pa, probe_out=pb)
+        return km.in_idx, km.out_idx_t
+
+    def plain():
+        return (_build_in_idx_grid(pa, bm.coordinates, offs),
+                _build_in_idx_grid(pb, am.coordinates, -offs))
+
+    rows = am.size + bm.size
+    bound_ms = (4 * len(offs) * rows + 4 * (am.dimension + 1) * rows) / HBM_BYTES_PER_MS
+    return kernel, plain, bound_ms
+
+
+def grid_probe_maps(dev, reuse):
+    """Phase 47: the grid-probe kernel against its plain version on the
+    kernel maps of one MinkUNet34 step at 5 cm and at 2 cm.  The step's own
+    forward must build its 10 maps in 10 launches of the kernel (20 halves,
+    none in plain ops or by the search); each map it built, and a rebuild
+    through the kernel, are compared with the plain version.  Returns the
+    2 cm step's sums."""
+    start = time.perf_counter()
+    rooms = [room_scan_voxels(seed=s, **ROOM2CM) for s in range(2)]
+    print("[47 grid probe] the kernel maps a MinkUNet34 forward built, against the plain version "
+          "(ATen ops); each map built again through the kernel (one launch) and the plain version: "
+          "device-only ms, device operations, the bytes bound")
+    sums = {}
+    count_device_operations(lambda: torch.zeros(1, device=dev))  # the profiler's first session
+    for name, scans in (("scan 5 cm", reuse["raw"][0]), ("room 2 cm", rooms)):
+        coords, feats = collate(scans)
+        net = unet_from(reuse["unet_init"], dev, False)
+        x = MT.SparseTensor(feats.to(dev), coords.to(dev))
+        routes, launches = dict(build_kernel_map.route_builds), GP.grid_probe.launches
+        with torch.no_grad():
+            net(x)
+        launches = GP.grid_probe.launches - launches
+        routes = {k: v - routes[k] for k, v in build_kernel_map.route_builds.items()}
+        if launches != UNET_MAPS or routes != {"kernel": 2 * UNET_MAPS, "ops": 0, "search": 0}:
+            raise AssertionError(f"47: the forward built its maps in {launches} kernel launches, "
+                                 f"halves by route {routes}; want {UNET_MAPS} launches, "
+                                 f"{2 * UNET_MAPS} kernel halves")
+        mgr = x.coordinate_manager
+        print(f"  MinkUNet34 {name}: {len(coords)} voxels; the forward: {launches} kernel launches, "
+              f"halves by route {routes}; map (K, rows out): kernel ms / plain ms, operations "
+              f"kernel / plain, bound ms")
+        step = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, ops=0, plain_ops=0, maps=0, err=0,
+                    launches=launches)
+        for ck in mgr._kernel_maps:
+            if ck[6]:
+                continue  # a transposed map: the swap of a forward map timed here
+            km = mgr._kernel_maps[ck]
+            kernel, plain, bound_ms = probe_routes(mgr, ck)
+            want = plain()
+            for got in ((km.in_idx, km.out_idx_t), kernel()):
+                for g, w in zip(got, want):
+                    if g.shape != w.shape:
+                        raise AssertionError(f"47: kernel map {ck[:4]}: {tuple(g.shape)} against "
+                                             f"the plain {tuple(w.shape)}")
+                    if g.numel():
+                        step["err"] = max(step["err"], int((g.long() - w.long()).abs().max()))
+            ms, _ = device_ms(kernel)
+            p_ms, _ = device_ms(plain)
+            ops, p_ops = count_device_operations(kernel), count_device_operations(plain)
+            print(f"    {str(ck[0][0]) + '->' + str(ck[1][0]):>22} k={ck[2][0]} "
+                  f"(K={km.kernel_volume:<3}, {km.n_out:>6} rows): {ms:.4f} / {p_ms:.4f} ms, "
+                  f"{ops} / {p_ops}, {bound_ms:.4f}")
+            for k, v in (("ms", ms), ("plain_ms", p_ms), ("bound_ms", bound_ms), ("ops", ops),
+                         ("plain_ops", p_ops), ("maps", 1)):
+                step[k] += v
+        if step["maps"] != UNET_MAPS:
+            raise AssertionError(f"47: {step['maps']} maps built, not {UNET_MAPS}")
+        if step["err"]:
+            raise AssertionError(f"47: a map differs from the plain version by {step['err']} rows")
+        print(f"  MinkUNet34 {name}, a step's {step['maps']} maps: kernel {step['ms']:.4f} ms, "
+              f"plain {step['plain_ms']:.4f} ms, bound {step['bound_ms']:.4f} ms "
+              f"({100 * step['bound_ms'] / step['ms']:.1f}% of the kernel's time); device "
+              f"operations {step['ops']} against {step['plain_ops']}; largest |kernel - plain| "
+              f"{step['err']}")
+        sums = step
+        del net, x, mgr
+        torch.cuda.empty_cache()
+    print(f"[47] {time.perf_counter() - start:.1f} s")
+    return sums
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -4994,6 +5123,7 @@ def main() -> int:
     f32_rows = f32_redesign(dev, reuse)
     ptv3_rows = ptv3_redesign(dev)
     attn_sums = ptv3_attention(dev)
+    probe_sums = grid_probe_maps(dev, reuse)
 
     bwd = (synth_bwd + real_bwd + fcnn_bwd + gen_rows + completion_bwd + vae_bwd + splat_bwd
            + shim_bwd + high_rows)
@@ -5048,6 +5178,18 @@ def main() -> int:
         "bound_ms": 3.5 * attn_sums["bound_ms"],
         "bound_by": "operations",
         "library_ms": attn_sums["library_ms"] + attn_sums["library_bwd_ms"],
+    }, {
+        "name": "grid_probe",
+        "route": "cuda",
+        "source": "minkowskiengine_tpu_torch/csrc/grid_probe.cu",
+        "replaces": None,  # the JAX package builds kernel maps in XLA ops
+        "launches": probe_sums["launches"],
+        "max_abs_err": probe_sums["err"],
+        "ms": probe_sums["ms"],
+        "plain_ms": probe_sums["plain_ms"],
+        "bound_ms": probe_sums["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -29,7 +29,13 @@ shifted grid and no padding of the grid (JAX's ``_pads_for_offsets``): a
 base below or above the probed bbox (a misaligned strided minimum, a
 coarse transpose base) finds its rows like any other.  JAX's shifted-stack
 and window-slice builds of the same answer are XLA tactics for the TPU and
-are not carried over.
+are not carried over.  On CUDA tensors one launch of the grid-probe kernel
+(``kernels/grid_probe.py``) writes both halves of a kernel map, or the one
+half that has a grid; on the CPU ``_build_in_idx_grid``, its plain
+version, builds each half in whole-array ops.
+``build_kernel_map.route_builds`` counts the halves each route builds:
+``"kernel"`` (the grid-probe kernel), ``"ops"`` (the plain version) and
+``"search"`` (the key search or the inverted matching).
 
 Every map-building function also takes padded maps
 (``PaddedCoordinateMap``, geometry replay): an output row past the map's
@@ -47,10 +53,13 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..kernels import grid_probe as GP
 from ..utils import profiling as P
 from . import keys as K
 from .lookup import find_rows
 from .map import CoordinateMap
+
+ROUTES = ("kernel", "ops", "search")  # the routes of a kernel map's half (build_kernel_map)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -141,7 +150,8 @@ def grid_lookup(row_grid, mins, grid_shape, tensor_stride, q: torch.Tensor) -> t
 
 def _build_in_idx_grid(probe, base_coords: torch.Tensor, offsets: np.ndarray, base_valid=None):
     """``_build_in_idx`` through a row grid: rows[k, o] = row of
-    (base_coords[o] + offsets[k]) in the probed map, or -1.  A direct
+    (base_coords[o] + offsets[k]) in the probed map, or -1; the plain
+    version of the grid-probe kernel (``csrc/grid_probe.cu``).  A direct
     (K, N) gather: each query's coordinates are formed per axis, never as
     one (K, N, D+1) tensor.  ``probe`` = (row_grid, mins, grid_shape,
     tensor_stride) of the probed map; a query outside the packed-key range
@@ -186,27 +196,60 @@ def build_kernel_map(
     place of the key search; ``probe_out``: the output map's, which builds
     ``out_idx_t`` as the rows of ``in_coord - offset`` in the output map
     (the rows are unique, so in_idx[k, o] == i exactly when that row is
-    o).  Every route gives the same maps index for index.
+    o).  On CUDA tensors the halves with a probe come from one launch of
+    the grid-probe kernel (span ``me.coords.kernel_map.grid``); on the CPU
+    from ``_build_in_idx_grid``.  Every route gives the same maps index for
+    index.
     """
     offsets = np.asarray(offsets, dtype=np.int64)
     if offsets.shape[1] == in_map.dimension:  # prepend batch delta 0
         offsets = np.concatenate(
             [np.zeros((offsets.shape[0], 1), np.int64), offsets], axis=1
         )
-    with P.span("coords.kernel_map.in_idx"):
-        if probe is not None:
-            in_idx = _build_in_idx_grid(probe, out_map.coordinates, offsets, out_map.valid_mask())
-        else:
-            offs = K.device_constant(offsets, device=out_map.device)
-            in_idx = _build_in_idx(in_map.keys, out_map.coordinates, offs, out_map.valid_mask())
-    with P.span("coords.kernel_map.out_idx_t"):
-        if probe_out is not None:
-            out_idx_t = _build_in_idx_grid(
-                probe_out, in_map.coordinates, -offsets, in_map.valid_mask()
-            )
-        else:
-            out_idx_t = _invert_matching(in_idx, in_map.rows)
+    routes = build_kernel_map.route_builds
+    in_idx = out_idx_t = None
+    if out_map.device.type == "cuda" and (probe is not None or probe_out is not None):
+        with P.span("coords.kernel_map.grid"):
+            in_idx, out_idx_t = _probe_on_card(in_map, out_map, offsets, probe, probe_out)
+        routes["kernel"] += (probe is not None) + (probe_out is not None)
+    if in_idx is None:
+        with P.span("coords.kernel_map.in_idx"):
+            if probe is not None:
+                in_idx = _build_in_idx_grid(probe, out_map.coordinates, offsets, out_map.valid_mask())
+                routes["ops"] += 1
+            else:
+                offs = K.device_constant(offsets, device=out_map.device)
+                in_idx = _build_in_idx(in_map.keys, out_map.coordinates, offs, out_map.valid_mask())
+                routes["search"] += 1
+    if out_idx_t is None:
+        with P.span("coords.kernel_map.out_idx_t"):
+            if probe_out is not None:
+                out_idx_t = _build_in_idx_grid(
+                    probe_out, in_map.coordinates, -offsets, in_map.valid_mask()
+                )
+                routes["ops"] += 1
+            else:
+                out_idx_t = _invert_matching(in_idx, in_map.rows)
+                routes["search"] += 1
     return KernelMap(in_idx, out_idx_t, in_map.rows, out_map.rows)
+
+
+def _probe_on_card(in_map, out_map, offsets: np.ndarray, probe, probe_out):
+    """(in_idx, out_idx_t) from one launch of the grid-probe kernel
+    (``kernels/grid_probe.py``); None for a half without a probe."""
+    dev = out_map.device
+    halves = {}
+    if probe is not None:
+        offs = K.device_constant(offsets, torch.int32, dev)
+        halves["in"] = GP.Half(probe, out_map.coordinates.contiguous(), offs, out_map.valid_mask())
+    if probe_out is not None:
+        offs = K.device_constant(-offsets, torch.int32, dev)
+        halves["out"] = GP.Half(probe_out, in_map.coordinates.contiguous(), offs, in_map.valid_mask())
+    got = dict(zip(halves, GP.grid_probe(*halves.values())))
+    return got.get("in"), got.get("out")
+
+
+build_kernel_map.route_builds = dict.fromkeys(ROUTES, 0)
 
 
 def build_stride_map(

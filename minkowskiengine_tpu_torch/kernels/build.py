@@ -62,6 +62,9 @@ SIGNATURES = {
     # scale, stream)
     "me_attention_fwd_f32": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P], _I),
     "me_attention_bwd_f32": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P], _I),
+    # the kernel-map grid probe: (halves, count, k_vol, dim, stream), halves
+    # a host array of kernels/grid_probe.py::_Half
+    "me_grid_probe": ([_P, _I, _I, _I, _P], _I),
 }
 
 _lib = None

@@ -19,7 +19,10 @@ records (``trace`` or any ``torch.profiler.profile``); otherwise ``span``
 returns one shared no-op and costs one check.  The coordinate manager's
 building calls are ``me.coords.<method>`` (a cache hit does no work and
 has no span), with ``me.coords.unique``, ``me.coords.probe_grid``,
-``me.coords.kernel_map.in_idx``, ``me.coords.kernel_map.out_idx_t`` and
+``me.coords.kernel_map.grid`` (on the card, the grid-probe kernel's one
+launch for a map's halves that have a row grid),
+``me.coords.kernel_map.in_idx`` and ``me.coords.kernel_map.out_idx_t``
+(a half built in plain ops or by the key search) and
 ``me.coords.pool_map`` inside; the sparse conv is ``me.conv.fwd``,
 ``me.conv.dx`` and ``me.conv.dw`` around K1's and K2's launches
 ``me.k1.<body>`` and ``me.k2.<body>``; serialized attention (Point
@@ -55,6 +58,7 @@ from typing import Dict, Iterator
 import torch
 
 PREFIX = "me."
+DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")  # a Chrome trace's device operations
 
 _profiling = torch.autograd._profiler_enabled
 _clock = time.perf_counter
@@ -83,6 +87,12 @@ def trace(log_dir: str) -> Iterator[torch.profiler.profile]:
         on_trace_ready=torch.profiler.tensorboard_trace_handler(log_dir),
     ) as prof:
         yield prof
+
+
+def device_operations(events) -> list:
+    """The device operations (kernels, copies and memsets) among the
+    events of a ``torch.profiler`` Chrome trace."""
+    return [e for e in events if e.get("cat") in DEVICE_CATEGORIES]
 
 
 def named_scope(name: str):

@@ -12,6 +12,9 @@ is exact: rows, index maps, plans, grid shapes (interpolation weights
 within 1e-7, as ``tests/test_torch_interpolation.py`` holds them).
 """
 
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -21,6 +24,8 @@ import minkowskiengine_tpu_torch as MT
 import minkowskiengine_tpu_torch.coords.manager as TM
 from minkowskiengine_tpu_torch.coords import CapacityFloorExceeded, UntraceableReplay
 from minkowskiengine_tpu_torch.coords import grid as G
+from minkowskiengine_tpu_torch.coords import kernel_map as KM
+from minkowskiengine_tpu_torch.kernels import grid_probe as GP
 
 from test_torch_replay import no_host_sync
 
@@ -404,3 +409,133 @@ def test_the_grid_adds_no_host_read(monkeypatch):
     with_grid = count_host_reads(phase)
     monkeypatch.setattr(TM, "_MAX_GRID_CELLS", 0)
     assert count_host_reads(phase) == with_grid
+
+
+# --- the route each half of a kernel map takes (build_kernel_map) --------
+
+
+def route_deltas(fn):
+    """(fn's result, the halves built by each route, kernel launches)."""
+    before, launches = dict(KM.build_kernel_map.route_builds), GP.grid_probe.launches
+    out = fn()
+    routes = {k: v - before[k] for k, v in KM.build_kernel_map.route_builds.items()}
+    return out, routes, GP.grid_probe.launches - launches
+
+
+def test_a_cpu_map_takes_the_plain_version_and_launches_nothing():
+    c = cloud(3, seed=50, misaligned=True)
+    mgr, (k1, k2), km = route_deltas(lambda: build(MT, port_manager(3), c, 3, 2, 1, False, CUBE))[0]
+    _, routes, launches = route_deltas(lambda: mgr.kernel_map(k1, k1, kernel_size=3))
+    assert routes == {"kernel": 0, "ops": 2, "search": 0} and launches == 0
+    a, b = mgr._get_map(k1), mgr._get_map(k2)
+    offs = TM.region_offsets_for(CUBE, (3,) * 3, (1,) * 3, a.tensor_stride, None)
+    offs = np.concatenate([np.zeros((len(offs), 1), np.int64), offs], 1)
+    assert torch.equal(km.in_idx, KM._build_in_idx_grid(mgr._probe_grid_for(k1), b.coordinates, offs))
+    assert torch.equal(km.out_idx_t,
+                       KM._build_in_idx_grid(mgr._probe_grid_for(k2), a.coordinates, -offs))
+
+
+@pytest.mark.parametrize("probes", ["both", "in", "out", "none"])
+def test_each_half_takes_its_route(probes):
+    """A half with a grid takes the plain version on the CPU; a half
+    without one the search (``in_idx``) or the inverted matching
+    (``out_idx_t``); every route gives the search's map."""
+    mgr = port_manager(3)
+    k1, _ = mgr.insert_and_map(cloud(3, seed=51, misaligned=True))
+    k2 = mgr.stride(k1, 2)
+    a, b = mgr._get_map(k1), mgr._get_map(k2)
+    offs = TM.region_offsets_for(CUBE, (2,) * 3, (1,) * 3, a.tensor_stride, None)
+    pa = mgr._probe_grid_for(k1) if probes in ("both", "in") else None
+    pb = mgr._probe_grid_for(k2) if probes in ("both", "out") else None
+    km, routes, launches = route_deltas(lambda: KM.build_kernel_map(a, b, offs, pa, pb))
+    ops = (pa is not None) + (pb is not None)
+    assert routes == {"kernel": 0, "ops": ops, "search": 2 - ops} and launches == 0
+    want = KM.build_kernel_map(a, b, offs)
+    assert torch.equal(km.in_idx, want.in_idx) and torch.equal(km.out_idx_t, want.out_idx_t)
+
+
+def test_smoke_phase_47_rebuilds_each_forward_map_equal_to_the_managers():
+    """``chip_smoke.py``'s phase 47 builds each cached forward map again
+    through ``build_kernel_map`` and through the plain version; on the CPU
+    both are the plain route and give the manager's map index for index,
+    and the bound counts 2 K N int32 written and D + 1 read a row."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke as cs
+
+    mgr = port_manager(3)
+    k1, _ = mgr.insert_and_map(cloud(3, seed=53, misaligned=True))
+    k2 = mgr.stride(k1, 2)
+    mgr.kernel_map(k1, k1, kernel_size=5)
+    mgr.kernel_map(k1, k2, stride=2, kernel_size=2)
+    mgr.kernel_map(k2, k1, stride=2, kernel_size=2, is_transpose=True)
+    mgr.kernel_map(k2, k2, kernel_size=3)
+    forward = [ck for ck in mgr._kernel_maps if not ck[6]]
+    assert len(forward) == 3
+    for ck in forward:
+        km = mgr._kernel_maps[ck]
+        kernel, plain, bound_ms = cs.probe_routes(mgr, ck)
+        for got in (kernel(), plain()):
+            assert torch.equal(got[0], km.in_idx) and torch.equal(got[1], km.out_idx_t)
+        rows = km.n_in + km.n_out
+        assert bound_ms == pytest.approx((4 * km.kernel_volume + 16) * rows / cs.HBM_BYTES_PER_MS)
+
+
+def test_maps_over_the_cap_take_the_search(monkeypatch):
+    monkeypatch.setattr(TM, "_MAX_GRID_CELLS", 0)
+    c = cloud(3, seed=52)
+    _, routes, launches = route_deltas(lambda: build(MT, port_manager(3), c, 3, 1, 1, False, CUBE))
+    assert routes == {"kernel": 0, "ops": 0, "search": 2} and launches == 0
+
+
+def probe_half(D=3, n=10, K=4, cells=(2, 16, 16, 16), ts=(1, 1, 1)):
+    """A well-formed half on the CPU, which the kernel refuses only for its
+    device."""
+    grid = torch.full((int(np.prod(cells)) + 1,), -1, dtype=torch.int32)
+    return GP.Half((grid, torch.zeros(D + 1, dtype=torch.int32), cells, ts),
+                   torch.zeros(n, D + 1, dtype=torch.int32),
+                   torch.zeros(K, D + 1, dtype=torch.int32), torch.ones(n, dtype=torch.bool))
+
+
+def _swap(h, **kw):
+    return h._replace(**kw)
+
+
+def _probe(h, i, value):
+    p = list(h.probe)
+    p[i] = value
+    return h._replace(probe=tuple(p))
+
+
+REFUSALS = {
+    "no half": (lambda h: (), ValueError, "one or two halves"),
+    "three halves": (lambda h: (h, h, h), ValueError, "one or two halves"),
+    "int64 rows": (lambda h: (_swap(h, coords=h.coords.long()),), TypeError, "int32"),
+    "rows not contiguous": (lambda h: (_swap(h, coords=torch.zeros(4, 10, dtype=torch.int32).T),),
+                            ValueError, "contiguous"),
+    "D = 7": (lambda h: (_swap(h, coords=torch.zeros(10, 8, dtype=torch.int32)),), ValueError,
+              "D = 1..6"),
+    "offsets of D = 2": (lambda h: (_swap(h, offsets=torch.zeros(4, 3, dtype=torch.int32)),),
+                         ValueError, "not \\(K, 4\\)"),
+    "valid of 9 rows": (lambda h: (_swap(h, valid=torch.ones(9, dtype=torch.bool)),), ValueError,
+                        "valid has 9 rows"),
+    "valid as int": (lambda h: (_swap(h, valid=torch.ones(10, dtype=torch.int32)),), TypeError,
+                     "bool"),
+    "three minima": (lambda h: (_probe(h, 1, torch.zeros(3, dtype=torch.int32)),), ValueError,
+                     "4 minima"),
+    "a short row grid": (lambda h: (_probe(h, 0, h.probe[0][:-1]),), ValueError, "sentinel"),
+    "stride 0": (lambda h: (_probe(h, 3, (1, 0, 1)),), ValueError, "below 1"),
+    "halves of K 4 and 5": (lambda h: (h, _swap(h, offsets=torch.zeros(5, 4, dtype=torch.int32))),
+                            ValueError, "share K and D"),
+    "CPU tensors": (lambda h: (h, h), ValueError, "takes CUDA tensors"),
+}
+
+
+@pytest.mark.parametrize("case", list(REFUSALS))
+def test_the_kernel_refuses_what_it_does_not_take(case):
+    """``grid_probe`` checks every argument before it builds or launches
+    anything: a CPU half is refused last, after its shapes and types."""
+    make, error, message = REFUSALS[case]
+    launches = GP.grid_probe.launches
+    with pytest.raises(error, match=message):
+        GP.grid_probe(*make(probe_half()))
+    assert GP.grid_probe.launches == launches

@@ -9,8 +9,14 @@ Card (marked ``cuda``; skips where no card is visible, decided inside the
 test): in one profiled step of MinkUNet34 training at 5 cm, one 2 cm
 MinkUNet34 inference request and one CompletionNet training step, every
 synchronizing CUDA runtime call lies inside an ``me.sync.*`` span, and
-there are as many as the ``sync.*`` counters count.  Run with ``-s`` to
-see each synchronizing call's Python line.
+there are as many as the ``sync.*`` counters count.  A float32 MinkUNet34
+training step and a 2 cm request build their 10 kernel maps with 10
+launches of the grid-probe kernel (``kernels/grid_probe.py``), each in an
+``me.coords.kernel_map.grid`` span inside ``me.coords.kernel_map``, and no
+half in plain ops; the same step with the plain version on the card
+launches as many device operations outside those spans, and the plain
+version's inside them.  Run with ``-s`` to see each synchronizing call's
+Python line and the launch counts.
 """
 
 import glob
@@ -24,6 +30,8 @@ import pytest
 import torch
 
 import minkowskiengine_tpu_torch as MT
+from minkowskiengine_tpu_torch.coords import kernel_map as KM
+from minkowskiengine_tpu_torch.kernels import grid_probe as GP
 from minkowskiengine_tpu_torch.models import CompletionNet, MinkUNet34
 from minkowskiengine_tpu_torch.utils import profiling as P
 from minkowskiengine_tpu_torch.utils.datasets import completion_batch, make_room_scan, room_scan_voxels
@@ -249,3 +257,62 @@ def test_every_synchronizing_call_of_a_step_is_a_counted_host_read(make, tmp_pat
           f"{counted}\nsynchronizing lines (sync debug mode): {dict(lines)}")
     assert not outside, [(e["name"], e["ts"]) for e in outside]
     assert len(calls) == sum(counted.values())
+
+
+def plain_on_card(in_map, out_map, offsets, probe, probe_out):
+    """``kernel_map._probe_on_card`` in the plain version's ATen ops."""
+    rows = lambda p, offs, base: None if p is None else KM._build_in_idx_grid(  # noqa: E731
+        p, base.coordinates, offs, base.valid_mask())
+    return rows(probe, offsets, out_map), rows(probe_out, -offsets, in_map)
+
+
+def profiled_launches(step, log_dir):
+    """(device operations of one profiled step, those launched inside an
+    ``me.coords.kernel_map.grid`` span, the spans, the ``kernel_map`` spans)."""
+    with torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA],
+        on_trace_ready=torch.profiler.tensorboard_trace_handler(str(log_dir)),
+    ):
+        step()
+        torch.cuda.synchronize()
+    xs = [e for e in trace_events(log_dir) if e.get("cat") != "gpu_user_annotation"]
+    spans = [(e["tid"], e["ts"], e["ts"] + e["dur"]) for e in xs
+             if e["name"] == "me.coords.kernel_map.grid"]
+    outer = [(e["tid"], e["ts"], e["ts"] + e["dur"]) for e in xs
+             if e["name"] == "me.coords.kernel_map"]
+    launch_at = {e["args"]["correlation"]: (e["tid"], e["ts"]) for e in xs
+                 if e.get("cat") == "cuda_runtime" and "correlation" in e.get("args", {})}
+    device = P.device_operations(xs)
+    inside = 0
+    for e in device:
+        tid, ts = launch_at.get(e["args"].get("correlation"), (None, None))
+        inside += any(t == tid and lo <= ts <= hi for t, lo, hi in spans)
+    return len(device), inside, spans, outer
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("make", [segmentation_train_step, segmentation_request])
+def test_a_step_builds_each_kernel_map_in_one_launch(make, tmp_path, monkeypatch):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda:0")
+    step = make(dev)
+    step()
+    step()  # the kernels are built and the allocator warm
+    before, launches = dict(KM.build_kernel_map.route_builds), GP.grid_probe.launches
+    step()
+    routes = {k: v - before[k] for k, v in KM.build_kernel_map.route_builds.items()}
+    assert routes == {"kernel": 20, "ops": 0, "search": 0}
+    assert GP.grid_probe.launches - launches == 10
+    total, inside, spans, outer = profiled_launches(step, tmp_path / "kernel")
+    assert len(spans) == inside == 10, (len(spans), inside)
+    for t, lo, hi in spans:
+        assert any(t == u and a <= lo and hi <= b for u, a, b in outer)
+    monkeypatch.setattr(KM, "_probe_on_card", plain_on_card)
+    step()
+    p_total, p_inside, p_spans, _ = profiled_launches(step, tmp_path / "plain")
+    print(f"\n{make.__name__}: {total} device operations a step with the kernel, {p_total} with "
+          f"the plain version on the card; inside the 10 map builds {inside} against {p_inside}")
+    assert len(p_spans) == 10 and p_inside > 10 * inside, (len(p_spans), p_inside, inside)
+    assert p_total - total == p_inside - inside, (total, inside, p_total, p_inside)
