@@ -16,8 +16,9 @@ card; the dense bbox grid: the row-grid probe against the key search;
 the bf16 bodies of both kernels timed on the device alone; CompletionNet
 and the VAE in bf16, each held to its own keep masks; K1's float32 bodies
 on MinkUNet34's and CompletionNet's step maps; K1 and K2 on every conv
-call of a Point Transformer V3 step and its attention; and last, the
-kernel maps' grid-probe kernel against its plain version.
+call of a Point Transformer V3 step and its attention; the kernel maps'
+grid-probe kernel against its plain version; and last, one Mask3D
+training step against float64 on its own decisions.
 
 Run from the root of a checkout, with one CUDA card visible:
 
@@ -421,6 +422,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    device operations each launches (profiler), and the bytes bound: the
    2 · K · N int32 it writes and the D + 1 int32 coordinates of each row
    it reads, over 3.35 TB/s.
+
+48. Mask3D (``models/mask3d.py``): one float32 training step at the
+   published widths on the benchmark cell's first step (five 2 cm rooms,
+   ``portbench/traffic/mask3d_train.py``, about 815k voxels), against the
+   plain reference (``portbench/reference/mask3d.py``) in float64 and in
+   float32 held to the step's decisions (the FPS rows, key samples,
+   attention masks and assignments): the FPS rows equal the reference's
+   own, the loss, the final class and mask logits and every gradient leaf
+   (median and worst leaf's |Δ| over its largest |ref|) within
+   GRAD_FACTOR times the float32 reference's distance from float64 (and
+   1e-5 of it for the loss and logits); the step's time, peak memory,
+   launches and ``sync.*`` reads (13 ``sync.match.costs``).
 
 Bound of a kernel call: the larger of its useful operations (2 · pairs ·
 Cin · Cout) over the H100's 495 TFLOP/s dense TF32 tensor peak and its
@@ -5072,6 +5085,93 @@ def grid_probe_maps(dev, reuse):
     return sums
 
 
+def mask3d_step(dev):
+    """Phase 48: one float32 Mask3D training step on the benchmark cell's
+    first five rooms against the plain reference in float64 and float32,
+    both held to the step's decisions."""
+    from portbench import harness, tracing
+    from portbench.reference import mask3d as R
+
+    start = time.perf_counter()
+    cell = harness.load_cell("mask3d.train.room2cm")
+    cfg = cell["config"]
+    traffic = harness.traffic_class(cell["kind"])(cell, 0, dev, tracing.Tracer(False))
+    weights = harness.make_weights(R.parameter_spec(cfg), 0, dev)
+    coords, feats, raw, inst, labels, scenes = (
+        torch.from_numpy(a).to(dev) if isinstance(a, np.ndarray) else a for a in traffic.inputs(0))
+    model = MT.models.Mask3D(
+        cfg["in_channels"], cfg["num_targets"], D=3, out_channels=cfg["out_channels"],
+        sample_sizes=[cfg["sample_sizes"][h] for h in cfg["hlevels"]], device=dev).train()
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            p.copy_(weights[n])
+        model.decoder.pos_enc.gauss_B.copy_(traffic.gauss)
+    crit = MT.models.SetCriterion(cfg["num_targets"], cfg["eos_coef"], device=dev)
+    MT.utils.profiling.reset_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    x = MT.SparseTensor(feats, coords, device=dev)
+    rows = x.unique_index.to(dev).long()
+    out = model(x, raw.index_select(0, rows), traffic.generator(0))
+    loss, assign = crit(out, MT.models.InstanceTargets(inst.index_select(0, rows), labels, scenes))
+    loss.backward()
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    syncs = {k[5:]: v["count"] for k, v in MT.utils.profiling.counters().items()
+             if k.startswith("sync.")}
+    if syncs.get("match.costs") != 13:
+        raise AssertionError(f"[48] {syncs.get('match.costs')} cost reads, not 13")
+    port = {"loss": float(loss.detach()), "classes": out["pred_logits"].detach().double(),
+            "masks": out["pred_masks"].detach().double(),
+            "grads": {n: p.grad.double() for n, p in model.named_parameters()
+                      if p.grad is not None}}
+    held = {"fps": out["fps"], "attn": out["attn_masks"], "samples": out["samples"]}
+    del model, crit, out, loss, x
+    torch.cuda.empty_cache()
+
+    def reference(dtype):
+        p = {n: t.detach().to(dtype).clone().requires_grad_(True) for n, t in weights.items()}
+        state = dict(p, **{n: t.to(dtype) for n, t in R.buffers(cfg, dev).items()})
+        state["decoder.pos_enc.gauss_B"] = traffic.gauss.to(dev, dtype)
+        rec = R.forward(cfg, state, coords, feats.to(dtype), raw.to(dtype), held)
+        ref_loss, _, margin = R.criterion(cfg, rec, inst, labels, scenes, assign)
+        ref_loss.backward()
+        classes, masks = rec["predictions"][-1]
+        got = {"loss": float(ref_loss.detach()), "classes": classes.detach().double(),
+               "masks": masks.detach().double(), "fps_mismatch": rec["fps_mismatch"],
+               "grads": {n: t.grad.double() for n, t in p.items() if t.grad is not None}}
+        del rec, ref_loss, state, p
+        torch.cuda.empty_cache()
+        return got
+
+    ref64, ref32 = reference(torch.float64), reference(torch.float32)
+
+    def distance(a, b):
+        rel = lambda x, y: float((x - y).abs().max() / y.abs().max().clamp_min(1e-300))  # noqa: E731
+        leaves = sorted(rel(a["grads"][n], g) for n, g in b["grads"].items())
+        return {"loss": abs(a["loss"] - b["loss"]) / abs(b["loss"]),
+                "logits": max(rel(a["classes"], b["classes"]), rel(a["masks"], b["masks"])),
+                "grad_median": leaves[len(leaves) // 2], "grad_worst": leaves[-1]}
+
+    ours, yard = distance(port, ref64), distance(ref32, ref64)
+    print(f"[48 Mask3D, one training step on five 2 cm rooms] {len(coords):,} voxels, "
+          f"{step_s * 1e3:.1f} ms (one eager step, host clock), peak {peak:.2f} GiB; "
+          f"syncs {syncs}; FPS rows unequal to the reference's {ref64['fps_mismatch']}")
+    print(f"  from float64: port {ours}; plain float32 {yard}")
+    if ref64["fps_mismatch"]:
+        raise AssertionError("[48] the port's FPS rows differ from the reference's")
+    for k in ("loss", "logits"):
+        if ours[k] > max(GRAD_FACTOR * yard[k], 1e-5):
+            raise AssertionError(f"[48] {k} {ours[k]:.2e} from float64, float32 plain {yard[k]:.2e}")
+    for k in ("grad_median", "grad_worst"):
+        if ours[k] > GRAD_FACTOR * max(yard[k], 1e-6):
+            raise AssertionError(f"[48] {k} {ours[k]:.2e} from float64, float32 plain {yard[k]:.2e}")
+    print(f"[48] {time.perf_counter() - start:.1f} s")
+    return {"ms": step_s * 1e3, "peak_gib": peak, **ours}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -5124,6 +5224,7 @@ def main() -> int:
     ptv3_rows = ptv3_redesign(dev)
     attn_sums = ptv3_attention(dev)
     probe_sums = grid_probe_maps(dev, reuse)
+    mask3d_step(dev)
 
     bwd = (synth_bwd + real_bwd + fcnn_bwd + gen_rows + completion_bwd + vae_bwd + splat_bwd
            + shim_bwd + high_rows)

@@ -249,7 +249,9 @@ PAGES = [
         "Models",
         "The model zoo: ResNet14/18/34/50/101, MinkUNet14/18/34/50/101 "
         "(+A/B/C/D variants), the classification nets, the "
-        "completion/VAE generative nets and Point Transformer V3. Every "
+        "completion/VAE generative nets, Point Transformer V3 and Mask3D "
+        "(instance segmentation: `Mask3D`, `SetCriterion`, `HungarianMatcher`). "
+        "Every "
         "constructor takes "
         "`generator=` (weights drawn on the CPU, the same on any device) "
         "and `device=`.",

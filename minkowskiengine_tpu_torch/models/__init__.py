@@ -3,6 +3,7 @@ point-cloud classifiers and the generative models (CompletionNet, VAE)."""
 
 from .classification import GlobalMaxAvgPool, MinkowskiFCNN, MinkowskiPointNet, MinkowskiSplatFCNN
 from .completion import CompletionNet
+from .mask3d import HungarianMatcher, InstanceTargets, Mask3D, Mask3DDecoder, SetCriterion
 
 from .minkunet import (
     MinkUNet14,
@@ -35,6 +36,11 @@ __all__ = [
     "VAE",
     "VAEDecoder",
     "VAEEncoder",
+    "HungarianMatcher",
+    "InstanceTargets",
+    "Mask3D",
+    "Mask3DDecoder",
+    "SetCriterion",
     "GlobalMaxAvgPool",
     "MinkowskiFCNN",
     "MinkowskiPointNet",

@@ -16,6 +16,11 @@ from .resnet import ResNetBase
 
 
 class MinkUNetBase(ResNetBase):
+    """The U-Net: ``forward(x)`` is the per-row classifier ``final`` on the
+    last of ``feature_levels(x)``, the decoder's five levels (block4 at
+    tensor stride 16 through block8 at stride 1) that a query decoder such
+    as ``Mask3D``'s reads."""
+
     BLOCK = None
     PLANES = (32, 64, 128, 256, 256, 128, 96, 96)
     DILATIONS = (1, 1, 1, 1, 1, 1, 1, 1)
@@ -85,7 +90,10 @@ class MinkUNetBase(ResNetBase):
         )
         self.relu = MinkowskiReLU()
 
-    def forward(self, x):
+    def feature_levels(self, x):
+        """Yields the decoder's five levels, coarsest first: block4 (tensor
+        stride 16), block5 (8), block6 (4), block7 (2) and block8 (1), the
+        features a query decoder such as Mask3D's reads."""
         out = self.conv0p1s1(x)
         out = self.bn0(out)
         out_p1 = self.relu(out)
@@ -109,32 +117,41 @@ class MinkUNetBase(ResNetBase):
         out = self.bn4(out)
         out = self.relu(out)
         out = self.block4(out)
+        yield out
 
         out = self.convtr4p16s2(out)  # tensor_stride=8
         out = self.bntr4(out)
         out = self.relu(out)
         out = cat(out, out_b3p8)
         out = self.block5(out)
+        yield out
 
         out = self.convtr5p8s2(out)  # tensor_stride=4
         out = self.bntr5(out)
         out = self.relu(out)
         out = cat(out, out_b2p4)
         out = self.block6(out)
+        yield out
 
         out = self.convtr6p4s2(out)  # tensor_stride=2
         out = self.bntr6(out)
         out = self.relu(out)
         out = cat(out, out_b1p2)
         out = self.block7(out)
+        yield out
 
         out = self.convtr7p2s2(out)  # tensor_stride=1
         out = self.bntr7(out)
         out = self.relu(out)
         out = cat(out, out_p1)
         out = self.block8(out)
+        yield out
 
-        return self.final(out)
+    def forward(self, x):
+        levels = self.feature_levels(x)
+        for _ in range(4):
+            next(levels)  # dropped as it comes: no coarser level outlives its use
+        return self.final(next(levels))
 
 
 class MinkUNet14(MinkUNetBase):

@@ -29,17 +29,21 @@ launch for a map's halves that have a row grid),
 Transformer V3) is ``me.attn.plan`` (a map's window plan),
 ``me.attn.fwd`` and ``me.attn.bwd`` (the gathers, the fused attention and
 the scatter, and their backward), and ordering a map along its curves is
-``me.coords.serialize``; every host read of a device value
+``me.coords.serialize``; Mask3D's query decoder and set criterion are
+``me.mask3d.<part>`` (``levels``, ``fps``, ``posenc``, ``mask_module``
+with ``.pool`` inside, ``cross_attn``, ``self_attn``, ``ffn``,
+``criterion`` with ``.match`` inside); every host read of a device value
 is ``me.sync.<site>``; tensor construction and the multi-op layers are
 ``me.tensor.*`` and ``me.nn.*``.
 
 **Counters**, always on: a count and host seconds (``time.perf_counter``)
-under four boundaries.  ``sync.<site>``: each host read at that site
+under five boundaries.  ``sync.<site>``: each host read at that site
 (``host_read``), each of which waits for the card's queue to drain;
 ``coords``: the coordinate phase's outermost building calls (a nested call
 is not counted again) and the generative decoder's keep read; ``conv``:
 the sparse conv's forward and each part of its backward; ``attn``: each
-part of serialized attention.  ::
+part of serialized attention; ``mask3d``: each outer part of Mask3D's
+decoder and criterion (their forward, on the host).  ::
 
     MT.utils.profiling.reset_counters()
     train_step(...)
@@ -175,6 +179,15 @@ def attn_part(part: str) -> _Counted:
     """One part of serialized attention (``plan``, ``fwd``, ``bwd``): the
     span ``me.attn.<part>`` and the ``attn`` counter."""
     return _Counted("attn", "attn." + part)
+
+
+def mask3d_part(part: str) -> _Counted:
+    """One part of Mask3D's query decoder or of its set criterion
+    (``levels``, ``fps``, ``posenc``, ``mask_module``, ``cross_attn``,
+    ``self_attn``, ``ffn``, ``criterion``): the span ``me.mask3d.<part>``
+    and the ``mask3d`` counter.  The parts nested in these (``.pool`` in
+    ``mask_module``, ``.match`` in ``criterion``) are spans alone."""
+    return _Counted("mask3d", "mask3d." + part)
 
 
 def host_read(site: str, coords: bool = False, reads: int = 1) -> _Counted:
